@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (metagenome_vector_sketches_tpu_torch).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py            # N = 65,536 accessions, d = 2048
+    python3 chip_smoke.py --n 262144
+
+It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
+
+1. kernels: each kernel against its plain PyTorch version on the card,
+   with exact equality (projection P, sweep S in both epilogues,
+   partials X);
+2. main: the main path at N accessions x d = 2048 — synthetic hash sets
+   with planted groups -> sketch (P) -> one pairwise shard (S, X) ->
+   top-k queries of planted rows; planted recall must be 1.0, an exact
+   numpy oracle must agree on sampled rows, and every kernel's launch
+   count over that run must be > 0. Then each kernel is timed against its
+   plain version at the main path's shapes;
+3. cli: the README walkthrough through the port's command-line tools at
+   N = 2048 on an int32 and an --int16 db, every output held against an
+   exact numpy oracle.
+
+Any failure raises (exit code != 0). On success the last two lines of
+stdout are a JSON object with the per-kernel results and
+{"ok": true, "device": {...}}. Without CUDA it exits with 1 and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+D = 2048
+PKG = "metagenome_vector_sketches_tpu_torch"
+REPLACES = {
+    "projection": "metagenome_vector_sketches_tpu/ops/projection.py:107",
+    "sweep": "metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55",
+    "partials": "metagenome_vector_sketches_tpu/ops/pairwise.py:888",
+}
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def cuda_ms(fn, reps: int = 3) -> float:
+    """Mean device time of fn() over reps calls (CUDA events, warm)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rows_of(rc, n):
+    """Survivor pairs of a (cap, 2) buffer as a sorted (n, 2) numpy array."""
+    a = rc[:n].cpu().numpy().astype(np.int64)
+    return a[np.lexsort((a[:, 1], a[:, 0]))]
+
+
+# ---------------------------------------------------------------------------
+# phase 1: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _sweep_state(N, d, max_abs, seed):
+    """Random int32 db with planted near-duplicates -> (V, planes, thr)."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    rng = np.random.default_rng(seed)
+    V = rng.integers(-max_abs, max_abs + 1, size=(N, d)).astype(np.int32)
+    for g in range(0, N - 8, 97):          # planted groups of 5
+        V[g + 1:g + 5] = np.clip(
+            V[g] + rng.integers(-3, 4, size=(4, d)), -max_abs, max_abs)
+    L = pm.pick_limbs(max_abs)
+    planes = torch.zeros((pm.num_planes(L), N, pw.pad_dim(d)),
+                         dtype=torch.int8, device="cuda")
+    pw.planes_update(planes, pw.decompose_limbs(
+        torch.from_numpy(V).cuda(), L), 0)
+    ns = np.einsum("ij,ij->i", V.astype(np.float64), V.astype(np.float64)) / d
+    thr = torch.from_numpy(
+        (ns + pm.threshold_adjust(L, max_abs, d)).astype(np.float32)).cuda()
+    return V, L, planes, thr
+
+
+def phase_kernels(errs):
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    from metagenome_vector_sketches_tpu_torch.ops import projection as pj
+
+    # P: 2000 sets of 1-5000 hashes (full uint64 range), one of them empty
+    rng = np.random.default_rng(1)
+    sizes = rng.integers(1, 5001, size=2000)
+    sizes[17] = 0
+    flat = rng.integers(0, 2**64, size=int(sizes.sum()), dtype=np.uint64)
+    check(bool((flat >= 2**63).any()), "no hash >= 2^63 in the P input")
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    h = torch.from_numpy(flat.view(np.int64)).cuda()
+    o = torch.from_numpy(offsets).cuda()
+    got = pj.project_batch(h, o, D, "cuda")
+    want = pj.project_batch_plain(h, o, D)
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0, f"projection kernel differs from plain by {err}")
+    check(bool((got[17] == 0).all()), "empty set must project to zero")
+    errs["projection"] = max(errs["projection"], err)
+    say(f"[kernels] P: 2000 sets x d={D}, {len(flat)} hashes: exact")
+
+    cases = [  # (N, d, max_abs, (block, block_j) list)
+        (4096, 2048, 1000, [(128, 128), (256, 128)]),
+        (2048, 128, 30000, [(128, 128), (256, 128)]),
+        (1024, 200, 300, [(128, 128)]),
+    ]
+    for case, (N, d, max_abs, blocks) in enumerate(cases):
+        V, L, planes, thr = _sweep_state(N, d, max_abs, seed=10 + case)
+        P = planes.shape[0]
+        for block, block_j in blocks:
+            for r0, r1 in ((0, None), (1, 3)):
+                k = pp.sweep_counts(planes, thr, d, r0, r1, block, block_j)
+                p = pp.sweep_counts_plain(planes, thr, d, r0, r1, block,
+                                          block_j)
+                err = int((k.long() - p.long()).abs().max())
+                check(err == 0, f"S COUNT differs (N={N} d={d} P={P} "
+                                f"blocks {block}/{block_j} rows {r0}:{r1})")
+                errs["sweep"] = max(errs["sweep"], err)
+        # APPEND over the triangle grid at tile 256, self-pairs masked
+        tile = 256
+        nt = N // tile
+        coords = np.array([(r, c) for r in range(nt) for c in range(r, nt)],
+                          dtype=np.int32)
+        cap = 1 << 20
+        rc_k, cnt_k, tot_k = pw.sweep_extract(planes, thr, planes, thr,
+                                              coords, tile, cap, True, d)
+        rc_p, cnt_p, tot_p = pw.sweep_extract_plain(
+            planes, thr, planes, thr, coords, tile, cap, True, d)
+        n = int(tot_k.item())
+        check(n == int(tot_p.item()) and n <= cap, "S APPEND totals differ")
+        check(torch.equal(cnt_k, cnt_p), "S APPEND per-tile counts differ")
+        check(np.array_equal(rows_of(rc_k, n), rows_of(rc_p, n)),
+              "S APPEND survivor sets differ")
+        full = pp.sweep_counts(planes, thr, d, block=tile, block_j=tile)
+        diag = pw.retention_mask(pw.approx_dot_f32(planes, planes), thr,
+                                 thr, d).diagonal().reshape(nt, tile).sum(1)
+        ci = torch.from_numpy(coords.astype(np.int64)).cuda()
+        want = full[ci[:, 0], ci[:, 1]].long()
+        want -= torch.where(ci[:, 0] == ci[:, 1], diag[ci[:, 0]], 0)
+        check(torch.equal(cnt_k.long(), want),
+              "S APPEND counts != COUNT counts minus the diagonal")
+        # overflow: a small cap keeps the exact total, writes a subset
+        small = max(1, n // 3)
+        rc_s, cnt_s, tot_s = pw.sweep_extract(planes, thr, planes, thr,
+                                              coords, tile, small, True, d)
+        check(int(tot_s.item()) == n and torch.equal(cnt_s, cnt_k),
+              "S APPEND past its cap must keep counting")
+        sub = {tuple(x) for x in rows_of(rc_s, small).tolist()}
+        check(len(sub) == small and sub <= {tuple(x) for x in
+                                            rows_of(rc_k, n).tolist()},
+              "S APPEND past its cap wrote pairs that are not survivors")
+        # X on the survivors plus some self pairs and random pairs
+        extra = torch.from_numpy(rng.integers(0, N, size=(4096, 2))
+                                 .astype(np.int32)).cuda()
+        cand = torch.cat([rc_k[:n], extra]).contiguous()
+        xk = pw.pair_partials(planes, cand, L)
+        xp = pw.pair_partials_plain(planes, cand, L)
+        err = int((xk.long() - xp.long()).abs().max())
+        check(err == 0, f"X differs from plain by {err} (L={L})")
+        errs["partials"] = max(errs["partials"], err)
+        ch = cand.cpu().numpy().astype(np.int64)
+        exact = np.einsum("kd,kd->k", V[ch[:, 0]].astype(np.int64),
+                          V[ch[:, 1]].astype(np.int64))
+        check(np.array_equal(pm.combine_plane_partials(
+            xk.cpu().numpy().T, L), exact), "X partials do not combine to "
+                                            "the exact dots")
+        say(f"[kernels] S/X: N={N} d={d} L={L} P={P}: COUNT exact, APPEND "
+            f"{n} survivors exact, X {len(ch)} pairs exact")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the main path at production size
+# ---------------------------------------------------------------------------
+
+def phase_main(N, work, timings):
+    import torch
+    from benchmarks.full_pipeline import GROUP, synth_hashes_file
+    from benchmarks.stream_scale import spot_check
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.host import (
+        DbFolder, parse_hashes_file, query_engine)
+    from metagenome_vector_sketches_tpu_torch.io.ingest import sketch
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    from metagenome_vector_sketches_tpu_torch.ops import projection as pj
+
+    n_groups, n_heavy = max(1, N // 64), max(1, N // 128)
+    hashes = os.path.join(work, "all_hashes.txt")
+    t0 = time.perf_counter()
+    synth_hashes_file(hashes, N, n_groups, n_heavy)
+    say(f"[main] synthesised {N} hash sets in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    db_path, mat = os.path.join(work, "db"), os.path.join(work, "mat")
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    db = sketch(hashes, db_path, D, device="cuda", verbose=False)
+    t_sketch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mc.compute_pairwise_shard(db_path, mat, device="cuda", verbose=False)
+    t_pair = time.perf_counter() - t0
+    names, norms = db.names_and_norms_f32()
+    rng = np.random.default_rng(3)
+    n_query = min(1024, n_groups * GROUP)
+    qrows = sorted(int(r) for r in rng.choice(n_groups * GROUP, n_query,
+                                              replace=False))
+    t0 = time.perf_counter()
+    results = query_engine.query(mat, qrows, norms, names)
+    t_query = time.perf_counter() - t0
+    launches = _build.launch_counts()
+
+    stages = {k: (round(v, 1) if isinstance(v, float) else v)
+              for k, v in mc.LAST_STAGES.items()}
+    say(f"[main] stages N={N} d={D}: {json.dumps(stages)}")
+    say(f"[main] sketch {t_sketch:.2f} s, pairwise {t_pair:.2f} s, "
+        f"query {n_query} rows {t_query:.3f} s, launches {launches}")
+    found = 0
+    for row, res in zip(qrows, results):
+        g = row // GROUP
+        mates = {f"ACC{g * GROUP + m:07d}" for m in range(GROUP)} \
+            - {f"ACC{row:07d}"}
+        found += len(mates & set(res.neighbor_ids))
+    recall = found / (3 * n_query)
+    say(f"[main] planted recall {recall}")
+    check(recall == 1.0, f"planted recall {recall} != 1.0")
+    check(pm.pick_limbs(max(1, db.max_component())) == 2,
+          "the main path must run the 2-limb (P=3) planes")
+    check(bool(spot_check(db_path, mat, N, D, n_rows=3)),
+          "oracle spot check failed")
+    say("[main] oracle spot check on 3 rows: ok")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched by the main path")
+
+    # kernels against their plain versions at the main path's shapes
+    # (after the counted run: these launches are not the main path's)
+    named = parse_hashes_file(hashes)[:32768]   # project_many's batch
+    sizes = np.array([len(h) for _, h in named])
+    h = torch.from_numpy(np.concatenate([x for _, x in named])
+                         .view(np.int64)).cuda()
+    o = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])
+                         .astype(np.int64)).cuda()
+    got = pj.project_batch(h, o, D, "cuda")
+    check(torch.equal(got, pj.project_batch_plain(h, o, D)),
+          "projection differs from plain at main-path shapes")
+    timings["projection"] = (cuda_ms(lambda: pj.project_batch(h, o, D, "cuda")),
+                             cuda_ms(lambda: pj.project_batch_plain(h, o, D)))
+
+    tile = 2048
+    V = np.fromfile(os.path.join(db_path, "vectors.bin"), dtype=np.int32,
+                    count=4 * tile * D).reshape(4 * tile, D)
+    L = pm.pick_limbs(max(1, db.max_component()))
+    planes = torch.zeros((pm.num_planes(L), 4 * tile, pw.pad_dim(D)),
+                         dtype=torch.int8, device="cuda")
+    pw.planes_update(planes, pw.decompose_limbs(torch.from_numpy(V).cuda(),
+                                                L), 0)
+    _, norms64 = db.names_and_norms()
+    thr = torch.from_numpy((norms64[:4 * tile] ** 2 + pm.threshold_adjust(
+        L, db.max_component(), D)).astype(np.float32)).cuda()
+    coords = np.array([(r, c) for r in range(4) for c in range(r, 4)],
+                      dtype=np.int32)
+    cap = 1 << 22
+    rc_k, cnt_k, tot_k = pw.sweep_extract(planes, thr, planes, thr, coords,
+                                          tile, cap, True, D)
+    rc_p, cnt_p, tot_p = pw.sweep_extract_plain(planes, thr, planes, thr,
+                                                coords, tile, cap, True, D)
+    n = int(tot_k.item())
+    check(n == int(tot_p.item()) and torch.equal(cnt_k, cnt_p)
+          and np.array_equal(rows_of(rc_k, n), rows_of(rc_p, n)),
+          "sweep differs from plain at main-path shapes")
+    timings["sweep"] = (
+        cuda_ms(lambda: pw.sweep_extract(planes, thr, planes, thr, coords,
+                                         tile, cap, True, D)),
+        cuda_ms(lambda: pw.sweep_extract_plain(planes, thr, planes, thr,
+                                               coords, tile, cap, True, D),
+                reps=1))
+    self_rc = torch.arange(4 * tile, dtype=torch.int32, device="cuda")
+    cand = torch.cat([rc_k[:n], self_rc[:, None].expand(-1, 2)]).contiguous()
+    xk = pw.pair_partials(planes, cand, L)
+    check(torch.equal(xk, pw.pair_partials_plain(planes, cand, L)),
+          "partials differ from plain at main-path shapes")
+    timings["partials"] = (cuda_ms(lambda: pw.pair_partials(planes, cand, L)),
+                           cuda_ms(lambda: pw.pair_partials_plain(planes,
+                                                                  cand, L)))
+    pairs = len(coords) * tile * tile
+    say(f"[main] timed shapes: P {len(named)} sets ({int(sizes.sum())} "
+        f"hashes) at d={D}; S {len(coords)} tiles of {tile}^2 "
+        f"({pairs} pairs, P={planes.shape[0]}, {n} survivors); "
+        f"X {len(cand)} pairs at L={L}")
+    for k, (ms, plain) in timings.items():
+        say(f"[main] {k}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    say(f"[main] sweep kernel int8 rate: "
+        f"{2 * pairs * D * planes.shape[0] / (timings['sweep'][0] * 1e-3) / 1e12:.1f}"
+        " TOP/s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the README walkthrough through the port's command-line tools
+# ---------------------------------------------------------------------------
+
+def _oracle(db_path, dtype):
+    """Exact retained (row, col) -> quantised Jaccard of a db folder."""
+    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
+                                                           quantize_jaccard)
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    db = DbFolder(db_path)
+    V = db.load_vectors().astype(np.float64)
+    _, norms = db.names_and_norms()
+    ns = norms * norms
+    dots = (V @ V.T).astype(np.int64)           # exact: |dot| < 2^53
+    r, c = np.nonzero(np.ones_like(dots, dtype=bool))
+    dv = dots.reshape(-1)
+    filt = pm.exact_filter_int16 if dtype == "int16" else pm.exact_filter_int32
+    keep = filt(dv, 0.05 * (ns[r] + ns[c]), V.shape[1])
+    r, c, dv = r[keep], c[keep], dv[keep]
+    q = quantize_jaccard(dv, r, c, ns, V.shape[1])
+    return {(int(a), int(b)): int(x) for a, b, x in zip(r, c, q)}
+
+
+def phase_cli(work):
+    from benchmarks.full_pipeline import synth_hashes_file
+    from metagenome_vector_sketches_tpu_torch.cli import (
+        pairwise_comp, project_everything, query_pc_mat)
+    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
+                                                           MatrixReader)
+    N = 2048
+    hashes = os.path.join(work, "cli_hashes.txt")
+    synth_hashes_file(hashes, N, N // 64, N // 128, seed=11)
+    for dtype in ("int32", "int16"):
+        db_path = os.path.join(work, f"cli_db_{dtype}")
+        mat = os.path.join(work, f"cli_mat_{dtype}")
+        check(project_everything.main(
+            ["sketch", hashes, db_path, "-d", str(D)]
+            + (["--int16"] if dtype == "int16" else [])) == 0, "sketch CLI")
+        for s in range(2):
+            check(pairwise_comp.main(
+                ["--db", db_path, "--max_memory_gb", "4", "--num_threads",
+                 "1", "--output_folder", mat, "--num_shards", "2",
+                 "--shard_idx", str(s)]) == 0, "pairwise_comp CLI")
+        want = _oracle(db_path, dtype)
+        r, c, q = MatrixReader(mat).decode_all_triples(N)
+        got = {(int(a), int(b)): int(x) for a, b, x in zip(r, c, q)}
+        check(got == want, f"{dtype} shards differ from the exact oracle")
+        names, _ = DbFolder(db_path).names_and_norms()
+        qfile = os.path.join(work, "q.txt")
+        qrows = list(range(0, 64, 3))
+        with open(qfile, "w") as f:
+            f.write("\n".join(names[i] for i in qrows) + "\n")
+        out = os.path.join(work, f"top_{dtype}.csv")
+        check(query_pc_mat.main(["--matrix", mat, "--db", db_path,
+                                 "--query_file", qfile, "--top", "5",
+                                 "--write_to_file", out]) == 0, "query CLI")
+        for i in qrows:
+            nb = sorted(((cc, qq) for (rr, cc), qq in want.items() if rr == i),
+                        key=lambda t: (-t[1], t[0]))[:5]
+            expect = ["ID,Jaccard"] + [
+                f"{names[cc]},{float(np.float32(qq / 255.0)):.6g}"
+                for cc, qq in nb]
+            with open(os.path.join(work, f"{names[i]}_top_{dtype}.csv")) as f:
+                check(f.read().splitlines() == expect,
+                      f"top-5 of {names[i]} ({dtype}) differs from oracle")
+        rows, cols = list(range(0, 40, 2)), list(range(0, 64))
+        for fname, ids in (("rows.txt", rows), ("cols.txt", cols)):
+            with open(os.path.join(work, fname), "w") as f:
+                f.write("\n".join(names[i] for i in ids) + "\n")
+        sliced = os.path.join(work, f"sliced_{dtype}.csv")
+        check(query_pc_mat.main(
+            ["--matrix", mat, "--db", db_path, "--row_file",
+             os.path.join(work, "rows.txt"), "--col_file",
+             os.path.join(work, "cols.txt"), "--write_to_file", sliced]) == 0,
+            "sliced query CLI")
+        with open(sliced) as f:
+            lines = f.read().splitlines()
+        check(lines[0] == "Accession," + ",".join(names[i] for i in cols)
+              + ",", "sliced header")
+        for line, i in zip(lines[1:], rows):
+            vals = [f"{float(np.float32(want.get((i, j), 0) / 255.0)):.6g}"
+                    for j in cols]
+            check(line == names[i] + "," + ",".join(vals) + ",",
+                  f"sliced row {names[i]} ({dtype}) differs from oracle")
+        say(f"[cli] {dtype}: sketch -> pairwise_comp x2 shards -> top-5 and "
+            f"sliced queries equal the exact oracle ({len(want)} pairs)")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=65536,
+                    help="accessions of the main-path run (default 65536)")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from metagenome_vector_sketches_tpu_torch import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    say(card)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    say(f"[build] {os.path.relpath(lib_path, ROOT)} built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    errs = {k: 0 for k in _build.KERNELS}
+    timings: dict = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
+    try:
+        phase_kernels(errs)
+        launches = phase_main(args.n, work, timings)
+        phase_cli(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check("jax" not in sys.modules, "the port imported jax")
+
+    src = {"projection": "projection.cu", "sweep": "sweep.cu",
+           "partials": "partials.cu"}
+    kernels = [{"name": k, "route": "cuda",
+                "source": f"{PKG}/csrc/{src[k]}", "replaces": REPLACES[k],
+                "launches": launches[k], "max_abs_err": errs[k],
+                "ms": round(timings[k][0], 4),
+                "plain_ms": round(timings[k][1], 4)}
+               for k in _build.KERNELS]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,148 @@
+"""Build and bind the port's CUDA kernels.
+
+``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` into one shared library
+with a plain C interface, on first use, under ``build/torch_kernels/`` at the
+root of the checkout; the library name carries a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads at once.
+The library is loaded with ctypes: every pointer and the stream travel as
+``c_void_p``. Each C entry point returns ``cudaGetLastError()`` after its
+launch, and :func:`check` raises if it is not 0.
+
+Nothing here runs at import: the CPU tests import every module.
+
+Launch counts: each kernel wrapper calls :func:`count_launch` right after a
+launch that succeeded, and nowhere else, so a run can show that its main
+path went through the kernels (:func:`reset_launch_counts`,
+:func:`launch_counts`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+KERNELS = ("projection", "sweep", "partials")
+_launches = {k: 0 for k in KERNELS}
+
+_lib = None
+_lock = threading.Lock()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signatures of the entry points (all return an int cudaError_t)
+_SIGNATURES = {
+    # hashes, offsets, n_sets, d, out, stream
+    "mvs_project": [_P, _P, _I, _I, _P, _P],
+    # planes_i, planes_j, thr_i, thr_j, P, d, d_pad, stride_i, stride_j,
+    # coords, n_tiles, tile_r, tile_c, weights(host), slack_rel, slack_abs,
+    # mask_self, append, counts, rc, total, cap, stream
+    "mvs_sweep": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P,
+                  _F, _F, _I, _I, _P, _P, _P, _LL, _P],
+    # limbs, plane_stride, L, d_pad, rc, n, out, stream
+    "mvs_partials": [_P, _LL, _I, _I, _P, _LL, _P, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(_launches)
+
+
+def count_launch(kernel: str) -> None:
+    _launches[kernel] += 1
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _library_path() -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libmvs_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if this source state has no library yet;
+    returns the library path."""
+    path = _library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
+                           f"\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, path)        # atomic: a concurrent process never sees half
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.mvs_error_string.argtypes = [ctypes.c_int]
+            lib.mvs_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by an entry point."""
+    if rc != 0:
+        msg = library().mvs_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc} "
+                           f"({msg})")
+
+
+def launch_stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, for a launch. nvcc links the
+    library against its own static CUDA runtime, whose current device is
+    cuda:0, so the kernels launch on cuda:0 only."""
+    import torch
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index != 0:
+        raise NotImplementedError(
+            f"the port's kernels launch on cuda:0 only (got cuda:{index})")
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

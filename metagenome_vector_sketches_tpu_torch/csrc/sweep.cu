@@ -1,0 +1,236 @@
+// Kernel S: the thresholded pairwise sweep over Karatsuba int8 planes.
+//
+// Replaces: metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55
+// pallas_sweep_counts (the repo's one Pallas kernel, body _make_kernel at
+// :27) in its COUNT epilogue, and the sweep + survivor compaction of the XLA
+// program ops/pairwise.py:635 sweep_extract_fused_ij in its APPEND epilogue.
+//
+// Math, per tile of (row, column) pairs: P int8 x int8 -> int32 plane
+// products (exact), combined in float32 in plane order,
+//   approx = f32(S_0)*w_0;  approx = approx + f32(S_p)*w_p  (p = 1..P-1)
+// then  approx / d  >  0.05*(t_i + t_j)*SLACK_REL - SLACK_ABS, the order
+// ops/pairwise.py:214-236 and :346 write. Every step is an explicitly
+// rounded intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsub_rn), so nvcc
+// cannot contract to FMA and the result is bit-equal to the plain PyTorch
+// version, which runs the same eager float32 ops in the same order. Never
+// build this file with --use_fast_math.
+//
+// What bounds it on Hopper: the int8 tensor cores. A 128 x 128 output block
+// reads 2 x 128 x d bytes per plane for 128 x 128 x d MACs (64 MAC/byte), so
+// at production shapes (d = 2048) the operands come from L2 and the sweep is
+// compute bound.
+//
+// Design (a first version, simple and exact, not yet fast): one CTA of 8
+// warps per 128 x 128 sub-block; warps as 4 (rows) x 2 (cols), each owning a
+// 32 x 64 block = 2 x 8 mma.sync.m16n8k32 s8 tiles with int32 accumulators.
+// K steps of 64 bytes are staged through shared memory with 16-byte loads,
+// rows padded to 80 bytes so the fragment reads hit 32 distinct banks.
+// Planes are walked one at a time: the int32 product of plane p is exact
+// before it is folded into the float32 combine, so only one int32 and one
+// float32 accumulator set live in registers. No wgmma/TMA pipeline yet.
+//
+// Epilogues (template flag):
+//   COUNT  — K1's contract: survivors per tile, one atomicAdd per warp.
+//   APPEND — per-tile counts as well, plus every survivor's global (r, c)
+//            int32 written into a flat buffer of capacity `cap`: one
+//            __ballot_sync per element slot, __popc for the in-warp rank and
+//            ONE atomicAdd per warp on the running total. The total keeps
+//            counting past `cap` (writes stop there), so the caller learns
+//            the exact size to rerun with. Self-pairs (r == c) can be masked.
+// Pad rows carry t = 1e30, so they never pass.
+#include <limits.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBM = 128, kBN = 128, kBK = 64;
+constexpr int kSRow = kBK + 16;  // padded shared-memory row (bytes)
+constexpr int kThreads = 256;    // 8 warps
+constexpr int kWM = 32, kWN = 64;
+constexpr int kMT = kWM / 16;    // m16 tiles per warp
+constexpr int kNT = kWN / 8;     // n8 tiles per warp
+constexpr int kMaxPlanes = 16;
+
+struct Weights {
+  float w[kMaxPlanes];
+};
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <bool kAppend>
+__global__ void __launch_bounds__(kThreads, 1)
+sweep_kernel(const int8_t* __restrict__ planes_i,
+             const int8_t* __restrict__ planes_j,
+             const float* __restrict__ thr_i, const float* __restrict__ thr_j,
+             int P, float dval, int d_pad, long long stride_i,
+             long long stride_j, const int32_t* __restrict__ coords,
+             int tile_r, int tile_c, Weights wts, float slack_rel,
+             float slack_abs, int mask_self, int32_t* __restrict__ counts,
+             int32_t* __restrict__ rc, unsigned* __restrict__ total,
+             long long cap) {
+  __shared__ __align__(16) int8_t As[kBM * kSRow];
+  __shared__ __align__(16) int8_t Bs[kBN * kSRow];
+
+  const int sub_c = tile_c / kBN;
+  const int per_tile = (tile_r / kBM) * sub_c;
+  const int tile = blockIdx.x / per_tile;
+  const int sub = blockIdx.x % per_tile;
+  const int row0 = coords[2 * tile] * tile_r + (sub / sub_c) * kBM;
+  const int col0 = coords[2 * tile + 1] * tile_c + (sub % sub_c) * kBN;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, t = lane & 3;
+
+  float approx[kMT][kNT][4];
+  for (int p = 0; p < P; ++p) {
+    int acc[kMT][kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+
+    const int8_t* A = planes_i + p * stride_i + (long long)row0 * d_pad;
+    const int8_t* B = planes_j + p * stride_j + (long long)col0 * d_pad;
+    for (int k0 = 0; k0 < d_pad; k0 += kBK) {
+#pragma unroll
+      for (int i = 0; i < (kBM * kBK / 16) / kThreads; ++i) {
+        const int c = tid + i * kThreads;
+        const int r = c >> 2, q = (c & 3) * 16;
+        *reinterpret_cast<int4*>(&As[r * kSRow + q]) =
+            *reinterpret_cast<const int4*>(A + (long long)r * d_pad + k0 + q);
+        *reinterpret_cast<int4*>(&Bs[r * kSRow + q]) =
+            *reinterpret_cast<const int4*>(B + (long long)r * d_pad + k0 + q);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 32) {
+        unsigned a[kMT][4], b[kNT][2];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          const int8_t* s = &As[(wm * kWM + mt * 16 + g) * kSRow + kk + t * 4];
+          a[mt][0] = *reinterpret_cast<const unsigned*>(s);
+          a[mt][1] = *reinterpret_cast<const unsigned*>(s + 8 * kSRow);
+          a[mt][2] = *reinterpret_cast<const unsigned*>(s + 16);
+          a[mt][3] = *reinterpret_cast<const unsigned*>(s + 8 * kSRow + 16);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int8_t* s = &Bs[(wn * kWN + nt * 8 + g) * kSRow + kk + t * 4];
+          b[nt][0] = *reinterpret_cast<const unsigned*>(s);
+          b[nt][1] = *reinterpret_cast<const unsigned*>(s + 16);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
+      }
+      __syncthreads();
+    }
+    // fold plane p into the float32 combine, in plane order
+    const float w = wts.w[p];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float term = __fmul_rn(__int2float_rn(acc[mt][nt][i]), w);
+          approx[mt][nt][i] =
+              p == 0 ? term : __fadd_rn(approx[mt][nt][i], term);
+        }
+  }
+
+  int cnt = 0;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // mma C fragment: rows g / g+8, columns 2t / 2t+1
+        const int gr = row0 + wm * kWM + mt * 16 + g + ((i >> 1) << 3);
+        const int gc = col0 + wn * kWN + nt * 8 + t * 2 + (i & 1);
+        const float q = __fdiv_rn(approx[mt][nt][i], dval);
+        float th = __fadd_rn(thr_i[gr], thr_j[gc]);
+        th = __fmul_rn(0.05f, th);
+        th = __fmul_rn(th, slack_rel);
+        th = __fsub_rn(th, slack_abs);
+        const bool pass = (q > th) && !(mask_self && gr == gc);
+        cnt += pass ? 1 : 0;
+        if (kAppend) {
+          const unsigned m = __ballot_sync(kFullMask, pass);
+          if (m) {  // warp-uniform
+            unsigned base = 0;
+            if (lane == 0) base = atomicAdd(total, (unsigned)__popc(m));
+            base = __shfl_sync(kFullMask, base, 0);
+            if (pass) {
+              const unsigned long long pos =
+                  (unsigned long long)base + __popc(m & ((1u << lane) - 1u));
+              if (pos < (unsigned long long)cap) {
+                rc[2 * pos] = gr;
+                rc[2 * pos + 1] = gc;
+              }
+            }
+          }
+        }
+      }
+  cnt = __reduce_add_sync(kFullMask, cnt);
+  if (lane == 0 && cnt) atomicAdd(&counts[tile], cnt);
+}
+
+}  // namespace
+
+// planes_*: (P, N*, d_pad) int8 with plane strides stride_*; thr_*: float32
+// squared-norm thresholds; coords: (n_tiles, 2) int32 tile indices (units
+// of tile_r rows / tile_c columns); weights_host: P float32 on the HOST.
+// counts: (n_tiles,) int32, zeroed by the caller. APPEND also takes rc:
+// (cap, 2) int32 and total: one uint32, zeroed by the caller.
+MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
+                         const void* thr_i, const void* thr_j, int P, int d,
+                         int d_pad, long long stride_i, long long stride_j,
+                         const void* coords, int n_tiles, int tile_r,
+                         int tile_c, const void* weights_host,
+                         float slack_rel, float slack_abs, int mask_self,
+                         int append, void* counts, void* rc, void* total,
+                         long long cap, void* stream) {
+  if (P < 1 || P > kMaxPlanes || tile_r <= 0 || tile_c <= 0 ||
+      tile_r % kBM || tile_c % kBN || d_pad % kBK || n_tiles < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long grid =
+      (long long)n_tiles * (tile_r / kBM) * (tile_c / kBN);
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (grid == 0) return mvs_launch_status();
+  Weights w;
+  for (int p = 0; p < kMaxPlanes; ++p)
+    w.w[p] = p < P ? static_cast<const float*>(weights_host)[p] : 0.f;
+  auto s = (cudaStream_t)stream;
+  if (append) {
+    sweep_kernel<true><<<(unsigned)grid, kThreads, 0, s>>>(
+        (const int8_t*)planes_i, (const int8_t*)planes_j, (const float*)thr_i,
+        (const float*)thr_j, P, (float)d, d_pad, stride_i, stride_j,
+        (const int32_t*)coords, tile_r, tile_c, w, slack_rel, slack_abs,
+        mask_self, (int32_t*)counts, (int32_t*)rc, (unsigned*)total, cap);
+  } else {
+    sweep_kernel<false><<<(unsigned)grid, kThreads, 0, s>>>(
+        (const int8_t*)planes_i, (const int8_t*)planes_j, (const float*)thr_i,
+        (const float*)thr_j, P, (float)d, d_pad, stride_i, stride_j,
+        (const int32_t*)coords, tile_r, tile_c, w, slack_rel, slack_abs,
+        mask_self, (int32_t*)counts, nullptr, nullptr, 0);
+  }
+  return mvs_launch_status();
+}
+
+MVS_EXPORT const char* mvs_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

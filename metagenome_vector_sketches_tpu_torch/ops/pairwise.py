@@ -1,0 +1,288 @@
+"""Pairwise similarity on the device: int8 Karatsuba planes, the thresholded
+sweep with survivor compaction (kernel S), and exact limb-pair partials of
+the survivors (kernel X).
+
+The database lives on the device as a (P, Npad, d_pad) int8 plane tensor
+(P = L(L+1)/2: the L balanced base-128 limbs, then the pairwise limb sums;
+see ops/pairwise_math.plane_weights) next to (Npad,) float32 squared-norm
+thresholds, 1e30 on pad rows so they never pass. d_pad rounds d up to a
+multiple of 64 with zero columns: zero columns change no dot, so the kernels
+never see a ragged d.
+
+Each kernel wrapper runs its plain PyTorch version for CPU tensors and
+launches its kernel for CUDA tensors (or raises); there is no fall back.
+The plain versions compute every plane product exactly (float64 products
+of int8 values stay exact integers below 2^53) and the float32 combine and
+retention test with the same eager float32 ops, in the same order, as the
+kernel — so kernel and plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from .pairwise_math import (SLACK_ABS, SLACK_REL, limbs_from_planes,
+                            num_planes, plane_weights)
+
+D_ALIGN = 64          # d_pad granularity (kernel S's K step)
+SWEEP_BLOCK = 128     # kernel S's CTA edge: CUDA tiles are multiples of it
+
+
+def pad_dim(d: int) -> int:
+    return (d + D_ALIGN - 1) // D_ALIGN * D_ALIGN
+
+
+# ---------------------------------------------------------------------------
+# Plane staging (plain torch ops: elementwise, once per database)
+# ---------------------------------------------------------------------------
+
+def decompose_limbs(v: torch.Tensor, L: int) -> torch.Tensor:
+    """(n, d) int32 -> (L, n, d) int8 balanced base-128 limbs (each in
+    [-64, 63] for L > 1; v = sum_k limb_k * 2^(7k))."""
+    cur = v.to(torch.int32)
+    limbs = []
+    for _ in range(L - 1):
+        digit = ((cur + 64) & 127) - 64
+        limbs.append(digit.to(torch.int8))
+        cur = (cur - digit) >> 7          # exact arithmetic shift
+    limbs.append(cur.to(torch.int8))
+    return torch.stack(limbs)
+
+
+def karatsuba_planes(limbs: torch.Tensor) -> torch.Tensor:
+    """(L, n, d) int8 limbs -> (L(L+1)/2, n, d) int8 planes: the limbs, then
+    the limb sums limb_a + limb_b for a < b (|sum| <= 128 fits int8)."""
+    L = limbs.shape[0]
+    sums = [limbs[a] + limbs[b] for a in range(L) for b in range(a + 1, L)]
+    if not sums:
+        return limbs
+    return torch.cat([limbs, torch.stack(sums)], dim=0)
+
+
+def planes_update(buf: torch.Tensor, limbs: torch.Tensor, start: int) -> None:
+    """Write one chunk's planes into the preallocated (P, Npad, d_pad) int8
+    buffer IN PLACE at row ``start`` (columns past d stay zero)."""
+    _, n, d = limbs.shape
+    buf[:, start:start + n, :d] = karatsuba_planes(limbs)
+
+
+# ---------------------------------------------------------------------------
+# The float32 sweep math, written once
+# ---------------------------------------------------------------------------
+
+def plane_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(m, k) int8 x (n, k) int8 -> (m, n) int32 exact dot products."""
+    return (x.to(torch.float64) @ y.to(torch.float64).T).to(torch.int32)
+
+
+def approx_dot_f32(vi: torch.Tensor, vj: torch.Tensor) -> torch.Tensor:
+    """(P, m, k), (P, n, k) int8 planes -> (m, n) float32 combined dot:
+    f32(S_0)*w_0, then + f32(S_p)*w_p in plane order (the order of the JAX
+    package's approx_dot_f32, ops/pairwise.py:214-236)."""
+    w = plane_weights(limbs_from_planes(vi.shape[0]))
+    approx = plane_product(vi[0], vj[0]).to(torch.float32) * float(w[0])
+    for p in range(1, vi.shape[0]):
+        approx = approx + plane_product(vi[p], vj[p]).to(torch.float32) \
+            * float(w[p])
+    return approx
+
+
+def retention_mask(approx: torch.Tensor, thr_i: torch.Tensor,
+                   thr_j: torch.Tensor, d: int) -> torch.Tensor:
+    """THE float32 retention predicate of the sweep:
+    approx / d > 0.05 * (t_i + t_j) * SLACK_REL - SLACK_ABS, one rounded op
+    at a time (kernel S runs the same sequence). The divisor is a device
+    tensor: PyTorch's CUDA division by a CPU scalar multiplies by the
+    reciprocal, which is not the rounded quotient."""
+    dvec = torch.full((1, 1), float(d), dtype=torch.float32,
+                      device=approx.device)
+    q = approx / dvec
+    t = thr_i[:, None] + thr_j[None, :]
+    t = t * 0.05
+    t = t * float(SLACK_REL)
+    t = t - float(SLACK_ABS)
+    return q > t
+
+
+# ---------------------------------------------------------------------------
+# Kernel S launcher (both epilogues)
+# ---------------------------------------------------------------------------
+
+def _check_planes(planes: torch.Tensor, name: str) -> None:
+    if planes.dtype != torch.int8 or planes.ndim != 3 \
+            or not planes.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous (P, N, d_pad) int8 "
+                         "tensor")
+    if planes.shape[2] % D_ALIGN or planes.data_ptr() % 16:
+        raise ValueError(f"{name}: d_pad must be a multiple of {D_ALIGN} and "
+                         "the data 16-byte aligned")
+
+
+def _check_thr(thr: torch.Tensor, n: int, name: str) -> None:
+    if thr.dtype != torch.float32 or thr.shape != (n,) \
+            or not thr.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({n},) float32 tensor")
+
+
+def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
+                 tile_r: int, tile_c: int, d: int, append: bool,
+                 mask_self: bool, cap: int = 0):
+    """Launch kernel S over the tiles ``coords`` ((K, 2) row/column tile
+    indices in units of tile_r / tile_c) -> (counts (K,) int32,
+    rc (cap, 2) int32 or None, total (1,) int32 or None), on the device."""
+    dev = planes_i.device
+    _check_planes(planes_i, "planes_i")
+    _check_planes(planes_j, "planes_j")
+    P, ni, d_pad = planes_i.shape
+    nj = planes_j.shape[1]
+    if planes_j.shape[0] != P or planes_j.shape[2] != d_pad \
+            or planes_j.device != dev:
+        raise ValueError("planes_i and planes_j differ in planes, d_pad or "
+                         "device")
+    if not 0 < d <= d_pad:
+        raise ValueError(f"d={d} does not fit d_pad={d_pad}")
+    _check_thr(thr_i, ni, "thr_i")
+    _check_thr(thr_j, nj, "thr_j")
+    if tile_r % SWEEP_BLOCK or tile_c % SWEEP_BLOCK or tile_r <= 0 \
+            or tile_c <= 0:
+        raise ValueError(f"kernel S takes tiles that are multiples of "
+                         f"{SWEEP_BLOCK} (got {tile_r} x {tile_c})")
+    coords = np.ascontiguousarray(coords, dtype=np.int32).reshape(-1, 2)
+    K = len(coords)
+    if K and (coords.min() < 0 or (int(coords[:, 0].max()) + 1) * tile_r > ni
+              or (int(coords[:, 1].max()) + 1) * tile_c > nj):
+        raise ValueError("tile coordinates outside the planes")
+    counts = torch.zeros(K, dtype=torch.int32, device=dev)
+    rc = torch.empty((max(cap, 0), 2), dtype=torch.int32, device=dev) \
+        if append else None
+    total = torch.zeros(1, dtype=torch.int32, device=dev) if append else None
+    if K == 0:
+        return counts, rc, total
+    coords_dev = torch.from_numpy(coords).to(dev)
+    w = plane_weights(limbs_from_planes(P))
+    lib = _build.library()
+    err = lib.mvs_sweep(
+        planes_i.data_ptr(), planes_j.data_ptr(), thr_i.data_ptr(),
+        thr_j.data_ptr(), P, d, d_pad, ni * d_pad, nj * d_pad,
+        coords_dev.data_ptr(), K, tile_r, tile_c,
+        w.ctypes.data_as(ctypes.c_void_p), float(SLACK_REL),
+        float(SLACK_ABS), int(mask_self), int(append),
+        counts.data_ptr(), rc.data_ptr() if append else None,
+        total.data_ptr() if append else None, int(cap),
+        _build.launch_stream(dev))
+    _build.check(err, "sweep kernel")
+    _build.count_launch("sweep")
+    return counts, rc, total
+
+
+# ---------------------------------------------------------------------------
+# Sweep with survivor compaction (APPEND epilogue)
+# ---------------------------------------------------------------------------
+
+def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
+                        cap: int, mask_self: bool, d: int):
+    """Plain PyTorch version of :func:`sweep_extract` (survivors in tile
+    order, row-major within a tile)."""
+    dev = planes_i.device
+    coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
+    counts = torch.zeros(len(coords), dtype=torch.int32, device=dev)
+    found = []
+    ar = torch.arange(tile, device=dev)
+    for k, (r, c) in enumerate(coords.tolist()):
+        rows = slice(r * tile, (r + 1) * tile)
+        cols = slice(c * tile, (c + 1) * tile)
+        m = retention_mask(approx_dot_f32(planes_i[:, rows], planes_j[:, cols]),
+                           thr_i[rows], thr_j[cols], d)
+        if mask_self:
+            m &= (r * tile + ar)[:, None] != (c * tile + ar)[None, :]
+        nz = m.nonzero()
+        counts[k] = nz.shape[0]
+        found.append(nz + torch.tensor([r * tile, c * tile], device=dev))
+    allrc = torch.cat(found) if found else \
+        torch.empty((0, 2), dtype=torch.int64, device=dev)
+    rc = torch.zeros((cap, 2), dtype=torch.int32, device=dev)
+    keep = min(cap, allrc.shape[0])
+    rc[:keep] = allrc[:keep].to(torch.int32)
+    total = torch.tensor([allrc.shape[0]], dtype=torch.int32, device=dev)
+    return rc, counts, total
+
+
+def sweep_extract(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
+                  cap: int, mask_self: bool, d: int):
+    """Survivors of the tiles ``coords`` ((K, 2) row/column tile indices of
+    edge ``tile`` into planes_i / planes_j, which share one row numbering)
+    -> (rc (cap, 2) int32 survivor (row, column) pairs, counts (K,) int32
+    per-tile survivor counts, total (1,) int32 survivors in all).
+
+    Only the first min(total, cap) rows of rc are written; total and counts
+    are exact past cap, so the caller can rerun at the exact capacity.
+    mask_self drops row == column pairs. The CUDA order of survivors is
+    unspecified (atomics); the plain version's is tile order, row-major."""
+    if planes_i.device.type == "cpu":
+        return sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords,
+                                   tile, cap, mask_self, d)
+    counts, rc, total = launch_sweep(planes_i, thr_i, planes_j, thr_j,
+                                     coords, tile, tile, d, append=True,
+                                     mask_self=mask_self, cap=cap)
+    return rc, counts, total
+
+
+# ---------------------------------------------------------------------------
+# Exact limb-pair partials of candidate pairs (kernel X)
+# ---------------------------------------------------------------------------
+
+def pair_partials_plain(planes: torch.Tensor, rc: torch.Tensor,
+                        L: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pair_partials`."""
+    limbs = planes[:L]
+    d_pad = planes.shape[2]
+    n = rc.shape[0]
+    out = torch.empty((n, num_planes(L)), dtype=torch.int32,
+                      device=planes.device)
+    chunk = max(1, (64 << 20) // (8 * L * d_pad))
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        x = limbs[:, rc[s:e, 0].long()].to(torch.int32)     # (L, k, d_pad)
+        y = limbs[:, rc[s:e, 1].long()].to(torch.int32)
+        cols = [(x[a] * y[a]).sum(-1) for a in range(L)]
+        cols += [(x[a] * y[b] + x[b] * y[a]).sum(-1)
+                 for a in range(L) for b in range(a + 1, L)]
+        out[s:e] = torch.stack(cols, dim=1).to(torch.int32)
+    return out
+
+
+def pair_partials(planes: torch.Tensor, rc: torch.Tensor,
+                  L: int) -> torch.Tensor:
+    """Exact int32 limb-pair partial dots of candidate pairs rc ((n, 2)
+    int32 rows/columns into planes, whose first L planes are the limbs)
+    -> (n, L(L+1)/2) int32: D_aa for a < L, then D_ab + D_ba for a < b —
+    the order pairwise_math.combine_plane_partials takes (transposed)."""
+    if planes.device.type == "cpu":
+        return pair_partials_plain(planes, rc, L)
+    _check_planes(planes, "planes")
+    P, npad, d_pad = planes.shape
+    if not 1 <= L <= 5 or num_planes(L) > P:
+        raise ValueError(f"L={L} does not match {P} planes")
+    if rc.dtype != torch.int32 or rc.ndim != 2 or rc.shape[1] != 2 \
+            or not rc.is_contiguous() or rc.device != planes.device:
+        raise ValueError("rc must be a contiguous (n, 2) int32 tensor on the "
+                         "planes' device")
+    n = rc.shape[0]
+    out = torch.empty((n, num_planes(L)), dtype=torch.int32,
+                      device=planes.device)
+    if n == 0:
+        return out
+    lo, hi = (int(v) for v in torch.aminmax(rc))
+    if lo < 0 or hi >= npad:
+        raise ValueError(f"candidate rows/columns outside [0, {npad})")
+    lib = _build.library()
+    err = lib.mvs_partials(planes.data_ptr(), npad * d_pad, L, d_pad,
+                           rc.data_ptr(), n, out.data_ptr(),
+                           _build.launch_stream(planes.device))
+    _build.check(err, "partials kernel")
+    _build.count_launch("partials")
+    return out

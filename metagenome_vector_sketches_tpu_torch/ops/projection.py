@@ -1,0 +1,122 @@
+"""Seeded +-1 random projection of hash sets into Z^d (the sketch step).
+
+For each hash h of a set and each 64-lane block b, x = splitmix64(h + 64 b);
+lane n of block b receives 1 - 2*bit_n(x), so the sketch is
+``count - 2 * bitsum`` (reference src/random_projection.cpp:9-26). The sum
+is order-independent, so any batching of the sets is exact.
+
+Ragged sets travel as CSR: a flat int64 tensor of hash bit patterns and
+int64 offsets (``offsets[i]:offsets[i+1]`` is set i). A CUDA tensor goes
+through kernel P (``csrc/projection.cu``); a CPU tensor through the plain
+PyTorch version :func:`project_batch_plain`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from .._device import resolve_device
+from .splitmix import splitmix64
+
+
+def _byte_bits(device) -> torch.Tensor:
+    """(256, 8) uint8: bit n of byte value v (little bit order)."""
+    v = torch.arange(256, device=device, dtype=torch.int32)
+    return ((v[:, None] >> torch.arange(8, device=device,
+                                        dtype=torch.int32)) & 1).to(torch.uint8)
+
+
+def project_batch_plain(hashes: torch.Tensor, offsets: torch.Tensor,
+                        d: int) -> torch.Tensor:
+    """Plain PyTorch projection of CSR hash sets -> (B, d) int32, on the
+    tensors' device."""
+    dev = hashes.device
+    B = offsets.numel() - 1
+    nb = (d + 63) // 64
+    counts = offsets[1:] - offsets[:-1]
+    set_id = torch.repeat_interleave(
+        torch.arange(B, device=dev, dtype=torch.int64), counts)
+    bitsum = torch.zeros(B, nb * 64, dtype=torch.int32, device=dev)
+    blocks = torch.arange(nb, device=dev, dtype=torch.int64) * 64
+    lut = _byte_bits(dev)
+    chunk = max(1, (32 << 20) // (nb * 64 * 4))
+    H = hashes.numel()
+    for s in range(0, H, chunk):
+        e = min(s + chunk, H)
+        x = splitmix64(hashes[s:e, None] + blocks[None, :])     # (h, nb)
+        bytes_ = x.contiguous().view(torch.uint8).to(torch.int32)
+        bits = lut[bytes_].reshape(e - s, nb * 64)             # lane order
+        bitsum.index_add_(0, set_id[s:e], bits.to(torch.int32))
+    out = counts.to(torch.int32)[:, None] - 2 * bitsum
+    return out[:, :d].contiguous()
+
+
+def _project_cuda(hashes: torch.Tensor, offsets: torch.Tensor,
+                  d: int) -> torch.Tensor:
+    for name, t in (("hashes", hashes), ("offsets", offsets)):
+        if t.dtype != torch.int64 or not t.is_contiguous() or t.ndim != 1:
+            raise ValueError(f"{name} must be a contiguous 1-D int64 tensor")
+    if offsets.device != hashes.device:
+        raise ValueError("hashes and offsets must be on the same device")
+    B = offsets.numel() - 1
+    if B >= 2**31 or (B + 1) * d >= 2**62:
+        raise ValueError(f"batch of {B} sets at d={d} is too large")
+    out = torch.empty(B, d, dtype=torch.int32, device=hashes.device)
+    if B == 0 or d == 0:
+        return out
+    lib = _build.library()
+    rc = lib.mvs_project(hashes.data_ptr(), offsets.data_ptr(), B, d,
+                         out.data_ptr(),
+                         _build.launch_stream(hashes.device))
+    _build.check(rc, "projection kernel")
+    _build.count_launch("projection")
+    return out
+
+
+def project_batch(hashes_flat, offsets, d: int, device) -> torch.Tensor:
+    """Project CSR hash sets (int64 bit patterns + int64 offsets, numpy or
+    torch) on ``device`` -> (B, d) int32 tensor on that device."""
+    dev = resolve_device(device)
+    h = torch.as_tensor(hashes_flat, dtype=torch.int64).to(dev).contiguous()
+    o = torch.as_tensor(offsets, dtype=torch.int64).to(dev).contiguous()
+    if dev.type == "cpu":
+        return project_batch_plain(h, o, d)
+    return _project_cuda(h, o, d)
+
+
+# project_many's batch bounds (the device holds a batch's hashes and its
+# (sets, d) int32 output at once)
+BATCH_HASHES = 1 << 26
+BATCH_SETS = 1 << 15
+
+
+def _as_u64_array(hs) -> np.ndarray:
+    if isinstance(hs, np.ndarray):
+        return np.ascontiguousarray(hs, dtype=np.uint64)
+    return np.fromiter((int(h) for h in hs), dtype=np.uint64)
+
+
+def project_many(hash_sets, d: int, device) -> np.ndarray:
+    """Project a list of hash sets -> (N, d) int32 numpy matrix, in batches
+    of at most BATCH_SETS sets and BATCH_HASHES hashes (or one set)."""
+    dev = resolve_device(device)
+    arrays = [_as_u64_array(h) for h in hash_sets]
+    N = len(arrays)
+    sizes = np.fromiter((len(a) for a in arrays), dtype=np.int64, count=N)
+    out = np.empty((N, d), dtype=np.int32)
+    s = 0
+    while s < N:
+        e, tot = s + 1, int(sizes[s])
+        while e < N and e - s < BATCH_SETS and tot + sizes[e] <= BATCH_HASHES:
+            tot += int(sizes[e])
+            e += 1
+        flat = np.concatenate(arrays[s:e]) if tot else \
+            np.empty(0, dtype=np.uint64)
+        offsets = np.zeros(e - s + 1, dtype=np.int64)
+        np.cumsum(sizes[s:e], out=offsets[1:])
+        out[s:e] = project_batch(flat.view(np.int64), offsets, d,
+                                 dev).cpu().numpy()
+        s = e
+    return out

@@ -1,0 +1,151 @@
+"""The README walkthrough (sketch -> pairwise_comp shards -> query_pc_mat
+top-k and sliced) through the port's command-line tools on the CPU, with
+every output file equal to the JAX package's tools'; the port never imports
+jax; and the tools refuse to run without CUDA unless told --device cpu."""
+
+import filecmp
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from metagenome_vector_sketches_tpu.cli import (  # noqa: E402
+    pairwise_comp as j_pairwise, project_everything as j_project,
+    query_pc_mat as j_query, standalone_projection as j_standalone)
+from metagenome_vector_sketches_tpu_torch.cli import (  # noqa: E402
+    pairwise_comp as t_pairwise, project_everything as t_project,
+    query_pc_mat as t_query, standalone_projection as t_standalone)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DB_FILES = ("vectors.bin", "vector_norms.txt", "dimension.txt", "dtype.txt",
+            "max_component.txt")
+SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
+
+
+def _same(a, b):
+    assert filecmp.cmp(a, b, shallow=False), (a, b)
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_walkthrough_matches_jax_tools(tmp_path, ref_toy_dir, int16,
+                                       capsys):
+    hashes = str(ref_toy_dir / "all_hashes_toy.txt")
+    extra = ["--int16"] if int16 else []
+    out = {}
+    for side, project, pairwise, query, dev in (
+            ("jax", j_project, j_pairwise, j_query, ["--mesh_devices", "1"]),
+            ("port", t_project, t_pairwise, t_query, ["--device", "cpu"])):
+        root = tmp_path / side
+        db, mat = str(root / "db"), str(root / "mat")
+        assert project.main(["sketch", hashes, db, "-d", "256", *extra]
+                            + (["--device", "cpu"] if side == "port"
+                               else [])) == 0
+        for s in range(2):
+            assert pairwise.main(
+                ["--db", db, "--max_memory_gb", "1", "--num_threads", "1",
+                 "--output_folder", mat, "--num_shards", "2",
+                 "--shard_idx", str(s), "--tile", "32", *dev]) == 0
+        with open(os.path.join(db, "vector_norms.txt")) as f:
+            names = [ln.split()[0] for ln in f if ln.strip()]
+        (root / "q.txt").write_text("\n".join(names[:12:3]) + "\n")
+        (root / "rows.txt").write_text("\n".join(names[:9]) + "\n")
+        (root / "cols.txt").write_text("\n".join(names[::4]) + "\n")
+        assert query.main(["--matrix", mat, "--db", db, "--query_file",
+                           str(root / "q.txt"), "--top", "5",
+                           "--write_to_file", str(root / "top.csv")]) == 0
+        assert query.main(["--matrix", mat, "--db", db, "--row_file",
+                           str(root / "rows.txt"), "--col_file",
+                           str(root / "cols.txt"), "--write_to_file",
+                           str(root / "sliced.tsv")]) == 0
+        out[side] = (root, names)
+    capsys.readouterr()
+    (jr, names), (tr, _) = out["jax"], out["port"]
+    for f in DB_FILES:
+        _same(jr / "db" / f, tr / "db" / f)
+    for s in range(2):
+        for f in SHARD_FILES:
+            _same(jr / "mat" / f"shard_{s}" / f, tr / "mat" / f"shard_{s}" / f)
+    for name in names[:12:3]:
+        _same(jr / f"{name}_top.csv", tr / f"{name}_top.csv")
+    _same(jr / "sliced.tsv", tr / "sliced.tsv")
+
+
+def test_standalone_projection_matches_jax_tool(tmp_path, capsys):
+    lines = ["1 2 3 18446744073709551615", "", "42 9223372036854775808 7"]
+    path = tmp_path / "h.txt"
+    path.write_text("\n".join(lines) + "\n")
+    assert j_standalone.main([str(path), "100"]) == 0
+    want = capsys.readouterr().out
+    assert t_standalone.main([str(path), "100", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == want
+
+
+def test_port_never_imports_jax(tmp_path):
+    """A fresh interpreter runs the port's CPU path end to end (sketch,
+    shard, query) and never loads jax."""
+    code = f"""
+import sys
+sys.path.insert(0, {REPO!r})
+import numpy as np
+from metagenome_vector_sketches_tpu_torch.io.ingest import sketch
+from metagenome_vector_sketches_tpu_torch.matrix.compute import (
+    compute_pairwise_shard)
+from metagenome_vector_sketches_tpu_torch.cli import (
+    pairwise_comp, project_everything, query_pc_mat, standalone_projection)
+from metagenome_vector_sketches_tpu_torch.host import query_engine
+rng = np.random.default_rng(0)
+with open({str(tmp_path / 'h.txt')!r}, "w") as f:
+    for i in range(40):
+        hs = rng.integers(0, 2**63, size=50, dtype=np.uint64)
+        f.write(f"A{{i}}: " + " ".join(map(str, hs.tolist())) + "\\n")
+db = sketch({str(tmp_path / 'h.txt')!r}, {str(tmp_path / 'db')!r}, 128,
+            device="cpu", verbose=False)
+compute_pairwise_shard(db.path, {str(tmp_path / 'm')!r}, tile_rows=16,
+                       verbose=False, device="cpu")
+names, norms = db.names_and_norms_f32()
+res = query_engine.query({str(tmp_path / 'm')!r}, [0, 1], norms, names)
+assert res[0].self_id == "A0"
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("NO_JAX_OK")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "NO_JAX_OK" in r.stdout
+
+
+def test_tools_refuse_to_run_without_cuda(tmp_path, ref_toy_dir):
+    """The default device is cuda: with no GPU the tools raise instead of
+    carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    hashes = str(ref_toy_dir / "all_hashes_toy.txt")
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_project.main(["sketch", hashes, str(tmp_path / "db"), "-d", "64"])
+    assert not (tmp_path / "db").exists()
+    assert t_project.main(["sketch", hashes, str(tmp_path / "db"), "-d",
+                           "64", "--device", "cpu"]) == 0
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_pairwise.main(["--db", str(tmp_path / "db"), "--max_memory_gb",
+                         "1", "--num_threads", "1", "--output_folder",
+                         str(tmp_path / "m"), "--num_shards", "1",
+                         "--shard_idx", "0"])
+    assert not (tmp_path / "m").exists()
+
+
+@pytest.mark.parametrize("flags", [["--mesh_devices", "4"],
+                                   ["--finalize", "device"],
+                                   ["--strategy", "1"],
+                                   ["--gate_sparse_tiles"]])
+def test_pairwise_comp_refuses_unported_engines(tmp_path, flags, capsys):
+    rc = t_pairwise.main(["--db", str(tmp_path), "--max_memory_gb", "1",
+                          "--num_threads", "1", "--output_folder",
+                          str(tmp_path / "m"), "--num_shards", "1",
+                          "--shard_idx", "0", "--device", "cpu", *flags])
+    assert rc == 2
+    assert "not yet ported" in capsys.readouterr().err

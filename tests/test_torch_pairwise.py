@@ -1,0 +1,207 @@
+"""The port's device ops (plain PyTorch path on the CPU) against the JAX
+package: Karatsuba planes, the K1 sweep counts (the Pallas kernel in
+interpreter mode and the XLA scan), the fused sweep's survivor sets, and
+the exact limb-pair partials.
+
+Tolerance: integer outputs (planes, partials, counts, survivor sets) are
+exact. The float32 combine values themselves are not compared with JAX
+(XLA reorders and contracts them); masks are. Should a seed ever put a
+pair on the retention boundary, :func:`assert_masks_agree` allows a
+differing pair only within ``required_slack_abs`` of the threshold,
+measured with exact int64 dots — the one place that rule is written.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from metagenome_vector_sketches_tpu.ops import pairwise as ref  # noqa: E402
+from metagenome_vector_sketches_tpu.ops.pallas_pairwise import (  # noqa: E402
+    pallas_sweep_counts)
+from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw  # noqa: E402
+from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm  # noqa: E402
+from metagenome_vector_sketches_tpu_torch.ops.pallas_pairwise import (  # noqa: E402
+    sweep_counts, sweep_counts_plain)
+from metagenome_vector_sketches_tpu_torch.state import (  # noqa: E402
+    from_reference_state)
+
+N, D = 128, 100          # d = 100 pads to d_pad = 128 in the port
+
+
+def _db(max_abs, seed, n=N, d=D):
+    """Random db with planted near-duplicates; thresholds = |v|^2 / d (the
+    JAX kernel tests' convention), so a sizeable share of pairs passes."""
+    rng = np.random.default_rng(seed)
+    V = rng.integers(-max_abs, max_abs + 1, size=(n, d)).astype(np.int32)
+    V[1] = V[0]
+    V[20:30] = np.clip(V[19] + rng.integers(-2, 3, size=(10, d)),
+                       -max_abs, max_abs)
+    thr = (np.einsum("ij,ij->i", V.astype(np.float64), V.astype(np.float64))
+           / d).astype(np.float32)
+    L = pm.pick_limbs(max_abs)
+    jplanes = np.asarray(ref.decompose_planes(jnp.asarray(V), L))
+    planes, thr_t = from_reference_state(jplanes, thr, "cpu")
+    return V, L, jplanes, thr, planes, thr_t
+
+
+def assert_masks_agree(got, want, V, thr, d, L, max_abs, rows, cols):
+    """got/want: bool survivor masks over V[rows] x V[cols]. Equal, or
+    every differing pair lies within the certified float32 slack of the
+    threshold (exact int64 dots)."""
+    got, want = np.asarray(got, bool), np.asarray(want, bool)
+    diff = np.argwhere(got != want)
+    if len(diff) == 0:
+        return
+    r, c = rows[diff[:, 0]], cols[diff[:, 1]]
+    exact = np.einsum("kd,kd->k", V[r].astype(np.int64),
+                      V[c].astype(np.int64)) / d
+    t = 0.05 * (thr[r].astype(np.float64) + thr[c]) * float(pm.SLACK_REL) \
+        - float(pm.SLACK_ABS)
+    slack = pm.required_slack_abs(L, max_abs, d)
+    assert np.all(np.abs(exact - t) <= slack), \
+        f"{len(diff)} mask differences beyond the certified slack {slack}"
+
+
+def _jax_mask(jplanes, thr, d, rows, cols):
+    """The JAX package's float32 sweep mask (its approx_dot_f32 + its
+    threshold expression) over rows x cols."""
+    approx = np.asarray(ref.approx_dot_f32(jnp.asarray(jplanes[:, rows]),
+                                           jnp.asarray(jplanes[:, cols])))
+    return approx / np.float32(d) > \
+        0.05 * (thr[rows][:, None] + thr[cols][None, :]) * ref.SLACK_REL \
+        - ref.SLACK_ABS
+
+
+@pytest.mark.parametrize("max_abs", [100, 3000, 30000])
+def test_planes_match_decompose_planes(max_abs):
+    rng = np.random.default_rng(max_abs)
+    V = rng.integers(-max_abs, max_abs + 1, size=(40, D)).astype(np.int32)
+    V[0, :2] = [max_abs, -max_abs]
+    L = pm.pick_limbs(max_abs)
+    want = np.asarray(ref.decompose_planes(jnp.asarray(V), L))
+    limbs = pw.decompose_limbs(torch.from_numpy(V), L)
+    np.testing.assert_array_equal(
+        limbs.numpy(), np.asarray(ref.decompose_limbs(jnp.asarray(V), L)))
+    np.testing.assert_array_equal(pw.karatsuba_planes(limbs).numpy(), want)
+    buf = torch.zeros((pm.num_planes(L), 64, pw.pad_dim(D)),
+                      dtype=torch.int8)
+    pw.planes_update(buf, limbs[:, :30], 0)
+    pw.planes_update(buf, limbs[:, 30:], 30)
+    np.testing.assert_array_equal(buf[:, :40, :D].numpy(), want)
+    assert not buf[:, 40:].any() and not buf[:, :, D:].any()
+
+
+@pytest.mark.parametrize("max_abs,P", [(300, 3), (30000, 6)])
+@pytest.mark.parametrize("grid", ["symmetric", "asymmetric", "row_window"])
+def test_sweep_counts_match_pallas_and_xla(max_abs, P, grid):
+    V, L, jplanes, thr, planes, thr_t = _db(max_abs, seed=P)
+    assert planes.shape[0] == P
+    kw = {"symmetric": dict(block=32),
+          "asymmetric": dict(block=32, block_j=16),
+          "row_window": dict(row_t0=1, row_t1=3, block=32, block_j=16)}[grid]
+    got = sweep_counts(planes, thr_t, D, **kw).numpy()
+    want = np.asarray(pallas_sweep_counts(jnp.asarray(jplanes),
+                                          jnp.asarray(thr), interpret=True,
+                                          **kw))
+    assert got.shape == want.shape and got.sum() > 1000
+    if not np.array_equal(got, want):
+        # boundary pairs only: compare the masks pair by pair
+        rows = np.arange(kw.get("row_t0", 0) * 32,
+                         kw.get("row_t1", N // 32) * 32)
+        cols = np.arange(N)
+        mask = pw.retention_mask(pw.approx_dot_f32(planes[:, rows], planes),
+                                 thr_t[rows], thr_t, D).numpy()
+        assert_masks_agree(mask, _jax_mask(jplanes, thr, D, rows, cols), V,
+                           thr, D, L, max_abs, rows, cols)
+    if grid == "symmetric":
+        nt = N // 32
+        coords = np.array([(r, c) for r in range(nt) for c in range(nt)],
+                          dtype=np.int32)
+        xla = np.asarray(ref.sweep_counts(jnp.asarray(jplanes),
+                                          jnp.asarray(thr),
+                                          jnp.asarray(coords), 32))
+        np.testing.assert_array_equal(got.reshape(-1), xla)
+
+
+def test_sweep_counts_plain_is_the_cpu_path():
+    _, _, _, _, planes, thr_t = _db(300, seed=9)
+    np.testing.assert_array_equal(
+        sweep_counts(planes, thr_t, D, block=64).numpy(),
+        sweep_counts_plain(planes, thr_t, D, block=64).numpy())
+    with pytest.raises(ValueError):
+        sweep_counts(planes, thr_t, D, block=48)        # 128 % 48 != 0
+    with pytest.raises(ValueError):
+        sweep_counts(planes, thr_t, D, row_t0=2, row_t1=5, block=64)
+
+
+@pytest.mark.parametrize("max_abs", [300, 30000])
+def test_sweep_extract_matches_fused_ij(max_abs):
+    """Survivor sets, per-tile counts and partials equal
+    sweep_extract_fused_ij's (self-pairs masked) on a triangle grid."""
+    V, L, jplanes, thr, planes, thr_t = _db(max_abs, seed=11)
+    tile = 32
+    nt = N // tile
+    coords = np.array([(r, c) for r in range(nt) for c in range(r, nt)],
+                      dtype=np.int32)
+    cap_tile = tile * tile
+    jcoords = np.concatenate([coords, np.ones((len(coords), 1), np.int32)], 1)
+    cand, parts, jcounts = ref.sweep_extract_fused(
+        jnp.asarray(jplanes), jnp.asarray(thr), jnp.asarray(jcoords), tile,
+        L, cap_tile)
+    cand, parts, jcounts = (np.asarray(cand), np.asarray(parts),
+                            np.asarray(jcounts))
+    want = {}
+    for k, (r, c) in enumerate(coords):
+        ok = cand[k] >= 0
+        for idx, p in zip(cand[k][ok], parts[k][ok]):
+            want[(r * tile + idx // tile, c * tile + idx % tile)] = tuple(p)
+
+    rc, counts, total = pw.sweep_extract(planes, thr_t, planes, thr_t,
+                                         coords, tile, 100000, True, D)
+    n = int(total.item())
+    np.testing.assert_array_equal(counts.numpy(), jcounts)
+    assert n == len(want) == int(jcounts.sum()) and n > 500
+    got_pairs = [tuple(x) for x in rc[:n].tolist()]
+    assert set(got_pairs) == set(want)
+    got_parts = pw.pair_partials(planes, rc[:n], L).numpy()
+    for pair, p in zip(got_pairs, got_parts):
+        assert tuple(p) == want[pair]
+
+
+def test_sweep_extract_cap_keeps_counting():
+    """Past its capacity the sweep writes the first `cap` survivors and
+    still returns the exact total and per-tile counts."""
+    _, _, _, _, planes, thr_t = _db(300, seed=12)
+    coords = np.array([(0, 0), (0, 1), (1, 3)], dtype=np.int32)
+    rc, counts, total = pw.sweep_extract(planes, thr_t, planes, thr_t,
+                                         coords, 32, 5000, True, D)
+    n = int(total.item())
+    rc_s, counts_s, total_s = pw.sweep_extract(planes, thr_t, planes, thr_t,
+                                               coords, 32, n // 2, True, D)
+    assert int(total_s.item()) == n and torch.equal(counts, counts_s)
+    assert torch.equal(rc_s, rc[:n // 2])
+
+
+@pytest.mark.parametrize("max_abs", [100, 3000, 30000, 2000000])
+def test_pair_partials_match_plane_partial_dots(max_abs):
+    rng = np.random.default_rng(max_abs % 97)
+    V = rng.integers(-max_abs, max_abs + 1, size=(64, D)).astype(np.int32)
+    L = pm.pick_limbs(max_abs)
+    jplanes = np.asarray(ref.decompose_planes(jnp.asarray(V), L))
+    planes, _ = from_reference_state(jplanes, np.zeros(64, np.float32),
+                                     "cpu")
+    r = rng.integers(0, 64, size=300).astype(np.int32)
+    c = rng.integers(0, 64, size=300).astype(np.int32)
+    c[:5] = r[:5]                                       # self pairs
+    got = pw.pair_partials(planes, torch.from_numpy(np.stack([r, c], 1)), L)
+    want = np.asarray(ref.plane_partial_dots(jnp.asarray(jplanes),
+                                             jnp.asarray(r), jnp.asarray(c),
+                                             L))
+    np.testing.assert_array_equal(got.numpy().T, want)
+    np.testing.assert_array_equal(
+        pm.combine_plane_partials(got.numpy().T, L),
+        np.einsum("kd,kd->k", V[r].astype(np.int64), V[c].astype(np.int64)))
