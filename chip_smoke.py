@@ -19,12 +19,22 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    plain version at the main path's shapes;
 3. cli: the README walkthrough through the port's command-line tools at
    N = 2048 on an int32 and an --int16 db, every output held against an
-   exact numpy oracle.
+   exact numpy oracle — sketch, pairwise_comp, query_pc_mat, and step 5:
+   jaccard index / search (f32 and int8 engines) / test;
+4. ann: ANN serving at the JAX package's ANN-at-scale size
+   (benchmarks/ann_scale.py): N = 1,048,576 x d = 2048 int32 sketch-like
+   vectors made on the card with planted groups of 4, the int8-plane
+   engine (scan S + X) and the f32 engine built from device chunks; planted
+   recall 1.0 for both, the int8 engine's (D, I) equal to a float64 brute
+   force on the card, the f32 engine within 1e-5 of it, one adaptive
+   search per engine, the scan and two-operand partials kernels against
+   their plain versions, and the search / adaptive walls.
 
-Any failure raises (exit code != 0). On success the last two lines of
-stdout are a JSON object with the per-kernel results and
-{"ok": true, "device": {...}}. Without CUDA it exits with 1 and prints no
-result.
+Each path's kernels must be launched in that path's counted run (counts
+set to 0 just before it, read just after). Any failure raises (exit code
+!= 0). On success the last two lines of stdout are a JSON object with the
+per-kernel results and {"ok": true, "device": {...}}. Without CUDA it
+exits with 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -47,7 +57,13 @@ REPLACES = {
     "projection": "metagenome_vector_sketches_tpu/ops/projection.py:107",
     "sweep": "metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55",
     "partials": "metagenome_vector_sketches_tpu/ops/pairwise.py:888",
+    "scan": "metagenome_vector_sketches_tpu/ann/int_index.py:124",
 }
+SOURCES = {"projection": "projection.cu", "sweep": "sweep.cu",
+           "partials": "partials.cu", "scan": "sweep.cu"}
+# the kernels each counted path must launch
+MAIN_KERNELS = ("projection", "sweep", "partials")
+ANN_KERNELS = ("scan", "partials")
 
 
 def say(msg: str) -> None:
@@ -259,8 +275,9 @@ def phase_main(N, work, timings):
     check(bool(spot_check(db_path, mat, N, D, n_rows=3)),
           "oracle spot check failed")
     say("[main] oracle spot check on 3 rows: ok")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched by the main path")
+    for k in MAIN_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the main "
+                               "path")
 
     # kernels against their plain versions at the main path's shapes
     # (after the counted run: these launches are not the main path's)
@@ -348,6 +365,99 @@ def _oracle(db_path, dtype):
     return {(int(a), int(b)): int(x) for a, b, x in zip(r, c, q)}
 
 
+def _jaccard_oracle(db_path, qrows, j):
+    """{(query position, neighbour name): exact-form Jaccard} for the db's
+    own rows qrows as queries, from float64-exact cosines; every pair
+    above j - 1e-5 (the band the f32 engine's ips may straddle)."""
+    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    db = DbFolder(db_path)
+    V = db.load_vectors().astype(np.int64)
+    names, norms = db.names_and_norms()
+    d = V.shape[1]
+    ns = np.einsum("ij,ij->i", V, V)
+    ip = (V[qrows] @ V.T) / np.sqrt(ns[None, :].astype(np.float64)
+                                    * ns[qrows, None].astype(np.float64))
+    qn = np.linalg.norm((V[qrows].astype(np.float64) / np.sqrt(d))
+                        .astype(np.float32), axis=1).astype(np.float64)
+    jac = ip * qn[:, None] * norms[None, :] / (
+        norms[None, :] ** 2 + qn[:, None] ** 2
+        - ip * qn[:, None] * norms[None, :])
+    q, c = np.nonzero(jac > j - 1e-5)
+    return {(int(a), names[b]): float(jac[a, b]) for a, b in zip(q, c)}
+
+
+def _held(got, want, j, band, tol, what):
+    """got {(q, name): jaccard} against the oracle: the same pairs apart
+    from oracle pairs within band of j, each Jaccard within tol."""
+    sure = {p for p, x in want.items() if x > j + band}
+    check(sure <= set(got) <= set(want),
+          f"{what}: neighbours differ from the oracle "
+          f"({len(sure - set(got))} missing, {len(set(got) - set(want))} "
+          "extra)")
+    bad = [p for p, x in got.items() if abs(x - want[p]) > tol]
+    check(not bad, f"{what}: Jaccard off the oracle at {bad[:3]}")
+
+
+def _jaccard_walkthrough(work, db_path, hashes, qrows, dtype):
+    """README step 5 through the port's jaccard tool: index, search with the
+    f32 and int8 engines, test — each held against the numpy oracle."""
+    import contextlib
+    import io
+    import re
+    from metagenome_vector_sketches_tpu_torch.cli import jaccard
+    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
+                                                           parse_hashes_file)
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(jaccard.main(argv) == 0, f"jaccard {argv[0]} CLI")
+        return buf.getvalue().splitlines()
+
+    names, _ = DbFolder(db_path).names_and_norms()
+    with open(hashes) as f:
+        lines = {ln.split(":", 1)[0]: ln for ln in f}
+    qfile = os.path.join(work, "q_hashes.txt")
+    with open(qfile, "w") as f:
+        f.writelines(lines[names[i]] for i in qrows)
+    run(["index", db_path])
+    j = 0.1
+    want = _jaccard_oracle(db_path, qrows, j)
+    for engine, band in (("f32", 1e-5), ("int8", 1e-9)):
+        got, q = {}, None
+        for ln in run(["search", db_path, qfile, "-j", str(j), "--engine",
+                       engine]):
+            m = re.match(r"Query (\d+):$", ln)
+            if m:
+                q = int(m.group(1))
+            m = re.match(r"  Neighbor \d+: (\S+) \(jaccard: ([0-9.]+)\)", ln)
+            if m:
+                got[(q, m.group(1))] = float(m.group(2))
+        # the printed Jaccard has 4 decimals
+        _held(got, want, j, band, 5e-5 + band,
+              f"jaccard search {engine} ({dtype})")
+    sets = {n: set(h.tolist()) for n, h in parse_hashes_file(hashes)}
+    out = run(["test", db_path, hashes, "-n", "8", "--seed", "1", "-j",
+               str(j)])
+    pat = re.compile(r"(\S+) vs (\S+): vector_jaccard=([0-9.]+), "
+                     r"hash_jaccard=([0-9.]+)$")
+    pairs = [m.groups() for m in map(pat.match, out) if m]
+    qids = sorted({a for a, _, _, _ in pairs})
+    check(len(qids) == 8, f"jaccard test sampled {len(qids)} of 8 queries")
+    rows = [names.index(a) for a in qids]
+    tw = {(qids[q], n): x for (q, n), x in
+          _jaccard_oracle(db_path, rows, j).items()}
+    _held({(a, b): float(x) for a, b, x, _ in pairs}, tw, j, 1e-5,
+          5e-5 + 1e-5, f"jaccard test ({dtype})")
+    for a, b, _, h in pairs:
+        s1, s2 = sets[a], sets[b]
+        check(h == f"{len(s1 & s2) / len(s1 | s2):.4f}",
+              f"jaccard test: hash Jaccard of {a} vs {b}")
+    say(f"[cli] {dtype}: jaccard index -> search (f32, int8) -> test equal "
+        f"the exact oracle ({len(want)} neighbours of {len(qrows)} queries,"
+        f" {len(pairs)} tested pairs)")
+
+
 def phase_cli(work):
     from benchmarks.full_pipeline import synth_hashes_file
     from metagenome_vector_sketches_tpu_torch.cli import (
@@ -411,12 +521,210 @@ def phase_cli(work):
                   f"sliced row {names[i]} ({dtype}) differs from oracle")
         say(f"[cli] {dtype}: sketch -> pairwise_comp x2 shards -> top-5 and "
             f"sliced queries equal the exact oracle ({len(want)} pairs)")
+        _jaccard_walkthrough(work, db_path, hashes, qrows, dtype)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: ANN serving at the JAX package's ANN-at-scale size
+# ---------------------------------------------------------------------------
+
+ANN_CHUNK = 262144      # IntExactIndex's default chunk_rows
+ANN_B, ANN_K = 256, 50  # benchmarks/ann_scale.py's batch and k
+ANN_GROUP_STRIDE = 256  # a planted group of 4 starts every 256 rows
+
+
+def _ann_chunks(N, seed=5):
+    """[(base, (rows, D) int32)] sketch-like vectors on the card: rounded
+    normals of sd 150 clipped to +-600 (L = 2, P = 3), rows 1-3 of every
+    256 near-duplicates (+-3) of row 0."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    chunks = []
+    for s in range(0, N, ANN_CHUNK):
+        rows = min(ANN_CHUNK, N - s)
+        v = (torch.randn((rows, D), generator=g, device="cuda") * 150) \
+            .round_().clamp_(-600, 600).to(torch.int32)
+        grp = v[:rows // ANN_GROUP_STRIDE * ANN_GROUP_STRIDE].view(
+            -1, ANN_GROUP_STRIDE, D)
+        noise = torch.randint(-3, 4, (grp.shape[0], 3, D), generator=g,
+                              device="cuda", dtype=torch.int32)
+        grp[:, 1:4] = (grp[:, :1] + noise).clamp_(-600, 600)
+        chunks.append((s, v))
+    return chunks
+
+
+def _brute_force(chunks, Q, k):
+    """float64-exact cosines of the int32 queries Q (B, D) numpy against
+    every row, on the card -> (scores (B, k) float64, rows (B, k)): score
+    desc, then lowest row — the int8 engine's own math and order."""
+    import torch
+    q = torch.from_numpy(Q).cuda()
+    qd = q.double()
+    qns = (q.long() ** 2).sum(1).double()
+    parts = []
+    for _, v in chunks:
+        dots = qd @ v.double().T                     # exact: < 2^53
+        ns = (v.long() ** 2).sum(1).double()
+        denom = torch.sqrt(ns[None, :] * qns[:, None])
+        parts.append(torch.where(denom > 0,
+                                 dots / torch.clamp(denom, min=1e-300),
+                                 torch.zeros_like(dots)))
+    score = torch.cat(parts, dim=1)
+    s, i = torch.sort(score, dim=1, descending=True, stable=True)
+    return s[:, :k + 1].cpu().numpy(), i[:, :k + 1].cpu().numpy()
+
+
+def phase_ann(N, errs, timings):
+    import torch
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ann import int_index as ii
+    from metagenome_vector_sketches_tpu_torch.ann import search as asearch
+    from metagenome_vector_sketches_tpu_torch.ann.flat_index import (
+        FlatIPIndex, normalize_l2)
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+
+    t0 = time.perf_counter()
+    chunks = _ann_chunks(N)
+    flat_chunks = []
+    for s, v in chunks:
+        x = v.float()
+        flat_chunks.append((s, x / x.norm(dim=1, keepdim=True).clamp_(
+            min=1e-30)))
+        del x
+    torch.cuda.synchronize()
+    say(f"[ann] made {N} x {D} int32 vectors and their L2-normalised f32 "
+        f"copy on the card in {time.perf_counter() - t0:.1f} s (set-up)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = ii.IntExactIndex.from_device_chunks(list(chunks), D)
+    flat = FlatIPIndex.from_device_chunks(flat_chunks, D)
+    torch.cuda.synchronize()
+    check(index.L == 2 and index._stack.shape[1] == 3,
+          "the ANN index must run the 2-limb (P=3) planes")
+    say(f"[ann] built IntExactIndex ({tuple(index._stack.shape)} int8) and "
+        f"FlatIPIndex in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(9)
+    n_groups = N // ANN_GROUP_STRIDE
+    groups = np.sort(rng.choice(n_groups, ANN_B, replace=False))
+    qrows = groups * ANN_GROUP_STRIDE
+    V_q = torch.cat([chunks[r // ANN_CHUNK][1][r % ANN_CHUNK][None]
+                     for r in qrows.tolist()]).cpu().numpy()
+    Qf = V_q.astype(np.float64) / np.sqrt(D)
+    Qn = normalize_l2(V_q.astype(np.float32))
+    ns = index.ns
+    norms = np.sqrt(ns.astype(np.float64) / D)
+
+    # the counted run of the ANN path: two searches, two adaptive searches
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    Di, Ii = index.search(V_q, ANN_K)
+    t_int = time.perf_counter() - t0
+    int_stages = dict(ii.LAST_SEARCH_STAGES)
+    t0 = time.perf_counter()
+    Df, If = flat.search(Qn, ANN_K)
+    t_f32 = time.perf_counter() - t0
+    walls = {}
+    adaptive = {}
+    for name, idx, qi in (("int8", index, V_q), ("f32", flat, None)):
+        t0 = time.perf_counter()
+        hits, qn = asearch.adaptive_search(idx, Qf, 0.1, verbose=False,
+                                           db_norms=norms, queries_int=qi)
+        walls[name] = time.perf_counter() - t0
+        adaptive[name] = (hits, dict(asearch.LAST_ADAPTIVE_STAGES))
+    launches = _build.launch_counts()
+    for k in ANN_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the ANN path")
+    say(f"[ann] N={N} d={D} B={ANN_B} k={ANN_K}: search walls int8 "
+        f"{t_int * 1e3:.1f} ms, f32 {t_f32 * 1e3:.1f} ms; adaptive walls "
+        f"int8 {walls['int8'] * 1e3:.1f} ms, f32 {walls['f32'] * 1e3:.1f} "
+        f"ms; launches {launches}")
+    say(f"[ann] int8 search stages {json.dumps(int_stages)}")
+    for name in ("int8", "f32"):
+        say(f"[ann] adaptive {name} stages {json.dumps(adaptive[name][1])}")
+
+    for name, I in (("int8", Ii), ("f32", If)):
+        found = sum(len({int(r) + m for m in range(4)} & set(I[b].tolist()))
+                    for b, r in enumerate(qrows))
+        recall = found / (4 * ANN_B)
+        say(f"[ann] {name} planted recall {recall}")
+        check(recall == 1.0, f"{name} planted recall {recall} != 1.0")
+    for name, (hits, st) in adaptive.items():
+        got = {}
+        for q, i, _ in hits:
+            got.setdefault(q, set()).add(i)
+        check(st["rounds"] == 1 and all(
+            got.get(b) == {int(r) + m for m in range(4)}
+            for b, r in enumerate(qrows)),
+            f"adaptive {name}: hits differ from the planted groups")
+
+    # 16 queries against the float64 brute force on the card: 8 planted
+    # rows, 8 fresh vectors (a dense score boundary)
+    Q16 = np.concatenate([V_q[:8], np.clip(np.rint(rng.normal(
+        0, 150, size=(8, D))), -600, 600).astype(np.int32)])
+    bs, bi = _brute_force(chunks, Q16, ANN_K)
+    Di16, Ii16 = index.search(Q16, ANN_K)
+    check(np.array_equal(Ii16, bi[:, :ANN_K].astype(np.int32))
+          and np.array_equal(Di16, bs[:, :ANN_K].astype(np.float32)),
+          "int8 engine (D, I) differ from the float64 brute force")
+    Df16, If16 = flat.search(normalize_l2(Q16.astype(np.float32)), ANN_K)
+    d_err = float(np.abs(Df16 - bs[:, :ANN_K]).max())
+    check(d_err <= 1e-5, f"f32 engine D off the brute force by {d_err}")
+    gap = np.diff(-bs, axis=1)                     # gap to the next rank
+    for b in range(16):
+        for r in range(ANN_K):
+            sure = gap[b, r] > 1e-5 and (r == 0 or gap[b, r - 1] > 1e-5)
+            check(not sure or If16[b, r] == bi[b, r],
+                  f"f32 engine I[{b}, {r}] differs from the brute force")
+    say(f"[ann] 16 queries: int8 (D, I) equal the float64 brute force; f32 "
+        f"D within {d_err:.2e}, I equal outside 1e-5 near-ties")
+
+    # kernels against their plain versions at the path's shapes
+    qp = ii.query_planes(V_q, index.L, "cuda")
+    valid = min(ANN_CHUNK, N)
+    sk = pw.scan_scores(qp, index._stack[0], index._inv_n[0], valid)
+    sp = pw.scan_scores_plain(qp, index._stack[0], index._inv_n[0], valid)
+    check(torch.equal(sk, sp), "scan kernel differs from plain")
+    timings["scan"] = (
+        cuda_ms(lambda: pw.scan_scores(qp, index._stack[0], index._inv_n[0],
+                                       valid)),
+        cuda_ms(lambda: pw.scan_scores_plain(qp, index._stack[0],
+                                             index._inv_n[0], valid),
+                reps=1))
+    del sk, sp
+    # the pooled (query, row) pairs that fall in chunk 0
+    _, i_dev, _ = index._pool(qp, ANN_B, index.pool_for(ANN_K))
+    in0 = (i_dev >= 0) & (i_dev < ANN_CHUNK)
+    qrow = torch.arange(ANN_B, device="cuda")[:, None].expand_as(i_dev)
+    rc = torch.stack([qrow[in0], i_dev[in0]], 1).to(torch.int32) \
+        .contiguous()
+    xk = pw.pair_partials(qp, rc, index.L, index._stack[0])
+    xp = pw.pair_partials_plain(qp, rc, index.L, index._stack[0])
+    err = int((xk.long() - xp.long()).abs().max())
+    check(err == 0, f"two-operand partials differ from plain by {err}")
+    errs["partials"] = max(errs["partials"], err)
+    x_ms = (cuda_ms(lambda: pw.pair_partials(qp, rc, index.L,
+                                             index._stack[0])),
+            cuda_ms(lambda: pw.pair_partials_plain(qp, rc, index.L,
+                                                   index._stack[0])))
+    pairs = ANN_B * ANN_CHUNK
+    say(f"[ann] scan: kernel {timings['scan'][0]:.3f} ms, plain "
+        f"{timings['scan'][1]:.3f} ms ({ANN_B} x {ANN_CHUNK} pairs, d={D}, "
+        f"P=3: {2 * pairs * D * 3 / (timings['scan'][0] * 1e-3) / 1e12:.1f}"
+        " TOP/s int8); bit-equal")
+    say(f"[ann] partials (two operands): kernel {x_ms[0]:.3f} ms, plain "
+        f"{x_ms[1]:.3f} ms ({len(rc)} pooled pairs); exact")
+    say(f"[ann] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+        " GiB")
+    return launches
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=65536,
                     help="accessions of the main-path run (default 65536)")
+    ap.add_argument("--ann-n", type=int, default=1 << 20,
+                    help="rows of the ANN phase's index (default 1,048,576)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -444,17 +752,17 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
     try:
         phase_kernels(errs)
-        launches = phase_main(args.n, work, timings)
+        main_launches = phase_main(args.n, work, timings)
         phase_cli(work)
+        ann_launches = phase_ann(args.ann_n, errs, timings)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
 
-    src = {"projection": "projection.cu", "sweep": "sweep.cu",
-           "partials": "partials.cu"}
     kernels = [{"name": k, "route": "cuda",
-                "source": f"{PKG}/csrc/{src[k]}", "replaces": REPLACES[k],
-                "launches": launches[k], "max_abs_err": errs[k],
+                "source": f"{PKG}/csrc/{SOURCES[k]}", "replaces": REPLACES[k],
+                "launches": main_launches[k] + ann_launches[k],
+                "max_abs_err": errs[k],
                 "ms": round(timings[k][0], 4),
                 "plain_ms": round(timings[k][1], 4)}
                for k in _build.KERNELS]

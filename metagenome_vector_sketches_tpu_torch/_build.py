@@ -29,9 +29,11 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
-KERNELS = ("projection", "sweep", "partials")
+# launch counters: "sweep" counts kernel S in its COUNT/APPEND epilogues,
+# "scan" in its SCORE epilogue (the int8 ANN engine)
+KERNELS = ("projection", "sweep", "partials", "scan")
 _launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -51,8 +53,11 @@ _SIGNATURES = {
     # mask_self, append, counts, rc, total, cap, stream
     "mvs_sweep": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P,
                   _F, _F, _I, _I, _P, _P, _P, _LL, _P],
-    # limbs, plane_stride, L, d_pad, rc, n, out, stream
-    "mvs_partials": [_P, _LL, _I, _I, _P, _LL, _P, _P],
+    # q_planes, db_planes, P, d_pad, stride_q, stride_db, rows, cols,
+    # inv_n, valid, weights(host), scores, ld, stream
+    "mvs_scan": [_P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I, _P, _P, _LL, _P],
+    # xs, x_stride, ys, y_stride, L, d_pad, rc, n, out, stream
+    "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P, _P],
 }
 
 
@@ -95,18 +100,40 @@ def _library_path() -> str:
 
 def build() -> str:
     """Compile the kernels if this source state has no library yet;
-    returns the library path."""
+    returns the library path. Each source compiles in its own nvcc
+    process, all started together, then one link."""
     path = _library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cus]
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", o, cu]
+                        for cu, o in zip(cus, objs))]
+    try:
+        for cmd, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}\n{err}")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n"
+                               f"{res.stderr}")
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, path)        # atomic: a concurrent process never sees half
     return path
 

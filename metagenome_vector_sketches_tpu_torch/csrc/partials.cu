@@ -5,9 +5,15 @@
 // (:767-782). Both are XLA programs; on the TPU the fused engine computed
 // the partials per tile, in the same program as the sweep.
 //
-// Math: for a candidate (r, c), D_ab = dot(limb_a(V_r), limb_b(V_c)) over
-// the L balanced int8 limbs; output the L diagonal terms D_aa, then the
-// symmetrised cross terms D_ab + D_ba for a < b — the order
+// Also the partials of the int8 ANN engine's pooled (query, db row) pairs
+// (ann/int_index.py:124 _int_scan_pool carried per-plane partials through
+// its top-k instead): rows then index one tensor (the query planes) and
+// columns another (one chunk of the database stack).
+//
+// Math: for a candidate (r, c), D_ab = dot(limb_a(X_r), limb_b(Y_c)) over
+// the L balanced int8 limbs (X = Y for the pairwise engine); output the L
+// diagonal terms D_aa, then the symmetrised cross terms D_ab + D_ba for
+// a < b — the order
 // ops/pairwise_math.combine_plane_partials turns into the exact int64 dot.
 // Each term is int32-exact (|D| <= d * 128^2, |D_ab + D_ba| <= 2^25 at
 // d = 2048).
@@ -31,8 +37,9 @@ constexpr int kMaxLimbs = 5;
 
 template <int L>
 __global__ void __launch_bounds__(kThreads)
-partials_kernel(const int8_t* __restrict__ limbs, long long stride,
-                int d_pad, const int32_t* __restrict__ rc, long long n,
+partials_kernel(const int8_t* __restrict__ xs, long long x_stride,
+                const int8_t* __restrict__ ys, long long y_stride, int d_pad,
+                const int32_t* __restrict__ rc, long long n,
                 int32_t* __restrict__ out) {
   const long long w = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -47,8 +54,8 @@ partials_kernel(const int8_t* __restrict__ limbs, long long stride,
     int4 x[L], y[L];
 #pragma unroll
     for (int a = 0; a < L; ++a) {
-      x[a] = *reinterpret_cast<const int4*>(limbs + a * stride + r * d_pad + k);
-      y[a] = *reinterpret_cast<const int4*>(limbs + a * stride + c * d_pad + k);
+      x[a] = *reinterpret_cast<const int4*>(xs + a * x_stride + r * d_pad + k);
+      y[a] = *reinterpret_cast<const int4*>(ys + a * y_stride + c * d_pad + k);
     }
 #pragma unroll
     for (int a = 0; a < L; ++a)
@@ -83,10 +90,12 @@ partials_kernel(const int8_t* __restrict__ limbs, long long stride,
 
 }  // namespace
 
-// limbs: the first L planes of a (P, N, d_pad) int8 tensor (plane stride
-// `stride` bytes); rc: (n, 2) int32 candidate (row, column) pairs;
+// xs / ys: the first L planes (limbs) of (P, N*, d_pad) int8 tensors with
+// plane strides x_stride / y_stride bytes (the same tensor twice for the
+// pairwise engine); rc: (n, 2) int32 (row of xs, row of ys) pairs;
 // out: (n, L(L+1)/2) int32.
-MVS_EXPORT int mvs_partials(const void* limbs, long long stride, int L,
+MVS_EXPORT int mvs_partials(const void* xs, long long x_stride,
+                            const void* ys, long long y_stride, int L,
                             int d_pad, const void* rc, long long n, void* out,
                             void* stream) {
   if (L < 1 || L > kMaxLimbs || d_pad % 16 || n < 0)
@@ -95,15 +104,17 @@ MVS_EXPORT int mvs_partials(const void* limbs, long long stride, int L,
   const long long grid = (n * 32 + kThreads - 1) / kThreads;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
-  const int8_t* l = (const int8_t*)limbs;
+  const int8_t* x = (const int8_t*)xs;
+  const int8_t* y = (const int8_t*)ys;
   const int32_t* p = (const int32_t*)rc;
   int32_t* o = (int32_t*)out;
+  const unsigned g = (unsigned)grid;
   switch (L) {
-    case 1: partials_kernel<1><<<(unsigned)grid, kThreads, 0, s>>>(l, stride, d_pad, p, n, o); break;
-    case 2: partials_kernel<2><<<(unsigned)grid, kThreads, 0, s>>>(l, stride, d_pad, p, n, o); break;
-    case 3: partials_kernel<3><<<(unsigned)grid, kThreads, 0, s>>>(l, stride, d_pad, p, n, o); break;
-    case 4: partials_kernel<4><<<(unsigned)grid, kThreads, 0, s>>>(l, stride, d_pad, p, n, o); break;
-    case 5: partials_kernel<5><<<(unsigned)grid, kThreads, 0, s>>>(l, stride, d_pad, p, n, o); break;
+    case 1: partials_kernel<1><<<g, kThreads, 0, s>>>(x, x_stride, y, y_stride, d_pad, p, n, o); break;
+    case 2: partials_kernel<2><<<g, kThreads, 0, s>>>(x, x_stride, y, y_stride, d_pad, p, n, o); break;
+    case 3: partials_kernel<3><<<g, kThreads, 0, s>>>(x, x_stride, y, y_stride, d_pad, p, n, o); break;
+    case 4: partials_kernel<4><<<g, kThreads, 0, s>>>(x, x_stride, y, y_stride, d_pad, p, n, o); break;
+    case 5: partials_kernel<5><<<g, kThreads, 0, s>>>(x, x_stride, y, y_stride, d_pad, p, n, o); break;
   }
   return mvs_launch_status();
 }

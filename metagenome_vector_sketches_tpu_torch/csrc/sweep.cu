@@ -29,7 +29,7 @@
 // before it is folded into the float32 combine, so only one int32 and one
 // float32 accumulator set live in registers. No wgmma/TMA pipeline yet.
 //
-// Epilogues (template flag):
+// Epilogues (template parameter):
 //   COUNT  — K1's contract: survivors per tile, one atomicAdd per warp.
 //   APPEND — per-tile counts as well, plus every survivor's global (r, c)
 //            int32 written into a flat buffer of capacity `cap`: one
@@ -37,8 +37,18 @@
 //            ONE atomicAdd per warp on the running total. The total keeps
 //            counting past `cap` (writes stop there), so the caller learns
 //            the exact size to rerun with. Self-pairs (r == c) can be masked.
-// Pad rows carry t = 1e30, so they never pass.
+//            Pad rows carry t = 1e30, so they never pass.
+//   SCORE  — the int8 ANN engine's scan (entry mvs_scan; replaces the plane
+//            GEMMs + combine + x 1/|v| of the XLA program
+//            ann/int_index.py:124 _int_scan_pool): rows are query planes,
+//            columns one chunk of the database stack; every pair's
+//            combined dot times inv_n[c] (one more __fmul_rn) is written to
+//            a row-major float32 (rows, ld) score matrix, -inf on columns
+//            c >= valid. No threshold, no self mask. The top-k selection
+//            stays outside the kernel (torch), so the (rows, R) scores make
+//            one round trip through device memory.
 #include <limits.h>
+#include <math.h>
 
 #include "common.cuh"
 
@@ -65,26 +75,49 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <bool kAppend>
+enum Epilogue { kCount = 0, kAppend = 1, kScore = 2 };
+
+// The operands of one launch: COUNT/APPEND read thr_*, counts, rc, total,
+// cap; SCORE reads inv_n, valid, scores, ld (and takes no coords: the grid
+// covers the whole tile_r x tile_c block).
+struct Args {
+  const int8_t* planes_i;
+  const int8_t* planes_j;
+  const float* thr_i;
+  const float* thr_j;
+  int P;
+  float dval;
+  int d_pad;
+  long long stride_i, stride_j;
+  const int32_t* coords;
+  int tile_r, tile_c;
+  float slack_rel, slack_abs;
+  int mask_self;
+  int32_t* counts;
+  int32_t* rc;
+  unsigned* total;
+  long long cap;
+  const float* inv_n;
+  int valid;
+  float* scores;
+  long long ld;
+};
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
-sweep_kernel(const int8_t* __restrict__ planes_i,
-             const int8_t* __restrict__ planes_j,
-             const float* __restrict__ thr_i, const float* __restrict__ thr_j,
-             int P, float dval, int d_pad, long long stride_i,
-             long long stride_j, const int32_t* __restrict__ coords,
-             int tile_r, int tile_c, Weights wts, float slack_rel,
-             float slack_abs, int mask_self, int32_t* __restrict__ counts,
-             int32_t* __restrict__ rc, unsigned* __restrict__ total,
-             long long cap) {
+sweep_kernel(const Args args, const Weights wts) {
   __shared__ __align__(16) int8_t As[kBM * kSRow];
   __shared__ __align__(16) int8_t Bs[kBN * kSRow];
 
-  const int sub_c = tile_c / kBN;
-  const int per_tile = (tile_r / kBM) * sub_c;
+  const int P = args.P, d_pad = args.d_pad;
+  const int sub_c = args.tile_c / kBN;
+  const int per_tile = (args.tile_r / kBM) * sub_c;
   const int tile = blockIdx.x / per_tile;
   const int sub = blockIdx.x % per_tile;
-  const int row0 = coords[2 * tile] * tile_r + (sub / sub_c) * kBM;
-  const int col0 = coords[2 * tile + 1] * tile_c + (sub % sub_c) * kBN;
+  const int tr = kMode == kScore ? 0 : args.coords[2 * tile];
+  const int tc = kMode == kScore ? 0 : args.coords[2 * tile + 1];
+  const int row0 = tr * args.tile_r + (sub / sub_c) * kBM;
+  const int col0 = tc * args.tile_c + (sub % sub_c) * kBN;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
@@ -100,8 +133,10 @@ sweep_kernel(const int8_t* __restrict__ planes_i,
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
 
-    const int8_t* A = planes_i + p * stride_i + (long long)row0 * d_pad;
-    const int8_t* B = planes_j + p * stride_j + (long long)col0 * d_pad;
+    const int8_t* A =
+        args.planes_i + p * args.stride_i + (long long)row0 * d_pad;
+    const int8_t* B =
+        args.planes_j + p * args.stride_j + (long long)col0 * d_pad;
     for (int k0 = 0; k0 < d_pad; k0 += kBK) {
 #pragma unroll
       for (int i = 0; i < (kBM * kBK / 16) / kThreads; ++i) {
@@ -151,6 +186,22 @@ sweep_kernel(const int8_t* __restrict__ planes_i,
         }
   }
 
+  if (kMode == kScore) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int gr = row0 + wm * kWM + mt * 16 + g + ((i >> 1) << 3);
+          const int gc = col0 + wn * kWN + nt * 8 + t * 2 + (i & 1);
+          args.scores[(long long)gr * args.ld + gc] =
+              gc < args.valid ? __fmul_rn(approx[mt][nt][i], args.inv_n[gc])
+                              : -INFINITY;
+        }
+    return;
+  }
+
   int cnt = 0;
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
@@ -161,32 +212,39 @@ sweep_kernel(const int8_t* __restrict__ planes_i,
         // mma C fragment: rows g / g+8, columns 2t / 2t+1
         const int gr = row0 + wm * kWM + mt * 16 + g + ((i >> 1) << 3);
         const int gc = col0 + wn * kWN + nt * 8 + t * 2 + (i & 1);
-        const float q = __fdiv_rn(approx[mt][nt][i], dval);
-        float th = __fadd_rn(thr_i[gr], thr_j[gc]);
+        const float q = __fdiv_rn(approx[mt][nt][i], args.dval);
+        float th = __fadd_rn(args.thr_i[gr], args.thr_j[gc]);
         th = __fmul_rn(0.05f, th);
-        th = __fmul_rn(th, slack_rel);
-        th = __fsub_rn(th, slack_abs);
-        const bool pass = (q > th) && !(mask_self && gr == gc);
+        th = __fmul_rn(th, args.slack_rel);
+        th = __fsub_rn(th, args.slack_abs);
+        const bool pass = (q > th) && !(args.mask_self && gr == gc);
         cnt += pass ? 1 : 0;
-        if (kAppend) {
+        if (kMode == kAppend) {
           const unsigned m = __ballot_sync(kFullMask, pass);
           if (m) {  // warp-uniform
             unsigned base = 0;
-            if (lane == 0) base = atomicAdd(total, (unsigned)__popc(m));
+            if (lane == 0) base = atomicAdd(args.total, (unsigned)__popc(m));
             base = __shfl_sync(kFullMask, base, 0);
             if (pass) {
               const unsigned long long pos =
                   (unsigned long long)base + __popc(m & ((1u << lane) - 1u));
-              if (pos < (unsigned long long)cap) {
-                rc[2 * pos] = gr;
-                rc[2 * pos + 1] = gc;
+              if (pos < (unsigned long long)args.cap) {
+                args.rc[2 * pos] = gr;
+                args.rc[2 * pos + 1] = gc;
               }
             }
           }
         }
       }
   cnt = __reduce_add_sync(kFullMask, cnt);
-  if (lane == 0 && cnt) atomicAdd(&counts[tile], cnt);
+  if (lane == 0 && cnt) atomicAdd(&args.counts[tile], cnt);
+}
+
+Weights load_weights(const void* weights_host, int P) {
+  Weights w;
+  for (int p = 0; p < kMaxPlanes; ++p)
+    w.w[p] = p < P ? static_cast<const float*>(weights_host)[p] : 0.f;
+  return w;
 }
 
 }  // namespace
@@ -211,23 +269,65 @@ MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
       (long long)n_tiles * (tile_r / kBM) * (tile_c / kBN);
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
   if (grid == 0) return mvs_launch_status();
-  Weights w;
-  for (int p = 0; p < kMaxPlanes; ++p)
-    w.w[p] = p < P ? static_cast<const float*>(weights_host)[p] : 0.f;
+  Args a{};
+  a.planes_i = (const int8_t*)planes_i;
+  a.planes_j = (const int8_t*)planes_j;
+  a.thr_i = (const float*)thr_i;
+  a.thr_j = (const float*)thr_j;
+  a.P = P;
+  a.dval = (float)d;
+  a.d_pad = d_pad;
+  a.stride_i = stride_i;
+  a.stride_j = stride_j;
+  a.coords = (const int32_t*)coords;
+  a.tile_r = tile_r;
+  a.tile_c = tile_c;
+  a.slack_rel = slack_rel;
+  a.slack_abs = slack_abs;
+  a.mask_self = mask_self;
+  a.counts = (int32_t*)counts;
+  a.rc = (int32_t*)rc;
+  a.total = (unsigned*)total;
+  a.cap = cap;
+  const Weights w = load_weights(weights_host, P);
   auto s = (cudaStream_t)stream;
-  if (append) {
-    sweep_kernel<true><<<(unsigned)grid, kThreads, 0, s>>>(
-        (const int8_t*)planes_i, (const int8_t*)planes_j, (const float*)thr_i,
-        (const float*)thr_j, P, (float)d, d_pad, stride_i, stride_j,
-        (const int32_t*)coords, tile_r, tile_c, w, slack_rel, slack_abs,
-        mask_self, (int32_t*)counts, (int32_t*)rc, (unsigned*)total, cap);
-  } else {
-    sweep_kernel<false><<<(unsigned)grid, kThreads, 0, s>>>(
-        (const int8_t*)planes_i, (const int8_t*)planes_j, (const float*)thr_i,
-        (const float*)thr_j, P, (float)d, d_pad, stride_i, stride_j,
-        (const int32_t*)coords, tile_r, tile_c, w, slack_rel, slack_abs,
-        mask_self, (int32_t*)counts, nullptr, nullptr, 0);
-  }
+  if (append)
+    sweep_kernel<kAppend><<<(unsigned)grid, kThreads, 0, s>>>(a, w);
+  else
+    sweep_kernel<kCount><<<(unsigned)grid, kThreads, 0, s>>>(a, w);
+  return mvs_launch_status();
+}
+
+// The SCORE epilogue. q_planes: (P, rows, d_pad) int8 query planes (plane
+// stride stride_q); db_planes: (P, >= cols, d_pad) int8, one chunk of the
+// stack (plane stride stride_db); inv_n: (cols,) float32; scores: (rows,
+// ld) float32, ld >= cols. rows and cols are multiples of 128.
+MVS_EXPORT int mvs_scan(const void* q_planes, const void* db_planes, int P,
+                        int d_pad, long long stride_q, long long stride_db,
+                        int rows, int cols, const void* inv_n, int valid,
+                        const void* weights_host, void* scores, long long ld,
+                        void* stream) {
+  if (P < 1 || P > kMaxPlanes || rows <= 0 || cols <= 0 || rows % kBM ||
+      cols % kBN || d_pad % kBK || ld < cols)
+    return (int)cudaErrorInvalidValue;
+  const long long grid = (long long)(rows / kBM) * (cols / kBN);
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.planes_i = (const int8_t*)q_planes;
+  a.planes_j = (const int8_t*)db_planes;
+  a.P = P;
+  a.d_pad = d_pad;
+  a.stride_i = stride_q;
+  a.stride_j = stride_db;
+  a.tile_r = rows;
+  a.tile_c = cols;
+  a.inv_n = (const float*)inv_n;
+  a.valid = valid;
+  a.scores = (float*)scores;
+  a.ld = ld;
+  const Weights w = load_weights(weights_host, P);
+  sweep_kernel<kScore><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      a, w);
   return mvs_launch_status();
 }
 

@@ -55,6 +55,23 @@ CANDIDATE_BUDGET_BYTES = 4 << 30
 
 _MAX_DISPATCH_WALLS = 50
 
+# tile edges already reported as rounded (each is logged once a process)
+_ROUNDED_TILES: set = set()
+
+
+def sweep_tile(tile_rows: int, device) -> int:
+    """The sweep's tile edge on ``device``: tile_rows itself on the CPU; on
+    CUDA rounded UP to a multiple of kernel S's block (128), logged once.
+    The shard does not depend on the tile (the writer lexsorts)."""
+    if torch.device(device).type != "cuda" or tile_rows % pw.SWEEP_BLOCK == 0:
+        return tile_rows
+    tile = pw.pad_rows(tile_rows, device)
+    if tile_rows not in _ROUNDED_TILES:
+        _ROUNDED_TILES.add(tile_rows)
+        log(f"tile_rows={tile_rows} rounded up to {tile} (kernel S takes "
+            f"multiples of {pw.SWEEP_BLOCK} on CUDA)")
+    return tile
+
 
 def _reset_stages():
     LAST_STAGES.clear()
@@ -109,8 +126,8 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
     """Compute shard ``shard_idx`` of ``num_shards`` of the all-vs-all
     matrix on ``device`` and write its folder; returns the folder path.
 
-    tile_rows is the square tile edge of the sweep (a multiple of 128 on
-    CUDA). With resume=True an already complete shard is left untouched.
+    tile_rows is the square tile edge of the sweep (rounded up to a
+    multiple of 128 on CUDA, :func:`sweep_tile`). With resume=True an already complete shard is left untouched.
     The shard folder is byte-identical to the JAX engine's on the same db.
     """
     dev = resolve_device(device)
@@ -120,9 +137,7 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
         if verbose:
             log(f"Shard {shard_idx} already complete, skipping (resume)")
         return shard_folder
-    if dev.type == "cuda" and tile_rows % pw.SWEEP_BLOCK:
-        raise ValueError(f"tile_rows={tile_rows} must be a multiple of "
-                         f"{pw.SWEEP_BLOCK} on CUDA")
+    tile_rows = sweep_tile(tile_rows, dev)
     db = DbFolder(db_folder)
     d = db.dimension
     _, norms = db.names_and_norms()

@@ -1,6 +1,7 @@
 """Pairwise similarity on the device: int8 Karatsuba planes, the thresholded
-sweep with survivor compaction (kernel S), and exact limb-pair partials of
-the survivors (kernel X).
+sweep with survivor compaction (kernel S), the int8 ANN engine's scores of
+query planes against database planes (kernel S, SCORE epilogue), and exact
+limb-pair partials of candidate pairs (kernel X).
 
 The database lives on the device as a (P, Npad, d_pad) int8 plane tensor
 (P = L(L+1)/2: the L balanced base-128 limbs, then the pairwise limb sums;
@@ -34,6 +35,14 @@ SWEEP_BLOCK = 128     # kernel S's CTA edge: CUDA tiles are multiples of it
 
 def pad_dim(d: int) -> int:
     return (d + D_ALIGN - 1) // D_ALIGN * D_ALIGN
+
+
+def pad_rows(n: int, device) -> int:
+    """Rows of a plane tensor that holds n rows on ``device``: a multiple of
+    kernel S's block on CUDA (zero rows), n itself on the CPU."""
+    if torch.device(device).type != "cuda":
+        return n
+    return max(1, (n + SWEEP_BLOCK - 1) // SWEEP_BLOCK) * SWEEP_BLOCK
 
 
 # ---------------------------------------------------------------------------
@@ -232,13 +241,65 @@ def sweep_extract(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
 
 
 # ---------------------------------------------------------------------------
+# Scores of query planes against one database chunk (kernel S, SCORE)
+# ---------------------------------------------------------------------------
+
+def scan_scores_plain(q_planes: torch.Tensor, db_planes: torch.Tensor,
+                      inv_n: torch.Tensor, valid: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`scan_scores`."""
+    score = approx_dot_f32(q_planes, db_planes) * inv_n[None, :]
+    lane = torch.arange(db_planes.shape[1], device=score.device)
+    return score.masked_fill(lane[None, :] >= valid, float("-inf"))
+
+
+def scan_scores(q_planes: torch.Tensor, db_planes: torch.Tensor,
+                inv_n: torch.Tensor, valid: int) -> torch.Tensor:
+    """(P, B, d_pad) int8 query planes x (P, R, d_pad) int8 planes of one
+    database chunk -> (B, R) float32 ranking scores: the plane-order f32
+    combine of the exact plane products (:func:`approx_dot_f32`) times
+    inv_n (R,) float32, -inf on lanes >= valid.
+
+    On CUDA B and R must be multiples of 128 (:func:`pad_rows`): pad query
+    rows with zero planes and drop their scores; pad database rows with
+    zero planes, inv_n 0 and a valid count that excludes them."""
+    if q_planes.device.type == "cpu":
+        return scan_scores_plain(q_planes, db_planes, inv_n, valid)
+    _check_planes(q_planes, "q_planes")
+    _check_planes(db_planes, "db_planes")
+    P, B, d_pad = q_planes.shape
+    R = db_planes.shape[1]
+    if db_planes.shape[0] != P or db_planes.shape[2] != d_pad \
+            or db_planes.device != q_planes.device:
+        raise ValueError("q_planes and db_planes differ in planes, d_pad or "
+                         "device")
+    if B % SWEEP_BLOCK or R % SWEEP_BLOCK:
+        raise ValueError(f"kernel S takes row counts that are multiples of "
+                         f"{SWEEP_BLOCK} (got {B} x {R})")
+    _check_thr(inv_n, R, "inv_n")
+    if inv_n.device != q_planes.device:
+        raise ValueError("inv_n must lie on the planes' device")
+    scores = torch.empty((B, R), dtype=torch.float32, device=q_planes.device)
+    w = plane_weights(limbs_from_planes(P))
+    lib = _build.library()
+    err = lib.mvs_scan(
+        q_planes.data_ptr(), db_planes.data_ptr(), P, d_pad, B * d_pad,
+        R * d_pad, B, R, inv_n.data_ptr(), int(max(0, min(valid, R))),
+        w.ctypes.data_as(ctypes.c_void_p), scores.data_ptr(), R,
+        _build.launch_stream(q_planes.device))
+    _build.check(err, "scan kernel")
+    _build.count_launch("scan")
+    return scores
+
+
+# ---------------------------------------------------------------------------
 # Exact limb-pair partials of candidate pairs (kernel X)
 # ---------------------------------------------------------------------------
 
-def pair_partials_plain(planes: torch.Tensor, rc: torch.Tensor,
-                        L: int) -> torch.Tensor:
+def pair_partials_plain(planes: torch.Tensor, rc: torch.Tensor, L: int,
+                        planes_j: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`pair_partials`."""
-    limbs = planes[:L]
+    planes_j = planes if planes_j is None else planes_j
+    xs, ys = planes[:L], planes_j[:L]
     d_pad = planes.shape[2]
     n = rc.shape[0]
     out = torch.empty((n, num_planes(L)), dtype=torch.int32,
@@ -246,8 +307,8 @@ def pair_partials_plain(planes: torch.Tensor, rc: torch.Tensor,
     chunk = max(1, (64 << 20) // (8 * L * d_pad))
     for s in range(0, n, chunk):
         e = min(s + chunk, n)
-        x = limbs[:, rc[s:e, 0].long()].to(torch.int32)     # (L, k, d_pad)
-        y = limbs[:, rc[s:e, 1].long()].to(torch.int32)
+        x = xs[:, rc[s:e, 0].long()].to(torch.int32)        # (L, k, d_pad)
+        y = ys[:, rc[s:e, 1].long()].to(torch.int32)
         cols = [(x[a] * y[a]).sum(-1) for a in range(L)]
         cols += [(x[a] * y[b] + x[b] * y[a]).sum(-1)
                  for a in range(L) for b in range(a + 1, L)]
@@ -255,17 +316,23 @@ def pair_partials_plain(planes: torch.Tensor, rc: torch.Tensor,
     return out
 
 
-def pair_partials(planes: torch.Tensor, rc: torch.Tensor,
-                  L: int) -> torch.Tensor:
+def pair_partials(planes: torch.Tensor, rc: torch.Tensor, L: int,
+                  planes_j: torch.Tensor | None = None) -> torch.Tensor:
     """Exact int32 limb-pair partial dots of candidate pairs rc ((n, 2)
-    int32 rows/columns into planes, whose first L planes are the limbs)
+    int32: a row of planes, a row of planes_j — planes itself when
+    planes_j is None; the first L planes of each are the limbs)
     -> (n, L(L+1)/2) int32: D_aa for a < L, then D_ab + D_ba for a < b —
     the order pairwise_math.combine_plane_partials takes (transposed)."""
     if planes.device.type == "cpu":
-        return pair_partials_plain(planes, rc, L)
+        return pair_partials_plain(planes, rc, L, planes_j)
+    planes_j = planes if planes_j is None else planes_j
     _check_planes(planes, "planes")
-    P, npad, d_pad = planes.shape
-    if not 1 <= L <= 5 or num_planes(L) > P:
+    _check_planes(planes_j, "planes_j")
+    P, ni, d_pad = planes.shape
+    nj = planes_j.shape[1]
+    if planes_j.shape[2] != d_pad or planes_j.device != planes.device:
+        raise ValueError("planes and planes_j differ in d_pad or device")
+    if not 1 <= L <= 5 or num_planes(L) > min(P, planes_j.shape[0]):
         raise ValueError(f"L={L} does not match {P} planes")
     if rc.dtype != torch.int32 or rc.ndim != 2 or rc.shape[1] != 2 \
             or not rc.is_contiguous() or rc.device != planes.device:
@@ -276,13 +343,15 @@ def pair_partials(planes: torch.Tensor, rc: torch.Tensor,
                       device=planes.device)
     if n == 0:
         return out
-    lo, hi = (int(v) for v in torch.aminmax(rc))
-    if lo < 0 or hi >= npad:
-        raise ValueError(f"candidate rows/columns outside [0, {npad})")
+    lo_r, hi_r, lo_c, hi_c = torch.stack(
+        [*torch.aminmax(rc[:, 0]), *torch.aminmax(rc[:, 1])]).tolist()
+    if min(lo_r, lo_c) < 0 or hi_r >= ni or hi_c >= nj:
+        raise ValueError(f"candidate rows/columns outside [0, {ni}) x "
+                         f"[0, {nj})")
     lib = _build.library()
-    err = lib.mvs_partials(planes.data_ptr(), npad * d_pad, L, d_pad,
-                           rc.data_ptr(), n, out.data_ptr(),
-                           _build.launch_stream(planes.device))
+    err = lib.mvs_partials(planes.data_ptr(), ni * d_pad, planes_j.data_ptr(),
+                           nj * d_pad, L, d_pad, rc.data_ptr(), n,
+                           out.data_ptr(), _build.launch_stream(planes.device))
     _build.check(err, "partials kernel")
     _build.count_launch("partials")
     return out

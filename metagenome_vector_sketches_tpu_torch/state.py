@@ -1,10 +1,16 @@
-"""Device state of the pairwise engine, from the JAX package's staged state.
+"""Device state of the port, from the JAX package's state.
 
-The JAX engine stages a database as (P, Npad, d) int8 Karatsuba planes and
-(Npad,) float32 thresholds (``matrix/compute.py:307-388``
-``_stage_database``). :func:`from_reference_state` turns those arrays
-(as numpy) into the port's tensors, padding d to ``d_pad`` with zero
-columns, so the two sweeps can be fed identical state.
+Each function takes the JAX objects' arrays as numpy and returns the port's
+tensors or objects, so the two packages can be fed identical state:
+
+- :func:`from_reference_state`: the pairwise engine's (P, Npad, d) int8
+  Karatsuba planes and (Npad,) float32 thresholds
+  (``matrix/compute.py:307-388`` ``_stage_database``), d padded to
+  ``d_pad`` with zero columns;
+- :func:`int_index_from_reference`: an ``ann.int_index.IntExactIndex``'s
+  (C, P, R, d) int8 plane stack, exact norms, L, chunk_rows and shape;
+- :func:`flat_index_from_reference`: an ``ann.flat_index.FlatIPIndex``'s
+  normalised float32 vectors.
 """
 
 from __future__ import annotations
@@ -30,3 +36,38 @@ def from_reference_state(planes: np.ndarray, thr: np.ndarray, device):
     out = torch.zeros((P, npad, pad_dim(d)), dtype=torch.int8, device=dev)
     out[:, :, :d] = torch.tensor(planes).to(dev)
     return out, torch.tensor(thr).to(dev)
+
+
+def int_index_from_reference(stack: np.ndarray, ns: np.ndarray, L: int,
+                             chunk_rows: int, shape, *, device,
+                             max_abs: int | None = None, mode: str = "exact",
+                             recall_target: float = 0.95):
+    """A JAX IntExactIndex's state (``_stack`` (C, P, R, d) int8, ``ns``
+    (n,) int64, ``L``, ``chunk_rows`` = R, ``(n, d)``) -> the port's
+    IntExactIndex on ``device`` (R padded to pad_rows(R), d to d_pad)."""
+    from .ann.int_index import IntExactIndex
+    stack = np.asarray(stack)
+    C, P, R, d = stack.shape
+    if stack.dtype != np.int8 or R != chunk_rows or d != shape[1] \
+            or C != (shape[0] + R - 1) // R:
+        raise ValueError(f"stack {stack.shape} {stack.dtype} does not match "
+                         f"chunk_rows={chunk_rows}, shape={shape}")
+    self = IntExactIndex.__new__(IntExactIndex)
+    self._setup(resolve_device(device), shape, R, max_abs, mode,
+                recall_target, L=L)
+    if self._stack.shape[1] != P:
+        raise ValueError(f"{P} planes do not match L={L}")
+    self._stack[:, :, :R, :d] = torch.tensor(stack).to(self.device)
+    self.ns = np.asarray(ns, dtype=np.int64)
+    self._finish_norms()
+    return self
+
+
+def flat_index_from_reference(vectors: np.ndarray, *, device,
+                              chunk_rows: int = 65536,
+                              precision: str = "f32"):
+    """A JAX FlatIPIndex's normalised (n, d) float32 vectors -> the port's
+    FlatIPIndex on ``device``."""
+    from .ann.flat_index import FlatIPIndex
+    return FlatIPIndex(vectors, chunk_rows=chunk_rows, precision=precision,
+                       device=device)

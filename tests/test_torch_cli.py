@@ -109,6 +109,16 @@ compute_pairwise_shard(db.path, {str(tmp_path / 'm')!r}, tile_rows=16,
 names, norms = db.names_and_norms_f32()
 res = query_engine.query({str(tmp_path / 'm')!r}, [0, 1], norms, names)
 assert res[0].self_id == "A0"
+from metagenome_vector_sketches_tpu_torch.ann import search, validate
+from metagenome_vector_sketches_tpu_torch.cli import jaccard
+assert jaccard.main(["index", db.path, "--device", "cpu"]) == 0
+with open({str(tmp_path / 'h.txt')!r}) as f, \\
+        open({str(tmp_path / 'q.txt')!r}, "w") as g:
+    g.write(f.readline())
+for engine in ("f32", "int8"):
+    hits = search.search_index(db.path, {str(tmp_path / 'q.txt')!r}, 0.5,
+                               verbose=False, engine=engine, device="cpu")
+    assert hits[0][:2] == (0, "A0"), hits
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("NO_JAX_OK")
 """

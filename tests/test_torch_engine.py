@@ -143,3 +143,17 @@ def test_device_is_explicit_and_cuda_is_checked(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             tmc.compute_pairwise_shard(db.path, str(tmp_path / "m"),
                                        device="cuda")
+
+
+def test_sweep_tile_rounds_up_on_cuda_only(capsys, monkeypatch):
+    """Any --tile works on both devices: CUDA rounds it up to kernel S's
+    128-row block (logged once per tile), the CPU keeps it; the shard does
+    not depend on the tile (the writer lexsorts)."""
+    monkeypatch.setattr(tmc, "_ROUNDED_TILES", set())
+    for tile in (32, 100, 2048):
+        assert tmc.sweep_tile(tile, "cpu") == tile
+    assert [tmc.sweep_tile(t, "cuda") for t in (32, 32, 128, 300, 2048)] \
+        == [128, 128, 128, 384, 2048]
+    out = capsys.readouterr().out
+    assert out.count("tile_rows=32 rounded up to 128") == 1
+    assert "tile_rows=300 rounded up to 384" in out and "2048" not in out

@@ -106,3 +106,104 @@ def test_engine_cuda_shard_equals_cpu_shard(cuda, tmp_path, max_abs, int16):
             assert filecmp.cmp(tmp_path / "cpu" / f"shard_{s}" / f,
                                tmp_path / "cuda" / f"shard_{s}" / f,
                                shallow=False)
+
+
+def _scan_state(dev, N, d, max_abs, B, seed):
+    """Padded query planes (B rows) and one db chunk of N valid rows."""
+    from metagenome_vector_sketches_tpu_torch.ann import int_index as ii
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    rng = np.random.default_rng(seed)
+    V = rng.integers(-max_abs, max_abs + 1, size=(N, d)).astype(np.int32)
+    V[3] = 0
+    Q = rng.integers(-max_abs, max_abs + 1, size=(B, d)).astype(np.int32)
+    Q[0] = V[5]
+    L = pm.pick_limbs(max_abs)
+    qp = ii.query_planes(Q, L, dev)
+    db = ii.query_planes(V, L, dev)
+    inv = torch.from_numpy(rng.random(db.shape[1]).astype(np.float32)).to(dev)
+    return L, qp, db, inv
+
+
+@pytest.mark.parametrize("B", [1, 37, 256])
+@pytest.mark.parametrize("d,max_abs", [(200, 3000), (2048, 600),
+                                       (2048, 30000)])
+def test_scan_kernel_matches_plain(cuda, B, d, max_abs):
+    """Kernel S SCORE against its plain version, bit for bit (P = 3, 6)."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    _, qp, db, inv = _scan_state(cuda, 1000, d, max_abs, B, seed=B + d)
+    assert db.shape[1] == 1024 and qp.shape[0] in (3, 6)
+    got = pw.scan_scores(qp, db, inv, 1000)
+    want = pw.scan_scores_plain(qp, db, inv, 1000)
+    assert got.shape == (qp.shape[1], 1024)
+    assert torch.equal(got, want)
+    assert bool(torch.isinf(got[:, 1000:]).all())
+
+
+def test_two_operand_partials_kernel_matches_plain(cuda):
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    for max_abs in (100, 3000, 30000, 2000000):
+        L, qp, db, _ = _scan_state(cuda, 500, 200, max_abs, 37, seed=7)
+        rc = torch.stack([torch.randint(0, 37, (3000,), device=cuda),
+                          torch.randint(0, 500, (3000,), device=cuda)],
+                         1).to(torch.int32).contiguous()
+        got = pw.pair_partials(qp, rc, L, db)
+        assert torch.equal(got, pw.pair_partials_plain(qp, rc, L, db))
+        assert got.shape == (3000, pm.num_planes(L))
+
+
+@pytest.mark.parametrize("n,d,mag,chunk", [(1000, 200, 3000, 300),
+                                           (700, 2048, 30000, 700)])
+def test_int_index_cuda_equals_cpu(cuda, n, d, mag, chunk):
+    from metagenome_vector_sketches_tpu_torch.ann.int_index import (
+        IntExactIndex)
+    rng = np.random.default_rng(n)
+    V = rng.integers(-mag, mag + 1, size=(n, d)).astype(np.int32)
+    V[9] = V[4]
+    Q = rng.integers(-mag, mag + 1, size=(37, d)).astype(np.int32)
+    Q[0] = V[4]
+    results = [IntExactIndex(V, chunk_rows=chunk, device=dev).search(Q, 60)
+               for dev in ("cpu", cuda)]
+    (Dc, Ic), (Dg, Ig) = results
+    assert np.array_equal(Ic, Ig) and np.array_equal(Dc, Dg)
+    assert Ig[0, :2].tolist() == [4, 9]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16_rescore"])
+def test_flat_index_cuda_matches_cpu(cuda, precision):
+    from metagenome_vector_sketches_tpu_torch.ann.flat_index import (
+        FlatIPIndex, normalize_l2)
+    rng = np.random.default_rng(3)
+    V = normalize_l2(rng.normal(size=(3000, 256)).astype(np.float32))
+    Q = normalize_l2(V[:20] + 0.05 * rng.normal(size=(20, 256))
+                     .astype(np.float32))
+    (Dc, Ic), (Dg, Ig) = [
+        FlatIPIndex(V, chunk_rows=1000, precision=precision,
+                    device=dev).search(Q, 30) for dev in ("cpu", cuda)]
+    np.testing.assert_allclose(Dg, Dc, rtol=0, atol=1e-5)
+    assert (Ig[:, 0] == np.arange(20)).all()
+    for b in range(20):                 # equal outside near-ties
+        diff = np.nonzero(Ig[b] != Ic[b])[0]
+        assert all(abs(Dc[b, r] - Dc[b, r - 1]) < 1e-5
+                   or abs(Dc[b, min(r + 1, 29)] - Dc[b, r]) < 1e-5
+                   for r in diff)
+
+
+def test_pairwise_comp_any_tile_on_cuda(cuda, tmp_path):
+    """--tile 32 rounds up to kernel S's block on CUDA and writes the same
+    shard bytes as --tile 2048."""
+    import filecmp
+    from metagenome_vector_sketches_tpu_torch.cli import pairwise_comp
+    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    V, _, _, _ = _state("cpu", N=700, d=200, max_abs=3000)
+    db = DbFolder.write(str(tmp_path / "db"), [f"S{i}" for i in range(700)],
+                        V, 200)
+    for tile in ("32", "2048"):
+        assert pairwise_comp.main(
+            ["--db", db.path, "--max_memory_gb", "1", "--num_threads", "1",
+             "--output_folder", str(tmp_path / tile), "--num_shards", "1",
+             "--shard_idx", "0", "--tile", tile]) == 0
+    for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+        assert filecmp.cmp(tmp_path / "32" / "shard_0" / f,
+                           tmp_path / "2048" / "shard_0" / f, shallow=False)
