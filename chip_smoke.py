@@ -9,8 +9,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
 
 1. kernels: each kernel against its plain PyTorch version on the card,
-   with exact equality (projection P, sweep S in both epilogues,
-   partials X);
+   with exact equality (projection P, sweep S in both epilogues and with a
+   nonzero diagonal offset, partials X, incidence Gram G at ragged n and
+   u);
 2. main: the main path at N accessions x d = 2048 — synthetic hash sets
    with planted groups -> sketch (P) -> one pairwise shard (S, X) ->
    top-k queries of planted rows; planted recall must be 1.0, an exact
@@ -19,8 +20,10 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    plain version at the main path's shapes;
 3. cli: the README walkthrough through the port's command-line tools at
    N = 2048 on an int32 and an --int16 db, every output held against an
-   exact numpy oracle — sketch, pairwise_comp, query_pc_mat, and step 5:
-   jaccard index / search (f32 and int8 engines) / test;
+   exact numpy oracle — sketch, pairwise_comp (also with --finalize device
+   and --gate_sparse_tiles, byte-equal to the default run, and
+   --strategy 1 against an exact set-Jaccard oracle), query_pc_mat, and
+   step 5: jaccard index / search (f32 and int8 engines) / test;
 4. ann: ANN serving at the JAX package's ANN-at-scale size
    (benchmarks/ann_scale.py): N = 1,048,576 x d = 2048 int32 sketch-like
    vectors made on the card with planted groups of 4, the int8-plane
@@ -28,7 +31,16 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    recall 1.0 for both, the int8 engine's (D, I) equal to a float64 brute
    force on the card, the f32 engine within 1e-5 of it, one adaptive
    search per engine, the scan and two-operand partials kernels against
-   their plain versions, and the search / adaptive walls.
+   their plain versions, and the search / adaptive walls;
+5. stream: the beyond-memory streaming engine on phase 2's db with the
+   device budget at half its planes' bytes (8 row groups x 8 windows at
+   N = 65,536): its shard must be byte-equal to phase 2's resident shard;
+   walls of both and the streaming stages;
+6. minhash: --strategy 1 (kernel G) on the toy fixture (every pair's
+   intersection against np.intersect1d) and on N = 8,192 synthetic sets
+   (a universe of ~2.1M hashes): the shard equal to an exact sparse
+   oracle, every planted pair and self-pair present, kernel G against its
+   plain version at the path's chunk shape, the stage walls.
 
 Each path's kernels must be launched in that path's counted run (counts
 set to 0 just before it, read just after). Any failure raises (exit code
@@ -58,12 +70,16 @@ REPLACES = {
     "sweep": "metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55",
     "partials": "metagenome_vector_sketches_tpu/ops/pairwise.py:888",
     "scan": "metagenome_vector_sketches_tpu/ann/int_index.py:124",
+    "gram": "metagenome_vector_sketches_tpu/ops/minhash.py:47",
 }
 SOURCES = {"projection": "projection.cu", "sweep": "sweep.cu",
-           "partials": "partials.cu", "scan": "sweep.cu"}
+           "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu"}
+SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
 # the kernels each counted path must launch
 MAIN_KERNELS = ("projection", "sweep", "partials")
 ANN_KERNELS = ("scan", "partials")
+STREAM_KERNELS = ("sweep", "partials")
+MINHASH_KERNELS = ("gram",)
 
 
 def say(msg: str) -> None:
@@ -119,6 +135,37 @@ def _sweep_state(N, d, max_abs, seed):
     thr = torch.from_numpy(
         (ns + pm.threshold_adjust(L, max_abs, d)).astype(np.float32)).cuda()
     return V, L, planes, thr
+
+
+def _incidence(n, u, density, seed):
+    """(pad_rows(n), u rounded up to 64) int8 0/1 chunk on the card, zero
+    padded (kernel G's operand)."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.zeros((pw.pad_rows(n, "cuda"), pw.pad_dim(u)),
+                    dtype=torch.int8, device="cuda")
+    A[:n, :u] = (torch.rand((n, u), generator=g, device="cuda")
+                 < density).to(torch.int8)
+    return A
+
+
+def _gram_err(chunks):
+    """Max |kernel G - plain| over the square after accumulating chunks
+    (the kernel's upper block triangle mirrored); checks that the kernel
+    left the blocks below the block diagonal untouched."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    npad = chunks[0].shape[0]
+    got = torch.zeros((npad, npad), dtype=torch.int32, device="cuda")
+    want = torch.zeros_like(got)
+    for A in chunks:
+        mh.gram_accumulate(got, A)
+        mh.gram_accumulate_plain(want, A)
+    blk = torch.arange(npad, device="cuda") // 128
+    check(not bool(got[blk[:, None] > blk[None, :]].any()),
+          "kernel G wrote below the block diagonal")
+    return int((mh.mirror_upper(got) - want).abs().max())
 
 
 def phase_kernels(errs):
@@ -210,8 +257,37 @@ def phase_kernels(errs):
         check(np.array_equal(pm.combine_plane_partials(
             xk.cpu().numpy().T, L), exact), "X partials do not combine to "
                                             "the exact dots")
+        # APPEND on two windows of the db with the self mask at a nonzero
+        # diagonal offset (the streaming engine's operands)
+        w = N // 2
+        for a, b in ((0, N // 4), (N // 2, N // 4)):
+            pi, ti = planes[:, a:a + w].contiguous(), thr[a:a + w].contiguous()
+            pj, tj = planes[:, b:b + w].contiguous(), thr[b:b + w].contiguous()
+            cc = np.array([(r, c) for r in range(w // tile)
+                           for c in range(w // tile)], dtype=np.int32)
+            rk, ck, tk = pw.sweep_extract(pi, ti, pj, tj, cc, tile, cap, True,
+                                          d, b - a)
+            rp, cp, tp = pw.sweep_extract_plain(pi, ti, pj, tj, cc, tile,
+                                                cap, True, d, b - a)
+            m = int(tk.item())
+            check(m == int(tp.item()) and torch.equal(ck, cp)
+                  and np.array_equal(rows_of(rk, m), rows_of(rp, m)),
+                  f"S APPEND with diag_offset {b - a} differs from plain")
+            got = rows_of(rk, m)
+            check(not bool((got[:, 0] + a == got[:, 1] + b).any()),
+                  f"S APPEND with diag_offset {b - a} kept a self-pair")
         say(f"[kernels] S/X: N={N} d={d} L={L} P={P}: COUNT exact, APPEND "
-            f"{n} survivors exact, X {len(ch)} pairs exact")
+            f"{n} survivors exact (also at diag_offset {N // 4}, "
+            f"{-N // 4}), X {len(ch)} pairs exact")
+
+    # G: ragged n and u (zero padded), two chunks accumulated
+    for n, u in ((1, 1), (130, 100), (1000, 5000), (2000, 16384)):
+        err = _gram_err([_incidence(n, u, 0.05, seed) for seed in (1, 2)])
+        check(err == 0, f"kernel G differs from plain by {err} (n={n}, "
+                        f"u={u})")
+        errs["gram"] = max(errs["gram"], err)
+    say("[kernels] G: n x u = 1x1, 130x100, 1000x5000, 2000x16384 (two "
+        "chunks each): exact")
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +441,50 @@ def _oracle(db_path, dtype):
     return {(int(a), int(b)): int(x) for a, b, x in zip(r, c, q)}
 
 
+def _minhash_triples_oracle(sizes, r, c, inter):
+    """{(row, col): quantised set Jaccard} of the pairs the MinHash shard
+    retains (intersection > 0.05 (|A| + |B|), float64) among the given
+    exact intersections."""
+    from metagenome_vector_sketches_tpu_torch.host import quantize_jaccard
+    keep = inter.astype(np.float64) > 0.05 * (sizes[r] + sizes[c])
+    r, c, inter = r[keep], c[keep], inter[keep]
+    q = quantize_jaccard(inter, r, c, sizes.astype(np.float64), 1)
+    return {(int(a), int(b)): int(x) for a, b, x in zip(r, c, q)}
+
+
+def _minhash_oracle(sets):
+    """The MinHash shard's exact triples from a scipy sparse incidence
+    product (independent of the port's dense incidence and kernel G)."""
+    import scipy.sparse as sp
+    uniq = [np.unique(np.asarray(x, dtype=np.uint64)) for x in sets]
+    sizes = np.array([len(u) for u in uniq], dtype=np.int64)
+    flat = np.concatenate(uniq)
+    universe, cols = np.unique(flat, return_inverse=True)
+    rows = np.repeat(np.arange(len(uniq)), sizes)
+    M = sp.csr_matrix((np.ones(len(flat), dtype=np.int64),
+                       (rows, cols.ravel())),
+                      shape=(len(uniq), len(universe)))
+    G = (M @ M.T).tocoo()
+    return _minhash_triples_oracle(sizes, G.row.astype(np.int64),
+                                   G.col.astype(np.int64),
+                                   G.data.astype(np.int64))
+
+
+def _triples(mat, n):
+    from metagenome_vector_sketches_tpu_torch.host import MatrixReader
+    r, c, q = MatrixReader(mat).decode_all_triples(n)
+    return {(int(a), int(b)): int(x) for a, b, x in zip(r, c, q)}
+
+
+def _same_shards(a, b, n_shards, what):
+    import filecmp
+    for s in range(n_shards):
+        for f in SHARD_FILES:
+            check(filecmp.cmp(os.path.join(a, f"shard_{s}", f),
+                              os.path.join(b, f"shard_{s}", f),
+                              shallow=False), f"{what}: shard_{s}/{f} differs")
+
+
 def _jaccard_oracle(db_path, qrows, j):
     """{(query position, neighbour name): exact-form Jaccard} for the db's
     own rows qrows as queries, from float64-exact cosines; every pair
@@ -458,6 +578,37 @@ def _jaccard_walkthrough(work, db_path, hashes, qrows, dtype):
         f" {len(pairs)} tested pairs)")
 
 
+def _cli_flags_and_minhash(work, db_path, hashes, mat, N):
+    """pairwise_comp --finalize device / --gate_sparse_tiles write the
+    default run's bytes; --strategy 1 equals the exact set-Jaccard
+    oracle."""
+    from metagenome_vector_sketches_tpu_torch.cli import pairwise_comp
+    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
+                                                           parse_hashes_file)
+    base = ["--db", db_path, "--max_memory_gb", "4", "--num_threads", "1"]
+    for flags in (["--finalize", "device"], ["--gate_sparse_tiles"]):
+        alt = os.path.join(work, "cli_mat" + flags[0].replace("-", "_"))
+        for s in range(2):
+            check(pairwise_comp.main(
+                base + ["--output_folder", alt, "--num_shards", "2",
+                        "--shard_idx", str(s), *flags]) == 0,
+                f"pairwise_comp {' '.join(flags)}")
+        _same_shards(mat, alt, 2, f"pairwise_comp {' '.join(flags)}")
+    mh = os.path.join(work, "cli_minhash")
+    check(pairwise_comp.main(
+        base + ["--output_folder", mh, "--num_shards", "1", "--shard_idx",
+                "0", "--strategy", "1", "--hashes", hashes]) == 0,
+        "pairwise_comp --strategy 1")
+    names, _ = DbFolder(db_path).names_and_norms()
+    sets = dict(parse_hashes_file(hashes))
+    want = _minhash_oracle([sets[n] for n in names])
+    check(_triples(mh, N) == want,
+          "pairwise_comp --strategy 1 differs from the set-Jaccard oracle")
+    say(f"[cli] int32: --finalize device and --gate_sparse_tiles shards equal "
+        f"the default run's; --strategy 1 equals the exact set-Jaccard oracle "
+        f"({len(want)} pairs)")
+
+
 def phase_cli(work):
     from benchmarks.full_pipeline import synth_hashes_file
     from metagenome_vector_sketches_tpu_torch.cli import (
@@ -482,6 +633,8 @@ def phase_cli(work):
         r, c, q = MatrixReader(mat).decode_all_triples(N)
         got = {(int(a), int(b)): int(x) for a, b, x in zip(r, c, q)}
         check(got == want, f"{dtype} shards differ from the exact oracle")
+        if dtype == "int32":
+            _cli_flags_and_minhash(work, db_path, hashes, mat, N)
         names, _ = DbFolder(db_path).names_and_norms()
         qfile = os.path.join(work, "q.txt")
         qrows = list(range(0, 64, 3))
@@ -719,6 +872,174 @@ def phase_ann(N, errs, timings):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the beyond-memory streaming engine on phase 2's db
+# ---------------------------------------------------------------------------
+
+def phase_stream(N, work):
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+
+    db_path = os.path.join(work, "db")
+    L = pm.pick_limbs(max(1, DbFolder(db_path).max_component()))
+    tile = 2048
+    npad = (N + tile - 1) // tile * tile
+    # half of the JAX rule's plane bytes: the planes do not "fit"
+    budget = pm.num_planes(L) * npad * D // 2
+
+    def printable(stages):
+        return {k: (round(v, 1) if isinstance(v, float) else v)
+                for k, v in stages.items() if k != "dispatch_walls_ms"}
+
+    # the resident wall on the warm card, for comparison
+    t0 = time.perf_counter()
+    mc.compute_pairwise_shard(db_path, os.path.join(work, "mat_resident"),
+                              device="cuda", verbose=False)
+    t_res = time.perf_counter() - t0
+    res_stages = printable(mc.LAST_STAGES)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    mc.compute_pairwise_shard(db_path, os.path.join(work, "mat_stream"),
+                              device_budget_bytes=budget, device="cuda",
+                              verbose=False)
+    t_stream = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    stages = printable(mc.LAST_STAGES)
+    check(stages["mode"] == "fused-streaming",
+          f"budget {budget} did not stream (mode {stages['mode']})")
+    say(f"[stream] N={N} d={D} budget {budget} B: {stages['row_groups']} "
+        f"row groups x {stages['windows']} windows, {stages['tiles_swept']} "
+        f"tile sweeps; streaming wall {t_stream:.2f} s vs resident "
+        f"{t_res:.2f} s; launches {launches}")
+    say(f"[stream] streaming stages {json.dumps(stages)}")
+    say(f"[stream] resident stages {json.dumps(res_stages)}")
+    _same_shards(os.path.join(work, "mat"), os.path.join(work, "mat_stream"),
+                 1, "streaming shard vs phase 2's resident shard")
+    say("[stream] shard byte-equal to phase 2's resident shard")
+    for k in STREAM_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the "
+                               "streaming path")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the MinHash strategy (kernel G)
+# ---------------------------------------------------------------------------
+
+MH_N, MH_GROUPS, MH_HEAVY = 8192, 128, 64
+
+
+def phase_minhash(work, errs, timings):
+    import torch
+    from benchmarks.full_pipeline import GROUP, synth_hashes_file
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
+                                                           parse_hashes_file)
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+
+    # (a) the toy fixture, in toy_db_256's order
+    toy = os.path.join(ROOT, "tests", "fixtures", "ref_toy")
+    hashes = os.path.join(toy, "all_hashes_toy.txt")
+    db = os.path.join(toy, "toy_db_256")
+    names, _ = DbFolder(db).names_and_norms()
+    named = dict(parse_hashes_file(hashes))
+    uniq = [np.unique(named[n]) for n in names]
+    n = len(uniq)
+    _build.reset_launch_counts()
+    out = os.path.join(work, "mh_toy")
+    mc.compute_minhash_shard(hashes, out, db_folder=db, device="cuda",
+                             verbose=False)
+    launches = _build.launch_counts()
+    inter = np.zeros((n, n), dtype=np.int64)
+    for i in range(n):
+        for j in range(i, n):
+            inter[i, j] = inter[j, i] = len(np.intersect1d(
+                uniq[i], uniq[j], assume_unique=True))
+    got = mh.pairwise_intersections([named[x] for x in names], device="cuda")
+    check(np.array_equal(got, inter),
+          "toy intersections differ from np.intersect1d")
+    sizes = np.array([len(u) for u in uniq], dtype=np.int64)
+    r, c = np.nonzero(np.ones((n, n), dtype=bool))
+    want = _minhash_triples_oracle(sizes, r, c, inter[r, c])
+    check(_triples(out, n) == want, "toy MinHash shard differs from the "
+                                    "np.intersect1d oracle")
+    say(f"[minhash] toy: {n} sets ({int(sizes.sum())} hashes), every pair's "
+        f"intersection equals np.intersect1d; shard equals its oracle "
+        f"({len(want)} pairs)")
+
+    # (b) N = 8,192 synthetic sets, the counted run
+    path = os.path.join(work, "mh_hashes.txt")
+    synth_hashes_file(path, MH_N, MH_GROUPS, MH_HEAVY)
+    out = os.path.join(work, "mh_big")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    mc.compute_minhash_shard(path, out, device="cuda", verbose=False)
+    wall = time.perf_counter() - t0
+    counted = _build.launch_counts()
+    stages = {k: (round(v, 1) if isinstance(v, float) else v)
+              for k, v in mc.LAST_STAGES.items()}
+    for k in MINHASH_KERNELS:
+        check(counted[k] > 0, f"kernel {k} was not launched by the MinHash "
+                              "path")
+    named = parse_hashes_file(path)
+    sets = [h for _, h in named]
+    got = _triples(out, MH_N)
+    want = _minhash_oracle(sets)
+    check(got == want, "MinHash shard differs from the sparse oracle")
+    planted = {(g * GROUP + a, g * GROUP + b) for g in range(MH_GROUPS)
+               for a in range(GROUP) for b in range(GROUP)}
+    check(planted <= set(got), "a planted pair is missing from the shard")
+    check(all((i, i) in got for i in range(MH_N)),
+          "a self-pair is missing from the shard")
+    rng = np.random.default_rng(4)
+    uniq = [np.unique(h) for h in sets]
+    sizes = np.array([len(u) for u in uniq], dtype=np.int64)
+    flat = np.concatenate(uniq)
+    owner = np.repeat(np.arange(MH_N), sizes)
+    for i in rng.choice(MH_N, 64, replace=False).tolist():
+        # every column's exact count: membership of all hashes in set i
+        pos = np.minimum(np.searchsorted(uniq[i], flat), sizes[i] - 1)
+        counts = np.bincount(owner[uniq[i][pos] == flat], minlength=MH_N)
+        cols = np.nonzero(counts)[0]
+        check(all(len(np.intersect1d(uniq[i], uniq[j], assume_unique=True))
+                  == counts[j] for j in cols), f"row {i}: counts differ from "
+                                               "np.intersect1d")
+        row = _minhash_triples_oracle(sizes, np.full(MH_N, i), np.arange(
+            MH_N), counts.astype(np.int64))
+        check({k: v for k, v in got.items() if k[0] == i} == row,
+              f"row {i} of the MinHash shard differs from its exact counts")
+    say(f"[minhash] N={MH_N}: {len(named)} sets, universe "
+        f"{int(len(np.unique(flat)))} hashes in {stages['chunks']} chunks; "
+        f"shard equals the sparse oracle ({len(want)} pairs), planted and "
+        f"self-pairs present, 64 sampled rows exact; launches {counted}")
+    say(f"[minhash] walls: total {wall:.2f} s; stages {json.dumps(stages)}")
+
+    # kernel G against its plain version at the path's chunk shape
+    A = _incidence(MH_N, 1 << 14, 1 / 128, seed=9)
+    err = _gram_err([A])
+    check(err == 0, f"kernel G differs from plain by {err} at the path's "
+                    "chunk shape")
+    errs["gram"] = max(errs["gram"], err)
+    C = torch.zeros((MH_N, MH_N), dtype=torch.int32, device="cuda")
+    timings["gram"] = (cuda_ms(lambda: mh.gram_accumulate(C, A)),
+                       cuda_ms(lambda: mh.gram_accumulate_plain(C, A),
+                               reps=1))
+    nb = MH_N // 128
+    ops = 2 * 128 * 128 * nb * (nb + 1) // 2 * A.shape[1]
+    say(f"[minhash] G one chunk {MH_N} x {A.shape[1]}: kernel "
+        f"{timings['gram'][0]:.3f} ms, plain {timings['gram'][1]:.3f} ms; "
+        f"{ops / (timings['gram'][0] * 1e-3) / 1e12:.1f} TOP/s int8 (upper "
+        f"block triangle); whole run {stages['chunks'] * ops / (stages['gram_ms'] * 1e-3) / 1e12:.1f}"
+        " TOP/s including the scatters")
+    for k, v in counted.items():
+        launches[k] += v
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=65536,
@@ -752,16 +1073,18 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
     try:
         phase_kernels(errs)
-        main_launches = phase_main(args.n, work, timings)
+        paths = [phase_main(args.n, work, timings)]
+        paths.append(phase_stream(args.n, work))
+        paths.append(phase_minhash(work, errs, timings))
         phase_cli(work)
-        ann_launches = phase_ann(args.ann_n, errs, timings)
+        paths.append(phase_ann(args.ann_n, errs, timings))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
 
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/csrc/{SOURCES[k]}", "replaces": REPLACES[k],
-                "launches": main_launches[k] + ann_launches[k],
+                "launches": sum(p[k] for p in paths),
                 "max_abs_err": errs[k],
                 "ms": round(timings[k][0], 4),
                 "plain_ms": round(timings[k][1], 4)}

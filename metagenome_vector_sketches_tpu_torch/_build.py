@@ -32,8 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # launch counters: "sweep" counts kernel S in its COUNT/APPEND epilogues,
-# "scan" in its SCORE epilogue (the int8 ANN engine)
-KERNELS = ("projection", "sweep", "partials", "scan")
+# "scan" in its SCORE epilogue (the int8 ANN engine), "gram" kernel G (the
+# MinHash incidence Gram)
+KERNELS = ("projection", "sweep", "partials", "scan", "gram")
 _launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -50,14 +51,16 @@ _SIGNATURES = {
     "mvs_project": [_P, _P, _I, _I, _P, _P],
     # planes_i, planes_j, thr_i, thr_j, P, d, d_pad, stride_i, stride_j,
     # coords, n_tiles, tile_r, tile_c, weights(host), slack_rel, slack_abs,
-    # mask_self, append, counts, rc, total, cap, stream
+    # mask_self, diag_offset, append, counts, rc, total, cap, stream
     "mvs_sweep": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P,
-                  _F, _F, _I, _I, _P, _P, _P, _LL, _P],
+                  _F, _F, _I, _LL, _I, _P, _P, _P, _LL, _P],
     # q_planes, db_planes, P, d_pad, stride_q, stride_db, rows, cols,
     # inv_n, valid, weights(host), scores, ld, stream
     "mvs_scan": [_P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I, _P, _P, _LL, _P],
     # xs, x_stride, ys, y_stride, L, d_pad, rc, n, out, stream
     "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P, _P],
+    # a, n, ld, c, ldc, stream
+    "mvs_gram": [_P, _I, _I, _P, _LL, _P],
 }
 
 

@@ -36,7 +36,10 @@
 //            __ballot_sync per element slot, __popc for the in-warp rank and
 //            ONE atomicAdd per warp on the running total. The total keeps
 //            counting past `cap` (writes stop there), so the caller learns
-//            the exact size to rerun with. Self-pairs (r == c) can be masked.
+//            the exact size to rerun with. Self-pairs can be masked:
+//            r == c + diag_offset, the offset between the two operands'
+//            first global rows (0 for one resident plane tensor; the
+//            streaming engine passes window start - row group start).
 //            Pad rows carry t = 1e30, so they never pass.
 //   SCORE  — the int8 ANN engine's scan (entry mvs_scan; replaces the plane
 //            GEMMs + combine + x 1/|v| of the XLA program
@@ -47,6 +50,17 @@
 //            c >= valid. No threshold, no self mask. The top-k selection
 //            stays outside the kernel (torch), so the (rows, R) scores make
 //            one round trip through device memory.
+//
+// Kernel G (entry mvs_gram) reuses the same GEMM core (block_mma) for the
+// MinHash strategy. Replaces: the XLA program
+// metagenome_vector_sketches_tpu/ops/minhash.py:47 _chunk_gram, the (N, u)
+// int8 0/1 incidence chunk times its transpose into int32 intersection
+// counts. It adds one chunk's Gram into an int32 (n, n) accumulator on the
+// device, on the upper block triangle only (the Gram is symmetric; the
+// caller mirrors once after the last chunk). Exact: a count is at most u.
+// What bounds it: the int8 tensor cores again (dense incidence, about 256
+// ones in a 2-million-wide row, so nearly every MMA multiplies zeros); a
+// sparse formulation would skip them but is not this first version.
 #include <limits.h>
 #include <math.h>
 
@@ -77,6 +91,55 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
 
 enum Epilogue { kCount = 0, kAppend = 1, kScore = 2 };
 
+// The int8 GEMM core shared by kernels S and G: acc (this thread's share of
+// a kBM x kBN block, int32) += A (kBM rows) . B (kBN rows)^T over K = ld
+// bytes, both row-major with row stride ld (a multiple of kBK). K steps of
+// kBK bytes are staged through As / Bs (kBM x kSRow each) with 16-byte
+// loads; warps as 4 (rows) x 2 (cols), each owning a 32 x 64 block of
+// mma.sync.m16n8k32 s8 tiles.
+__device__ __forceinline__ void block_mma(int (&acc)[kMT][kNT][4],
+                                          const int8_t* A, const int8_t* B,
+                                          int ld, int8_t* As, int8_t* Bs) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, t = lane & 3;
+  for (int k0 = 0; k0 < ld; k0 += kBK) {
+#pragma unroll
+    for (int i = 0; i < (kBM * kBK / 16) / kThreads; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c >> 2, q = (c & 3) * 16;
+      *reinterpret_cast<int4*>(&As[r * kSRow + q]) =
+          *reinterpret_cast<const int4*>(A + (long long)r * ld + k0 + q);
+      *reinterpret_cast<int4*>(&Bs[r * kSRow + q]) =
+          *reinterpret_cast<const int4*>(B + (long long)r * ld + k0 + q);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 32) {
+      unsigned a[kMT][4], b[kNT][2];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const int8_t* s = &As[(wm * kWM + mt * 16 + g) * kSRow + kk + t * 4];
+        a[mt][0] = *reinterpret_cast<const unsigned*>(s);
+        a[mt][1] = *reinterpret_cast<const unsigned*>(s + 8 * kSRow);
+        a[mt][2] = *reinterpret_cast<const unsigned*>(s + 16);
+        a[mt][3] = *reinterpret_cast<const unsigned*>(s + 8 * kSRow + 16);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int8_t* s = &Bs[(wn * kWN + nt * 8 + g) * kSRow + kk + t * 4];
+        b[nt][0] = *reinterpret_cast<const unsigned*>(s);
+        b[nt][1] = *reinterpret_cast<const unsigned*>(s + 16);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();
+  }
+}
+
 // The operands of one launch: COUNT/APPEND read thr_*, counts, rc, total,
 // cap; SCORE reads inv_n, valid, scores, ld (and takes no coords: the grid
 // covers the whole tile_r x tile_c block).
@@ -93,6 +156,7 @@ struct Args {
   int tile_r, tile_c;
   float slack_rel, slack_abs;
   int mask_self;
+  long long diag_offset;
   int32_t* counts;
   int32_t* rc;
   unsigned* total;
@@ -133,45 +197,10 @@ sweep_kernel(const Args args, const Weights wts) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
 
-    const int8_t* A =
-        args.planes_i + p * args.stride_i + (long long)row0 * d_pad;
-    const int8_t* B =
-        args.planes_j + p * args.stride_j + (long long)col0 * d_pad;
-    for (int k0 = 0; k0 < d_pad; k0 += kBK) {
-#pragma unroll
-      for (int i = 0; i < (kBM * kBK / 16) / kThreads; ++i) {
-        const int c = tid + i * kThreads;
-        const int r = c >> 2, q = (c & 3) * 16;
-        *reinterpret_cast<int4*>(&As[r * kSRow + q]) =
-            *reinterpret_cast<const int4*>(A + (long long)r * d_pad + k0 + q);
-        *reinterpret_cast<int4*>(&Bs[r * kSRow + q]) =
-            *reinterpret_cast<const int4*>(B + (long long)r * d_pad + k0 + q);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 32) {
-        unsigned a[kMT][4], b[kNT][2];
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          const int8_t* s = &As[(wm * kWM + mt * 16 + g) * kSRow + kk + t * 4];
-          a[mt][0] = *reinterpret_cast<const unsigned*>(s);
-          a[mt][1] = *reinterpret_cast<const unsigned*>(s + 8 * kSRow);
-          a[mt][2] = *reinterpret_cast<const unsigned*>(s + 16);
-          a[mt][3] = *reinterpret_cast<const unsigned*>(s + 8 * kSRow + 16);
-        }
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int8_t* s = &Bs[(wn * kWN + nt * 8 + g) * kSRow + kk + t * 4];
-          b[nt][0] = *reinterpret_cast<const unsigned*>(s);
-          b[nt][1] = *reinterpret_cast<const unsigned*>(s + 16);
-        }
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
-      }
-      __syncthreads();
-    }
+    block_mma(acc,
+              args.planes_i + p * args.stride_i + (long long)row0 * d_pad,
+              args.planes_j + p * args.stride_j + (long long)col0 * d_pad,
+              d_pad, As, Bs);
     // fold plane p into the float32 combine, in plane order
     const float w = wts.w[p];
 #pragma unroll
@@ -217,7 +246,9 @@ sweep_kernel(const Args args, const Weights wts) {
         th = __fmul_rn(0.05f, th);
         th = __fmul_rn(th, args.slack_rel);
         th = __fsub_rn(th, args.slack_abs);
-        const bool pass = (q > th) && !(args.mask_self && gr == gc);
+        const bool pass =
+            (q > th) &&
+            !(args.mask_self && (long long)gr == gc + args.diag_offset);
         cnt += pass ? 1 : 0;
         if (kMode == kAppend) {
           const unsigned m = __ballot_sync(kFullMask, pass);
@@ -240,6 +271,47 @@ sweep_kernel(const Args args, const Weights wts) {
   if (lane == 0 && cnt) atomicAdd(&args.counts[tile], cnt);
 }
 
+// Kernel G: c[i, j] += sum_k a[i, k] * a[j, k] for an (n, ld) int8 chunk a
+// into an (n, n) int32 accumulator c, on the upper block triangle only
+// (block column >= block row; the caller mirrors once at the end). One CTA
+// per 128 x 128 block; it alone writes its block, so the epilogue is a
+// plain load, add and store.
+__global__ void __launch_bounds__(kThreads, 1)
+gram_kernel(const int8_t* a, int ld, int n_blocks, int32_t* c, long long ldc) {
+  __shared__ __align__(16) int8_t As[kBM * kSRow];
+  __shared__ __align__(16) int8_t Bs[kBN * kSRow];
+  int bi = 0, k = blockIdx.x;
+  while (k >= n_blocks - bi) {
+    k -= n_blocks - bi;
+    ++bi;
+  }
+  const int row0 = bi * kBM, col0 = (bi + k) * kBN;
+
+  int acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+  block_mma(acc, a + (long long)row0 * ld, a + (long long)col0 * ld, ld, As,
+            Bs);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int gr = row0 + wm * kWM + mt * 16 + g + ((i >> 1) << 3);
+        const int gc = col0 + wn * kWN + nt * 8 + t * 2 + (i & 1);
+        c[(long long)gr * ldc + gc] += acc[mt][nt][i];
+      }
+}
+
 Weights load_weights(const void* weights_host, int P) {
   Weights w;
   for (int p = 0; p < kMaxPlanes; ++p)
@@ -253,14 +325,18 @@ Weights load_weights(const void* weights_host, int P) {
 // squared-norm thresholds; coords: (n_tiles, 2) int32 tile indices (units
 // of tile_r rows / tile_c columns); weights_host: P float32 on the HOST.
 // counts: (n_tiles,) int32, zeroed by the caller. APPEND also takes rc:
-// (cap, 2) int32 and total: one uint32, zeroed by the caller.
+// (cap, 2) int32 and total: one uint32, zeroed by the caller. mask_self
+// drops the pairs whose row index equals column index + diag_offset: 0 when
+// both operands share one row numbering, the column operand's first global
+// row minus the row operand's when they are two windows of one database.
 MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
                          const void* thr_i, const void* thr_j, int P, int d,
                          int d_pad, long long stride_i, long long stride_j,
                          const void* coords, int n_tiles, int tile_r,
                          int tile_c, const void* weights_host,
                          float slack_rel, float slack_abs, int mask_self,
-                         int append, void* counts, void* rc, void* total,
+                         long long diag_offset, int append, void* counts,
+                         void* rc, void* total,
                          long long cap, void* stream) {
   if (P < 1 || P > kMaxPlanes || tile_r <= 0 || tile_c <= 0 ||
       tile_r % kBM || tile_c % kBN || d_pad % kBK || n_tiles < 0)
@@ -285,6 +361,7 @@ MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
   a.slack_rel = slack_rel;
   a.slack_abs = slack_abs;
   a.mask_self = mask_self;
+  a.diag_offset = diag_offset;
   a.counts = (int32_t*)counts;
   a.rc = (int32_t*)rc;
   a.total = (unsigned*)total;
@@ -328,6 +405,21 @@ MVS_EXPORT int mvs_scan(const void* q_planes, const void* db_planes, int P,
   const Weights w = load_weights(weights_host, P);
   sweep_kernel<kScore><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
       a, w);
+  return mvs_launch_status();
+}
+
+// Kernel G. a: (n, ld) int8, row-major, n a multiple of 128 and ld of 64
+// (zero rows and columns change no count); c: (n, ldc) int32. Adds a . a^T
+// into the blocks of c on and above the block diagonal.
+MVS_EXPORT int mvs_gram(const void* a, int n, int ld, void* c, long long ldc,
+                        void* stream) {
+  if (n <= 0 || ld <= 0 || n % kBM || ld % kBK || ldc < n)
+    return (int)cudaErrorInvalidValue;
+  const long long nb = n / kBM;
+  const long long grid = nb * (nb + 1) / 2;
+  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  gram_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)a, ld, (int)nb, (int32_t*)c, ldc);
   return mvs_launch_status();
 }
 

@@ -139,10 +139,11 @@ def _check_thr(thr: torch.Tensor, n: int, name: str) -> None:
 
 def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
                  tile_r: int, tile_c: int, d: int, append: bool,
-                 mask_self: bool, cap: int = 0):
+                 mask_self: bool, cap: int = 0, diag_offset: int = 0):
     """Launch kernel S over the tiles ``coords`` ((K, 2) row/column tile
     indices in units of tile_r / tile_c) -> (counts (K,) int32,
-    rc (cap, 2) int32 or None, total (1,) int32 or None), on the device."""
+    rc (cap, 2) int32 or None, total (1,) int32 or None), on the device.
+    mask_self drops row == column + diag_offset (operand-local indices)."""
     dev = planes_i.device
     _check_planes(planes_i, "planes_i")
     _check_planes(planes_j, "planes_j")
@@ -179,7 +180,7 @@ def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
         thr_j.data_ptr(), P, d, d_pad, ni * d_pad, nj * d_pad,
         coords_dev.data_ptr(), K, tile_r, tile_c,
         w.ctypes.data_as(ctypes.c_void_p), float(SLACK_REL),
-        float(SLACK_ABS), int(mask_self), int(append),
+        float(SLACK_ABS), int(mask_self), int(diag_offset), int(append),
         counts.data_ptr(), rc.data_ptr() if append else None,
         total.data_ptr() if append else None, int(cap),
         _build.launch_stream(dev))
@@ -193,7 +194,8 @@ def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
 # ---------------------------------------------------------------------------
 
 def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
-                        cap: int, mask_self: bool, d: int):
+                        cap: int, mask_self: bool, d: int,
+                        diag_offset: int = 0):
     """Plain PyTorch version of :func:`sweep_extract` (survivors in tile
     order, row-major within a tile)."""
     dev = planes_i.device
@@ -207,7 +209,8 @@ def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
         m = retention_mask(approx_dot_f32(planes_i[:, rows], planes_j[:, cols]),
                            thr_i[rows], thr_j[cols], d)
         if mask_self:
-            m &= (r * tile + ar)[:, None] != (c * tile + ar)[None, :]
+            m &= (r * tile + ar)[:, None] != \
+                (c * tile + diag_offset + ar)[None, :]
         nz = m.nonzero()
         counts[k] = nz.shape[0]
         found.append(nz + torch.tensor([r * tile, c * tile], device=dev))
@@ -221,22 +224,25 @@ def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
 
 
 def sweep_extract(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
-                  cap: int, mask_self: bool, d: int):
+                  cap: int, mask_self: bool, d: int, diag_offset: int = 0):
     """Survivors of the tiles ``coords`` ((K, 2) row/column tile indices of
-    edge ``tile`` into planes_i / planes_j, which share one row numbering)
-    -> (rc (cap, 2) int32 survivor (row, column) pairs, counts (K,) int32
-    per-tile survivor counts, total (1,) int32 survivors in all).
+    edge ``tile`` into planes_i / planes_j) -> (rc (cap, 2) int32 survivor
+    (row, column) pairs, operand-local, counts (K,) int32 per-tile survivor
+    counts, total (1,) int32 survivors in all).
 
     Only the first min(total, cap) rows of rc are written; total and counts
     are exact past cap, so the caller can rerun at the exact capacity.
-    mask_self drops row == column pairs. The CUDA order of survivors is
+    mask_self drops the self-pairs: row == column + diag_offset, where
+    diag_offset is planes_j's first global row minus planes_i's (0 when the
+    two share one row numbering). The CUDA order of survivors is
     unspecified (atomics); the plain version's is tile order, row-major."""
     if planes_i.device.type == "cpu":
         return sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords,
-                                   tile, cap, mask_self, d)
+                                   tile, cap, mask_self, d, diag_offset)
     counts, rc, total = launch_sweep(planes_i, thr_i, planes_j, thr_j,
                                      coords, tile, tile, d, append=True,
-                                     mask_self=mask_self, cap=cap)
+                                     mask_self=mask_self, cap=cap,
+                                     diag_offset=diag_offset)
     return rc, counts, total
 
 

@@ -106,6 +106,13 @@ db = sketch({str(tmp_path / 'h.txt')!r}, {str(tmp_path / 'db')!r}, 128,
             device="cpu", verbose=False)
 compute_pairwise_shard(db.path, {str(tmp_path / 'm')!r}, tile_rows=16,
                        verbose=False, device="cpu")
+compute_pairwise_shard(db.path, {str(tmp_path / 'ms')!r}, tile_rows=16,
+                       device_budget_bytes=0, verbose=False, device="cpu")
+assert pairwise_comp.main(["--db", db.path, "--max_memory_gb", "1",
+                           "--num_threads", "1", "--output_folder",
+                           {str(tmp_path / 'mh')!r}, "--num_shards", "1",
+                           "--shard_idx", "0", "--strategy", "1", "--hashes",
+                           {str(tmp_path / 'h.txt')!r}, "--device", "cpu"]) == 0
 names, norms = db.names_and_norms_f32()
 res = query_engine.query({str(tmp_path / 'm')!r}, [0, 1], norms, names)
 assert res[0].self_id == "A0"
@@ -148,10 +155,7 @@ def test_tools_refuse_to_run_without_cuda(tmp_path, ref_toy_dir):
     assert not (tmp_path / "m").exists()
 
 
-@pytest.mark.parametrize("flags", [["--mesh_devices", "4"],
-                                   ["--finalize", "device"],
-                                   ["--strategy", "1"],
-                                   ["--gate_sparse_tiles"]])
+@pytest.mark.parametrize("flags", [["--mesh_devices", "4"]])
 def test_pairwise_comp_refuses_unported_engines(tmp_path, flags, capsys):
     rc = t_pairwise.main(["--db", str(tmp_path), "--max_memory_gb", "1",
                           "--num_threads", "1", "--output_folder",
@@ -159,3 +163,22 @@ def test_pairwise_comp_refuses_unported_engines(tmp_path, flags, capsys):
                           "--shard_idx", "0", "--device", "cpu", *flags])
     assert rc == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--finalize", "device"],
+                                   ["--finalize", "host"],
+                                   ["--gate_sparse_tiles"]])
+def test_pairwise_comp_accepts_finalize_and_gate(tmp_path, ref_toy_dir,
+                                                 flags):
+    """The JAX CLI writes the default shard under --finalize and
+    --gate_sparse_tiles; so does the port (it refused both before)."""
+    db = str(ref_toy_dir / "toy_db_256")
+    for name, extra in (("default", []), ("flags", flags)):
+        assert t_pairwise.main(
+            ["--db", db, "--max_memory_gb", "1", "--num_threads", "1",
+             "--output_folder", str(tmp_path / name), "--num_shards", "1",
+             "--shard_idx", "0", "--tile", "32", "--device", "cpu",
+             *extra]) == 0
+    for f in SHARD_FILES:
+        _same(tmp_path / "default" / "shard_0" / f,
+              tmp_path / "flags" / "shard_0" / f)

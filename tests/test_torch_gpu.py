@@ -207,3 +207,118 @@ def test_pairwise_comp_any_tile_on_cuda(cuda, tmp_path):
     for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
         assert filecmp.cmp(tmp_path / "32" / "shard_0" / f,
                            tmp_path / "2048" / "shard_0" / f, shallow=False)
+
+
+def _padded_incidence(dev, n, u, density, seed):
+    """(pad_rows(n), u rounded up to 64) int8 0/1 chunk, zero padded."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    rng = np.random.default_rng(seed)
+    A = np.zeros((pw.pad_rows(n, "cuda"), pw.pad_dim(u)), dtype=np.int8)
+    A[:n, :u] = rng.random((n, u)) < density
+    return torch.from_numpy(A).to(dev)
+
+
+@pytest.mark.parametrize("n,u", [(1, 1), (130, 100), (300, 1000),
+                                 (1000, 16384)])
+def test_gram_kernel_matches_plain(cuda, n, u):
+    """Kernel G over two chunks (ragged n and u, zero padded) against the
+    plain float64 Gram: equal on the upper block triangle, the blocks below
+    it untouched."""
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    chunks = [_padded_incidence(cuda, n, u, 0.05, seed) for seed in (1, 2)]
+    npad = chunks[0].shape[0]
+    got = torch.zeros((npad, npad), dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    for A in chunks:
+        mh.gram_accumulate(got, A)
+        mh.gram_accumulate_plain(want, A)
+    assert torch.equal(mh.mirror_upper(got), want)
+    blk = torch.arange(npad, device=cuda) // 128
+    below = blk[:, None] > blk[None, :]
+    assert not bool(got[below].any())
+
+
+def test_minhash_intersections_cuda_equal_cpu(cuda):
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    rng = np.random.default_rng(61)
+    sets_ = [rng.choice(20000, size=rng.integers(0, 900), replace=False)
+             .astype(np.uint64) for _ in range(37)]
+    for chunk in (512, 1 << 14):
+        assert np.array_equal(
+            mh.pairwise_intersections(sets_, chunk=chunk, device=cuda),
+            mh.pairwise_intersections(sets_, chunk=chunk, device="cpu"))
+
+
+@pytest.mark.parametrize("offset", [128, -256, 256])
+def test_sweep_diag_offset_matches_plain(cuda, offset):
+    """Kernel S APPEND on two windows of one db (rows a.. and a + offset..)
+    with the self mask at diag_offset: equal to the plain version, and the
+    masked pairs are exactly the global self-pairs."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    _, _, planes, thr = _state(cuda, N=1024, d=200, max_abs=3000)
+    a, b = 256, 256 + offset
+    pi, ti = planes[:, a:a + 512].contiguous(), thr[a:a + 512].contiguous()
+    pj, tj = planes[:, b:b + 512].contiguous(), thr[b:b + 512].contiguous()
+    coords = np.array([(r, c) for r in range(4) for c in range(4)])
+    cap = 1 << 16
+    key = lambda rc, n: set(map(tuple, rc[:n].tolist()))  # noqa: E731
+    got = pw.sweep_extract(pi, ti, pj, tj, coords, 128, cap, True, 200,
+                           offset)
+    want = pw.sweep_extract_plain(pi, ti, pj, tj, coords, 128, cap, True,
+                                  200, offset)
+    n = int(want[2].item())
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert key(got[0], n) == key(want[0], n)
+    every = pw.sweep_extract(pi, ti, pj, tj, coords, 128, cap, False, 200)
+    m = int(every[2].item())
+    selfs = {(r, c) for r, c in key(every[0], m) if a + r == b + c}
+    assert len(selfs) == 512 - abs(offset)
+    assert key(got[0], n) == key(every[0], m) - selfs
+
+
+def test_streaming_cuda_shard_equals_resident(cuda, tmp_path):
+    """device_budget_bytes=0 forces the streaming engine (8 row groups x 8
+    windows at tile 256); its shard equals the resident one, byte for
+    byte."""
+    import filecmp
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    V, _, _, _ = _state("cpu", N=4096, d=200, max_abs=3000)
+    V[3000:3010] = V[5]
+    db = DbFolder.write(str(tmp_path / "db"), [f"S{i}" for i in range(4096)],
+                        V, 200)
+    mc.compute_pairwise_shard(db.path, str(tmp_path / "res"), tile_rows=256,
+                              verbose=False, device=cuda)
+    _build.reset_launch_counts()
+    mc.compute_pairwise_shard(db.path, str(tmp_path / "stream"),
+                              tile_rows=256, device_budget_bytes=0,
+                              verbose=False, device=cuda)
+    launches = _build.launch_counts()
+    assert mc.LAST_STAGES["mode"] == "fused-streaming"
+    assert mc.LAST_STAGES["row_groups"] == 8 and mc.LAST_STAGES["windows"] == 8
+    assert launches["sweep"] > 0 and launches["partials"] > 0
+    for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+        assert filecmp.cmp(tmp_path / "res" / "shard_0" / f,
+                           tmp_path / "stream" / "shard_0" / f,
+                           shallow=False)
+
+
+def test_minhash_cli_cuda_equals_cpu(cuda, tmp_path):
+    import filecmp
+    import pathlib
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.cli import pairwise_comp
+    toy = pathlib.Path(__file__).parent / "fixtures" / "ref_toy"
+    _build.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        assert pairwise_comp.main(
+            ["--db", str(toy / "toy_db_256"), "--max_memory_gb", "1",
+             "--num_threads", "1", "--output_folder", str(tmp_path / dev),
+             "--num_shards", "1", "--shard_idx", "0", "--strategy", "1",
+             "--hashes", str(toy / "all_hashes_toy.txt"),
+             "--device", dev]) == 0
+    assert _build.launch_counts()["gram"] > 0
+    for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+        assert filecmp.cmp(tmp_path / "cpu" / "shard_0" / f,
+                           tmp_path / "cuda" / "shard_0" / f, shallow=False)
