@@ -11,13 +11,17 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
 1. kernels: each kernel against its plain PyTorch version on the card,
    with exact equality (projection P, sweep S in both epilogues and with a
    nonzero diagonal offset, partials X, incidence Gram G at ragged n and
-   u);
+   u), and S's TMA/wgmma core at the edges of its contract (d_pad 64, 192,
+   2048; P = 1, 3, 6, 10; 128-row and 128 x 256 tiles; diag_offset +-128;
+   SCORE at B = 1 and 256 with a ragged valid count; G at n = 128, 384);
 2. main: the main path at N accessions x d = 2048 — synthetic hash sets
    with planted groups -> sketch (P) -> one pairwise shard (S, X) ->
    top-k queries of planted rows; planted recall must be 1.0, an exact
    numpy oracle must agree on sampled rows, and every kernel's launch
    count over that run must be > 0. Then each kernel is timed against its
-   plain version at the main path's shapes;
+   plain version and its bound at the main path's shapes, with the TOP/s
+   and share of the int8 peak of S APPEND and a torch._int_mm yardstick of
+   the GEMM core alone (printed as such: the port never calls it);
 3. cli: the README walkthrough through the port's command-line tools at
    N = 2048 on an int32 and an --int16 db, every output held against an
    exact numpy oracle — sketch, pairwise_comp (also with --finalize device
@@ -31,7 +35,8 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    recall 1.0 for both, the int8 engine's (D, I) equal to a float64 brute
    force on the card, the f32 engine within 1e-5 of it, one adaptive
    search per engine, the scan and two-operand partials kernels against
-   their plain versions, and the search / adaptive walls;
+   their plain versions (S SCORE's TOP/s, bound and yardstick), and the
+   search / adaptive walls;
 5. stream: the beyond-memory streaming engine on phase 2's db with the
    device budget at half its planes' bytes (8 row groups x 8 windows at
    N = 65,536): its shard must be byte-equal to phase 2's resident shard;
@@ -40,13 +45,16 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    intersection against np.intersect1d) and on N = 8,192 synthetic sets
    (a universe of ~2.1M hashes): the shard equal to an exact sparse
    oracle, every planted pair and self-pair present, kernel G against its
-   plain version at the path's chunk shape, the stage walls.
+   plain version, its bound and torch._int_mm(A, A.t()) at the path's
+   chunk shape, the stage walls.
 
 Each path's kernels must be launched in that path's counted run (counts
-set to 0 just before it, read just after). Any failure raises (exit code
-!= 0). On success the last two lines of stdout are a JSON object with the
-per-kernel results and {"ok": true, "device": {...}}. Without CUDA it
-exits with 1 and prints no result.
+set to 0 just before it, read just after). At the end no module of jax or
+of the JAX package (metagenome_vector_sketches_tpu) may be loaded. Any
+failure raises (exit code != 0). On success the last two lines of stdout
+are a JSON object with the per-kernel results (launches, max_abs_err, ms,
+plain_ms, bound_ms, bound_by, library_ms) and {"ok": true, "device":
+{...}}. Without CUDA it exits with 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -75,6 +83,12 @@ REPLACES = {
 SOURCES = {"projection": "projection.cu", "sweep": "sweep.cu",
            "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu"}
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
+# the card's published rates (H100 SXM, dense, at 700 W): int8 tensor cores,
+# the rate outside the tensor cores (float32; kernels P's and X's integer
+# work is counted against it), device memory
+INT8_PEAK = 1979e12
+CORE_PEAK = 67e12
+HBM_RATE = 3.35e12
 # the kernels each counted path must launch
 MAIN_KERNELS = ("projection", "sweep", "partials")
 ANN_KERNELS = ("scan", "partials")
@@ -91,7 +105,7 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
+def cuda_ms(fn, reps: int = 10) -> float:
     """Mean device time of fn() over reps calls (CUDA events, warm)."""
     import torch
     fn()
@@ -104,6 +118,47 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(ops, peak, nbytes):
+    """(least ms the card could take, "operations" or "bytes"): the larger
+    of ops at peak and nbytes (each input read once, each output written
+    once) at HBM_RATE."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def timed(ms, plain_ms, ops, peak, nbytes, library_ms=None):
+    """One kernel's entry of the kernels line."""
+    b, by = bound(ops, peak, nbytes)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": library_ms, "ops": ops}
+
+
+def rate_line(tag, what, t):
+    say(f"[{tag}] {what}: {t['ops'] / (t['ms'] * 1e-3) / 1e12:.1f} TOP/s, "
+        f"{100 * t['ops'] / (t['ms'] * 1e-3) / INT8_PEAK:.1f}% of the "
+        f"{INT8_PEAK / 1e12:,.0f} TOP/s int8 peak; {t['ms']:.4f} ms against "
+        f"its bound {t['bound_ms']:.4f} ms ({t['bound_by']}): "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
+
+
+def kernel_ms(fn, reps: int = 10):
+    """Mean device time of the port's GEMM kernel (gemm_kernel) per fn()
+    call, from a torch.profiler trace: the kernel alone, without the
+    wrapper's host work between launches. None if the trace holds no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages() if "gemm_kernel" in e.key)
+    return us / reps / 1e3 if us else None
 
 
 def rows_of(rc, n):
@@ -166,6 +221,85 @@ def _gram_err(chunks):
     check(not bool(got[blk[:, None] > blk[None, :]].any()),
           "kernel G wrote below the block diagonal")
     return int((mh.mirror_upper(got) - want).abs().max())
+
+
+def _core_cases(errs):
+    """Kernel S's TMA/wgmma core at the edges of its contract, each against
+    the plain version exactly: d_pad 64, 192 (an odd number of 64-byte K
+    steps) and 2048; P = 1, 3, 6, 10; COUNT on 128 x 128, 128 x 256 and 256
+    x 128 tiles; APPEND on one 128-row tile, the 128-tile triangle and 128 x
+    256 tiles; the self mask at diag_offset +-128; SCORE at B = 1 and 256
+    on 640 rows with 555 valid."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ann import int_index as ii
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    cap = 1 << 17
+
+    def same(got, want, what):
+        n = int(want[2].item())
+        check(int(got[2].item()) == n and torch.equal(got[1], want[1])
+              and np.array_equal(rows_of(got[0], n), rows_of(want[0], n)),
+              f"S APPEND differs from plain ({what})")
+
+    for d in (64, 192, 2048):
+        for max_abs in (100, 3000, 30000, 2000000):
+            _, _, planes, thr = _sweep_state(512, d, max_abs, seed=d)
+            what = f"d={d} P={planes.shape[0]}"
+            for blk in ((128, 128), (128, 256), (256, 128)):
+                err = int((pp.sweep_counts(planes, thr, d, 0, None, *blk).long()
+                           - pp.sweep_counts_plain(planes, thr, d, 0, None,
+                                                   *blk).long()).abs().max())
+                check(err == 0, f"S COUNT differs ({what}, blocks {blk})")
+                errs["sweep"] = max(errs["sweep"], err)
+            for coords in ([(0, 0)], [(r, c) for r in range(4)
+                                      for c in range(r, 4)]):
+                same(pw.sweep_extract(planes, thr, planes, thr, coords, 128,
+                                      cap, True, d),
+                     pw.sweep_extract_plain(planes, thr, planes, thr, coords,
+                                            128, cap, True, d),
+                     f"{what}, {len(coords)} tiles of 128")
+            wide = np.array([(r, c) for r in range(4) for c in range(2)])
+            counts, rc, total = pw.launch_sweep(
+                planes, thr, planes, thr, wide, 128, 256, d, append=True,
+                mask_self=True, cap=cap)
+            want = pw.sweep_extract_plain(
+                planes, thr, planes, thr,
+                [(r, 2 * c + h) for r, c in wide.tolist() for h in range(2)],
+                128, cap, True, d)
+            same((rc, want[1], total), want, f"{what}, tiles of 128 x 256")
+            check(torch.equal(counts, want[1].view(-1, 2).sum(1)
+                              .to(torch.int32)),
+                  f"S APPEND 128 x 256 tile counts differ ({what})")
+            for off in (128, -128):
+                a, b = 128, 128 + off
+                pi, ti = planes[:, a:a + 256].contiguous(), \
+                    thr[a:a + 256].contiguous()
+                pj, tj = planes[:, b:b + 256].contiguous(), \
+                    thr[b:b + 256].contiguous()
+                cc = [(r, c) for r in range(2) for c in range(2)]
+                same(pw.sweep_extract(pi, ti, pj, tj, cc, 128, cap, True, d,
+                                      off),
+                     pw.sweep_extract_plain(pi, ti, pj, tj, cc, 128, cap,
+                                            True, d, off),
+                     f"{what}, diag_offset {off}")
+        rng = np.random.default_rng(d)
+        for max_abs in (100, 2000000):
+            L = pm.pick_limbs(max_abs)
+            V = rng.integers(-max_abs, max_abs + 1, size=(640, d))
+            db = ii.query_planes(V.astype(np.int32), L, "cuda")
+            inv = torch.from_numpy(rng.random(640).astype(np.float32)).cuda()
+            for B in (1, 256):
+                Q = rng.integers(-max_abs, max_abs + 1, size=(B, d))
+                qp = ii.query_planes(Q.astype(np.int32), L, "cuda")
+                got = pw.scan_scores(qp, db, inv, 555)
+                check(torch.equal(got, pw.scan_scores_plain(qp, db, inv,
+                                                            555)),
+                      f"S SCORE differs (d={d} P={db.shape[0]} B={B})")
+    say("[kernels] S core: d_pad 64/192/2048 x P 1/3/6/10, COUNT (128^2, "
+        "128x256, 256x128 tiles), APPEND (1 tile, triangle, 128x256 tiles, "
+        "diag_offset +-128), SCORE (B 1/256, 555 of 640 valid): exact")
 
 
 def phase_kernels(errs):
@@ -280,14 +414,17 @@ def phase_kernels(errs):
             f"{n} survivors exact (also at diag_offset {N // 4}, "
             f"{-N // 4}), X {len(ch)} pairs exact")
 
+    _core_cases(errs)
+
     # G: ragged n and u (zero padded), two chunks accumulated
-    for n, u in ((1, 1), (130, 100), (1000, 5000), (2000, 16384)):
+    for n, u in ((1, 1), (130, 100), (1000, 5000), (2000, 16384), (128, 64),
+                 (384, 64)):
         err = _gram_err([_incidence(n, u, 0.05, seed) for seed in (1, 2)])
         check(err == 0, f"kernel G differs from plain by {err} (n={n}, "
                         f"u={u})")
         errs["gram"] = max(errs["gram"], err)
-    say("[kernels] G: n x u = 1x1, 130x100, 1000x5000, 2000x16384 (two "
-        "chunks each): exact")
+    say("[kernels] G: n x u = 1x1, 130x100, 1000x5000, 2000x16384, 128x64, "
+        "384x64 (two chunks each): exact")
 
 
 # ---------------------------------------------------------------------------
@@ -296,16 +433,18 @@ def phase_kernels(errs):
 
 def phase_main(N, work, timings):
     import torch
-    from benchmarks.full_pipeline import GROUP, synth_hashes_file
-    from benchmarks.stream_scale import spot_check
     from metagenome_vector_sketches_tpu_torch import _build
-    from metagenome_vector_sketches_tpu_torch.host import (
-        DbFolder, parse_hashes_file, query_engine)
+    from metagenome_vector_sketches_tpu_torch.bench_data import (
+        GROUP, spot_check, synth_hashes_file)
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        parse_hashes_file)
     from metagenome_vector_sketches_tpu_torch.io.ingest import sketch
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
     from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
     from metagenome_vector_sketches_tpu_torch.ops import projection as pj
+    from metagenome_vector_sketches_tpu_torch.query import (
+        engine as query_engine)
 
     n_groups, n_heavy = max(1, N // 64), max(1, N // 128)
     hashes = os.path.join(work, "all_hashes.txt")
@@ -366,8 +505,12 @@ def phase_main(N, work, timings):
     got = pj.project_batch(h, o, D, "cuda")
     check(torch.equal(got, pj.project_batch_plain(h, o, D)),
           "projection differs from plain at main-path shapes")
-    timings["projection"] = (cuda_ms(lambda: pj.project_batch(h, o, D, "cuda")),
-                             cuda_ms(lambda: pj.project_batch_plain(h, o, D)))
+    n_hashes = int(sizes.sum())
+    timings["projection"] = timed(
+        cuda_ms(lambda: pj.project_batch(h, o, D, "cuda")),
+        cuda_ms(lambda: pj.project_batch_plain(h, o, D), reps=3),
+        n_hashes * D, CORE_PEAK,
+        8 * n_hashes + 8 * (len(named) + 1) + 4 * len(named) * D)
 
     tile = 2048
     V = np.fromfile(os.path.join(db_path, "vectors.bin"), dtype=np.int32,
@@ -391,30 +534,52 @@ def phase_main(N, work, timings):
     check(n == int(tot_p.item()) and torch.equal(cnt_k, cnt_p)
           and np.array_equal(rows_of(rc_k, n), rows_of(rc_p, n)),
           "sweep differs from plain at main-path shapes")
-    timings["sweep"] = (
+    P = planes.shape[0]
+    pairs = len(coords) * tile * tile
+    timings["sweep"] = timed(
         cuda_ms(lambda: pw.sweep_extract(planes, thr, planes, thr, coords,
                                          tile, cap, True, D)),
         cuda_ms(lambda: pw.sweep_extract_plain(planes, thr, planes, thr,
                                                coords, tile, cap, True, D),
-                reps=1))
+                reps=1),
+        2 * pairs * D * P, INT8_PEAK,
+        planes.numel() + 4 * thr.numel() + 4 * len(coords) + 8 * n)
+    alone = kernel_ms(lambda: pw.sweep_extract(planes, thr, planes, thr,
+                                               coords, tile, cap, True, D))
+    # the GEMM core alone, as a yardstick (not a kernel of the port): one
+    # torch._int_mm per plane and tile, no combine, threshold or compaction
+    blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
+              for i in range(4)]
+    yard = cuda_ms(lambda: [torch._int_mm(blocks[p * 4 + r],
+                                          blocks[p * 4 + c].t())
+                            for p in range(P) for r, c in coords.tolist()])
     self_rc = torch.arange(4 * tile, dtype=torch.int32, device="cuda")
     cand = torch.cat([rc_k[:n], self_rc[:, None].expand(-1, 2)]).contiguous()
     xk = pw.pair_partials(planes, cand, L)
     check(torch.equal(xk, pw.pair_partials_plain(planes, cand, L)),
           "partials differ from plain at main-path shapes")
-    timings["partials"] = (cuda_ms(lambda: pw.pair_partials(planes, cand, L)),
-                           cuda_ms(lambda: pw.pair_partials_plain(planes,
-                                                                  cand, L)))
-    pairs = len(coords) * tile * tile
-    say(f"[main] timed shapes: P {len(named)} sets ({int(sizes.sum())} "
+    rows_read = int(torch.unique(cand).numel())
+    timings["partials"] = timed(
+        cuda_ms(lambda: pw.pair_partials(planes, cand, L)),
+        cuda_ms(lambda: pw.pair_partials_plain(planes, cand, L), reps=3),
+        2 * len(cand) * L * L * planes.shape[2], CORE_PEAK,
+        rows_read * L * planes.shape[2] + 8 * len(cand)
+        + 4 * len(cand) * pm.num_planes(L))
+    say(f"[main] timed shapes: P {len(named)} sets ({n_hashes} "
         f"hashes) at d={D}; S {len(coords)} tiles of {tile}^2 "
-        f"({pairs} pairs, P={planes.shape[0]}, {n} survivors); "
+        f"({pairs} pairs, P={P}, {n} survivors); "
         f"X {len(cand)} pairs at L={L}")
-    for k, (ms, plain) in timings.items():
-        say(f"[main] {k}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    say(f"[main] sweep kernel int8 rate: "
-        f"{2 * pairs * D * planes.shape[0] / (timings['sweep'][0] * 1e-3) / 1e12:.1f}"
-        " TOP/s")
+    for k in ("projection", "sweep", "partials"):
+        t = timings[k]
+        say(f"[main] {k}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
+    rate_line("main", "S APPEND (10 tiles of 2048^2, P=3)", timings["sweep"])
+    say(f"[main] S APPEND kernel alone (profiler): "
+        + (f"{alone:.4f} ms" if alone is not None else "not measured")
+        + f"; yardstick of the GEMM core alone, not a kernel of the port: "
+        f"{P} x {len(coords)} torch._int_mm 2048^3 (one per plane and tile) "
+        f"{yard:.4f} ms")
     return launches
 
 
@@ -424,8 +589,9 @@ def phase_main(N, work, timings):
 
 def _oracle(db_path, dtype):
     """Exact retained (row, col) -> quantised Jaccard of a db folder."""
-    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
-                                                           quantize_jaccard)
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix.writer import (
+        quantize_jaccard)
     from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
     db = DbFolder(db_path)
     V = db.load_vectors().astype(np.float64)
@@ -445,7 +611,8 @@ def _minhash_triples_oracle(sizes, r, c, inter):
     """{(row, col): quantised set Jaccard} of the pairs the MinHash shard
     retains (intersection > 0.05 (|A| + |B|), float64) among the given
     exact intersections."""
-    from metagenome_vector_sketches_tpu_torch.host import quantize_jaccard
+    from metagenome_vector_sketches_tpu_torch.matrix.writer import (
+        quantize_jaccard)
     keep = inter.astype(np.float64) > 0.05 * (sizes[r] + sizes[c])
     r, c, inter = r[keep], c[keep], inter[keep]
     q = quantize_jaccard(inter, r, c, sizes.astype(np.float64), 1)
@@ -471,7 +638,8 @@ def _minhash_oracle(sets):
 
 
 def _triples(mat, n):
-    from metagenome_vector_sketches_tpu_torch.host import MatrixReader
+    from metagenome_vector_sketches_tpu_torch.matrix.reader import (
+        MatrixReader)
     r, c, q = MatrixReader(mat).decode_all_triples(n)
     return {(int(a), int(b)): int(x) for a, b, x in zip(r, c, q)}
 
@@ -489,7 +657,7 @@ def _jaccard_oracle(db_path, qrows, j):
     """{(query position, neighbour name): exact-form Jaccard} for the db's
     own rows qrows as queries, from float64-exact cosines; every pair
     above j - 1e-5 (the band the f32 engine's ips may straddle)."""
-    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
     db = DbFolder(db_path)
     V = db.load_vectors().astype(np.int64)
     names, norms = db.names_and_norms()
@@ -525,8 +693,9 @@ def _jaccard_walkthrough(work, db_path, hashes, qrows, dtype):
     import io
     import re
     from metagenome_vector_sketches_tpu_torch.cli import jaccard
-    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
-                                                           parse_hashes_file)
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        parse_hashes_file)
 
     def run(argv):
         buf = io.StringIO()
@@ -583,8 +752,9 @@ def _cli_flags_and_minhash(work, db_path, hashes, mat, N):
     default run's bytes; --strategy 1 equals the exact set-Jaccard
     oracle."""
     from metagenome_vector_sketches_tpu_torch.cli import pairwise_comp
-    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
-                                                           parse_hashes_file)
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        parse_hashes_file)
     base = ["--db", db_path, "--max_memory_gb", "4", "--num_threads", "1"]
     for flags in (["--finalize", "device"], ["--gate_sparse_tiles"]):
         alt = os.path.join(work, "cli_mat" + flags[0].replace("-", "_"))
@@ -610,11 +780,13 @@ def _cli_flags_and_minhash(work, db_path, hashes, mat, N):
 
 
 def phase_cli(work):
-    from benchmarks.full_pipeline import synth_hashes_file
+    from metagenome_vector_sketches_tpu_torch.bench_data import (
+        synth_hashes_file)
     from metagenome_vector_sketches_tpu_torch.cli import (
         pairwise_comp, project_everything, query_pc_mat)
-    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
-                                                           MatrixReader)
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix.reader import (
+        MatrixReader)
     N = 2048
     hashes = os.path.join(work, "cli_hashes.txt")
     synth_hashes_file(hashes, N, N // 64, N // 128, seed=11)
@@ -838,13 +1010,18 @@ def phase_ann(N, errs, timings):
     sk = pw.scan_scores(qp, index._stack[0], index._inv_n[0], valid)
     sp = pw.scan_scores_plain(qp, index._stack[0], index._inv_n[0], valid)
     check(torch.equal(sk, sp), "scan kernel differs from plain")
-    timings["scan"] = (
-        cuda_ms(lambda: pw.scan_scores(qp, index._stack[0], index._inv_n[0],
-                                       valid)),
-        cuda_ms(lambda: pw.scan_scores_plain(qp, index._stack[0],
-                                             index._inv_n[0], valid),
-                reps=1))
+    db = index._stack[0]
+    P, R = db.shape[0], db.shape[1]
+    timings["scan"] = timed(
+        cuda_ms(lambda: pw.scan_scores(qp, db, index._inv_n[0], valid)),
+        cuda_ms(lambda: pw.scan_scores_plain(qp, db, index._inv_n[0], valid),
+                reps=1),
+        2 * qp.shape[1] * R * db.shape[2] * P, INT8_PEAK,
+        qp.numel() + db.numel() + 4 * R + 4 * qp.shape[1] * R)
     del sk, sp
+    # the GEMM core alone, as a yardstick (not a kernel of the port)
+    yard = cuda_ms(lambda: [torch._int_mm(qp[p], db[p].t())
+                            for p in range(P)])
     # the pooled (query, row) pairs that fall in chunk 0
     _, i_dev, _ = index._pool(qp, ANN_B, index.pool_for(ANN_K))
     in0 = (i_dev >= 0) & (i_dev < ANN_CHUNK)
@@ -860,11 +1037,14 @@ def phase_ann(N, errs, timings):
                                              index._stack[0])),
             cuda_ms(lambda: pw.pair_partials_plain(qp, rc, index.L,
                                                    index._stack[0])))
-    pairs = ANN_B * ANN_CHUNK
-    say(f"[ann] scan: kernel {timings['scan'][0]:.3f} ms, plain "
-        f"{timings['scan'][1]:.3f} ms ({ANN_B} x {ANN_CHUNK} pairs, d={D}, "
-        f"P=3: {2 * pairs * D * 3 / (timings['scan'][0] * 1e-3) / 1e12:.1f}"
-        " TOP/s int8); bit-equal")
+    t = timings["scan"]
+    say(f"[ann] scan: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
+        f"({qp.shape[1]} x {R} pairs, d={D}, P={P}), bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); bit-equal")
+    rate_line("ann", f"S SCORE ({qp.shape[1]} x {R}, P={P})", t)
+    say(f"[ann] yardstick of the GEMM core alone, not a kernel of the port: "
+        f"{P} x torch._int_mm {qp.shape[1]} x {db.shape[2]} x {R} "
+        f"{yard:.4f} ms")
     say(f"[ann] partials (two operands): kernel {x_ms[0]:.3f} ms, plain "
         f"{x_ms[1]:.3f} ms ({len(rc)} pooled pairs); exact")
     say(f"[ann] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
@@ -878,7 +1058,7 @@ def phase_ann(N, errs, timings):
 
 def phase_stream(N, work):
     from metagenome_vector_sketches_tpu_torch import _build
-    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
     from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
 
@@ -934,10 +1114,12 @@ MH_N, MH_GROUPS, MH_HEAVY = 8192, 128, 64
 
 def phase_minhash(work, errs, timings):
     import torch
-    from benchmarks.full_pipeline import GROUP, synth_hashes_file
     from metagenome_vector_sketches_tpu_torch import _build
-    from metagenome_vector_sketches_tpu_torch.host import (DbFolder,
-                                                           parse_hashes_file)
+    from metagenome_vector_sketches_tpu_torch.bench_data import (
+        GROUP, synth_hashes_file)
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        parse_hashes_file)
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
     from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
 
@@ -1025,16 +1207,25 @@ def phase_minhash(work, errs, timings):
                     "chunk shape")
     errs["gram"] = max(errs["gram"], err)
     C = torch.zeros((MH_N, MH_N), dtype=torch.int32, device="cuda")
-    timings["gram"] = (cuda_ms(lambda: mh.gram_accumulate(C, A)),
-                       cuda_ms(lambda: mh.gram_accumulate_plain(C, A),
-                               reps=1))
     nb = MH_N // 128
-    ops = 2 * 128 * 128 * nb * (nb + 1) // 2 * A.shape[1]
+    n_blocks = nb * (nb + 1) // 2          # the upper block triangle
+    ops = 2 * 128 * 128 * n_blocks * A.shape[1]
+    # the library call does the full square, int8 -> int32 (never called
+    # by the port)
+    library = cuda_ms(lambda: torch._int_mm(A, A.t()))
+    timings["gram"] = timed(
+        cuda_ms(lambda: mh.gram_accumulate(C, A)),
+        cuda_ms(lambda: mh.gram_accumulate_plain(C, A), reps=1),
+        ops, INT8_PEAK, A.numel() + 2 * 4 * 128 * 128 * n_blocks, library)
+    t = timings["gram"]
     say(f"[minhash] G one chunk {MH_N} x {A.shape[1]}: kernel "
-        f"{timings['gram'][0]:.3f} ms, plain {timings['gram'][1]:.3f} ms; "
-        f"{ops / (timings['gram'][0] * 1e-3) / 1e12:.1f} TOP/s int8 (upper "
-        f"block triangle); whole run {stages['chunks'] * ops / (stages['gram_ms'] * 1e-3) / 1e12:.1f}"
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); torch._int_mm(A, A.t()) "
+        f"(the full square) {library:.4f} ms; whole run "
+        f"{stages['chunks'] * ops / (stages['gram_ms'] * 1e-3) / 1e12:.1f}"
         " TOP/s including the scatters")
+    rate_line("minhash", f"G ({MH_N} x {A.shape[1]}, upper block triangle)",
+              t)
     for k, v in counted.items():
         launches[k] += v
     return launches
@@ -1081,13 +1272,16 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
+    jax_pkg = sorted(m for m in sys.modules
+                     if m.split(".")[0] == "metagenome_vector_sketches_tpu")
+    check(not jax_pkg, f"the port imported the JAX package: {jax_pkg[:5]}")
 
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/csrc/{SOURCES[k]}", "replaces": REPLACES[k],
                 "launches": sum(p[k] for p in paths),
                 "max_abs_err": errs[k],
-                "ms": round(timings[k][0], 4),
-                "plain_ms": round(timings[k][1], 4)}
+                **{f: timings[k][f] for f in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}}
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ Runs the main path of ``metagenome_vector_sketches_tpu`` (sketch ->
 pairwise shard -> query) on an NVIDIA Hopper GPU through hand-written CUDA
 kernels (``csrc/``), and on the CPU through each kernel's plain PyTorch
 version. The host layers (db folder, hashes files, matrix writer/reader,
-query engine, codecs) do not depend on JAX and are imported from the JAX
-package unchanged; this package reimplements only what runs on the device.
+query engine, codecs, FAISS index file) are the package's own copies of the
+JAX package's JAX-free modules, byte for byte, so the port imports nothing
+of the JAX package.
 
 Every public entry point takes an explicit ``device``. A CUDA tensor always
 goes through its kernel (or raises); the plain version runs only for tensors

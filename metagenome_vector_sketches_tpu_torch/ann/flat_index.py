@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..host import DbFolder, faissio
+from . import faissio
+from ..io.dbfolder import DbFolder
 from .select import key_index, key_scores, merge_topk, rank_keys
 
 MAGIC = b"MVSFLATIP\x00"

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..host import DbFolder
+from ..io.dbfolder import DbFolder
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
 from .select import key_index, key_scores, merge_topk, rank_keys

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..host import DbFolder, parse_query_hashes_file
+from ..io.dbfolder import DbFolder
+from ..io.hashes import parse_query_hashes_file
 from ..ops import pairwise_math as pm
 from .flat_index import FlatIPIndex, normalize_l2
 

@@ -12,7 +12,8 @@ import os
 import random
 import tempfile
 
-from ..host import DbFolder, parse_hashes_file, write_hashes_file
+from ..io.dbfolder import DbFolder
+from ..io.hashes import parse_hashes_file, write_hashes_file
 from .search import search_index
 
 

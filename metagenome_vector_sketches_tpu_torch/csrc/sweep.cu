@@ -1,66 +1,98 @@
-// Kernel S: the thresholded pairwise sweep over Karatsuba int8 planes.
+// Kernels S and G: the port's int8 GEMM core on Hopper (a TMA ring feeding
+// wgmma) with the thresholded sweep's, the ANN scan's and the MinHash
+// Gram's epilogues.
 //
-// Replaces: metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55
+// Kernel S replaces: metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55
 // pallas_sweep_counts (the repo's one Pallas kernel, body _make_kernel at
-// :27) in its COUNT epilogue, and the sweep + survivor compaction of the XLA
-// program ops/pairwise.py:635 sweep_extract_fused_ij in its APPEND epilogue.
+// :27) in its COUNT epilogue, the sweep + survivor compaction of the XLA
+// program ops/pairwise.py:635 sweep_extract_fused_ij in its APPEND epilogue,
+// and the plane GEMMs + combine + x 1/|v| of the XLA program
+// ann/int_index.py:124 _int_scan_pool in its SCORE epilogue (entry
+// mvs_scan). Kernel G (entry mvs_gram) replaces the XLA program
+// metagenome_vector_sketches_tpu/ops/minhash.py:47 _chunk_gram.
 //
-// Math, per tile of (row, column) pairs: P int8 x int8 -> int32 plane
-// products (exact), combined in float32 in plane order,
+// Math of S, per (row, column) pair: P int8 x int8 -> int32 plane products
+// (exact), combined in float32 in plane order,
 //   approx = f32(S_0)*w_0;  approx = approx + f32(S_p)*w_p  (p = 1..P-1)
 // then  approx / d  >  0.05*(t_i + t_j)*SLACK_REL - SLACK_ABS, the order
-// ops/pairwise.py:214-236 and :346 write. Every step is an explicitly
-// rounded intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsub_rn), so nvcc
-// cannot contract to FMA and the result is bit-equal to the plain PyTorch
-// version, which runs the same eager float32 ops in the same order. Never
-// build this file with --use_fast_math.
+// ops/pairwise.py:214-236 and :346 write. Every float step is an explicitly
+// rounded intrinsic (__int2float_rn, __fmul_rn, __fadd_rn, __fdiv_rn,
+// __fsub_rn), so nvcc cannot contract to FMA and the result is bit-equal to
+// the plain PyTorch version, which runs the same eager float32 ops in the
+// same order. Integer MMAs are exact in any order. Never build this file
+// with --use_fast_math. G: c[i, j] += sum_k a[i, k] a[j, k] for an (n, u)
+// 0/1 int8 incidence chunk, int32 (a count is at most u).
 //
-// What bounds it on Hopper: the int8 tensor cores. A 128 x 128 output block
-// reads 2 x 128 x d bytes per plane for 128 x 128 x d MACs (64 MAC/byte), so
-// at production shapes (d = 2048) the operands come from L2 and the sweep is
-// compute bound.
+// What bounds them on the H100: the int8 tensor cores (1,979 TOP/s dense)
+// and, next, the L2 that feeds them. At d = 2048 the operands come from L2;
+// a 128 x 128 CTA tile asks about 15 TB/s of it at peak, a 128 x 256 tile
+// 11.5 TB/s. The design cuts that in two ways (wider tile, operands shared
+// between two CTAs) and hides the L2 latency behind a ring of stages. The
+// ANN scan (SCORE) also reads its whole database chunk once from device
+// memory, which bounds it by bytes (PERF.md).
 //
-// Design (a first version, simple and exact, not yet fast): one CTA of 8
-// warps per 128 x 128 sub-block; warps as 4 (rows) x 2 (cols), each owning a
-// 32 x 64 block = 2 x 8 mma.sync.m16n8k32 s8 tiles with int32 accumulators.
-// K steps of 64 bytes are staged through shared memory with 16-byte loads,
-// rows padded to 80 bytes so the fragment reads hit 32 distinct banks.
-// Planes are walked one at a time: the int32 product of plane p is exact
-// before it is folded into the float32 combine, so only one int32 and one
-// float32 accumulator set live in registers. No wgmma/TMA pipeline yet.
+// Design (one template, gemm_kernel<kMode>, for S and G):
+// - CTA tile 128 rows x 256 columns; 384 threads: warpgroups 0 and 1
+//   consume (each 64 rows x 256 columns with wgmma.m64n256k32.s32.s8.s8,
+//   128 int32 accumulators a thread), warpgroup 2 produces (one thread
+//   issues the TMA loads). setmaxnreg moves registers from the producer
+//   (40) to the consumers (232).
+// - Clusters of two CTAs compute the two 128-row halves of a 256 x 256
+//   block. Each CTA loads its own A (128 rows) and one 128-row half of B,
+//   multicast into both CTAs' shared memory, so a CTA pulls 16 KB from L2
+//   per stage instead of 24 KB; a stage is refilled once the consumers of
+//   both CTAs have released it (their empty barriers count 16 warps).
+// - K steps of 64 bytes, one 64-byte swizzle span: a stage is A 128 x 64 B
+//   and B 256 x 64 B, 24 KB, filled by cp.async.bulk.tensor (3-D maps over
+//   (P, rows, d_pad), boxes of 64 B x 128 rows, rows past the operand
+//   zero-filled) and signalled through a full/empty mbarrier pair. The
+//   producer walks plane after plane without draining the ring, so plane
+//   p's fold overlaps plane p+1's loads. Every d_pad that is a multiple of
+//   64 takes whole stages (an odd number of 64-byte steps too).
+// - Registers of S (255 a thread at most): an m64n256 tile needs 128 int32
+//   registers for the current plane and 128 float32 for approx; both do
+//   not fit. approx therefore lives in shared memory, 128 x 256 x 4 B =
+//   128 KB, one column per consumer thread (conflict-free): at each plane
+//   boundary a thread folds its 128 accumulators into it, and the last
+//   plane's fold stays in the accumulator registers for the epilogue. That
+//   leaves a ring of 4 stages (96 KB). G keeps only the int32 set and
+//   takes a ring of 8 stages (192 KB).
+// - Epilogue inputs: S's consumers copy the block's 256 column values
+//   (thr_j or inv_n) and 128 row thresholds into shared memory before the
+//   main loop, so the epilogue reads no global memory; G loads its block of
+//   c 32 accumulators at a time, every load of a chunk ahead of its stores.
+// - Tiles of S that are an odd multiple of 128 wide compute a full 256-wide
+//   CTA tile and mask the columns past the tile; tiles with an odd number
+//   of 128-row blocks leave the last pair's second CTA without rows of its
+//   own (it only feeds its peer); G's clusters that straddle the block
+//   diagonal mask the 128 x 128 block below it.
+// - ptxas (CUDA 12.8, sm_90a, -Xptxas -v): every instance 168 registers at
+//   launch (384 threads; 40 / 232 after setmaxnreg), no spills, a 64-byte
+//   stack frame for S's plane weights. Dynamic shared memory: S 232,000 B
+//   (ring 96 KB, approx 128 KB, table 1.5 KB, barriers, 1 KB alignment
+//   slack), G 197,760 B: one CTA per SM.
 //
-// Epilogues (template parameter):
-//   COUNT  — K1's contract: survivors per tile, one atomicAdd per warp.
+// Epilogues (template parameter), on the wgmma accumulator layout: warp w
+// of a consumer warpgroup owns rows 16w + g and 16w + g + 8 (g = lane / 4)
+// of the warpgroup's 64; accumulator 4j + e is column 8j + 2(lane % 4) +
+// (e & 1) of row +8 * (e >> 1).
+//   COUNT  — survivors per tile, one atomicAdd per warp.
 //   APPEND — per-tile counts as well, plus every survivor's global (r, c)
 //            int32 written into a flat buffer of capacity `cap`: one
 //            __ballot_sync per element slot, __popc for the in-warp rank and
-//            ONE atomicAdd per warp on the running total. The total keeps
-//            counting past `cap` (writes stop there), so the caller learns
-//            the exact size to rerun with. Self-pairs can be masked:
-//            r == c + diag_offset, the offset between the two operands'
-//            first global rows (0 for one resident plane tensor; the
-//            streaming engine passes window start - row group start).
-//            Pad rows carry t = 1e30, so they never pass.
-//   SCORE  — the int8 ANN engine's scan (entry mvs_scan; replaces the plane
-//            GEMMs + combine + x 1/|v| of the XLA program
-//            ann/int_index.py:124 _int_scan_pool): rows are query planes,
-//            columns one chunk of the database stack; every pair's
-//            combined dot times inv_n[c] (one more __fmul_rn) is written to
-//            a row-major float32 (rows, ld) score matrix, -inf on columns
-//            c >= valid. No threshold, no self mask. The top-k selection
-//            stays outside the kernel (torch), so the (rows, R) scores make
-//            one round trip through device memory.
-//
-// Kernel G (entry mvs_gram) reuses the same GEMM core (block_mma) for the
-// MinHash strategy. Replaces: the XLA program
-// metagenome_vector_sketches_tpu/ops/minhash.py:47 _chunk_gram, the (N, u)
-// int8 0/1 incidence chunk times its transpose into int32 intersection
-// counts. It adds one chunk's Gram into an int32 (n, n) accumulator on the
-// device, on the upper block triangle only (the Gram is symmetric; the
-// caller mirrors once after the last chunk). Exact: a count is at most u.
-// What bounds it: the int8 tensor cores again (dense incidence, about 256
-// ones in a 2-million-wide row, so nearly every MMA multiplies zeros); a
-// sparse formulation would skip them but is not this first version.
+//            ONE atomicAdd per warp on the running total, in warps that
+//            hold a survivor. The total keeps counting past `cap` (writes
+//            stop there), so the caller learns the exact size to rerun
+//            with. Self-pairs can be masked: r == c + diag_offset, the
+//            offset between the two operands' first global rows. Pad rows
+//            carry t = 1e30, so they never pass.
+//   SCORE  — rows are query planes, columns one chunk of the database
+//            stack; every pair's combined dot times inv_n[c] (one more
+//            __fmul_rn) is written to a row-major float32 (rows, ld) score
+//            matrix, -inf on columns c >= valid.
+//   GRAM   — c[r, col] += the int32 count, on the 128 x 128 blocks on and
+//            above the block diagonal only (the caller mirrors once).
+#include <cuda.h>
 #include <limits.h>
 #include <math.h>
 
@@ -68,90 +100,49 @@
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kSRow = kBK + 16;  // padded shared-memory row (bytes)
-constexpr int kThreads = 256;    // 8 warps
-constexpr int kWM = 32, kWN = 64;
-constexpr int kMT = kWM / 16;    // m16 tiles per warp
-constexpr int kNT = kWN / 8;     // n8 tiles per warp
+constexpr int kBM = 128;     // CTA rows: two consumer warpgroups of 64
+constexpr int kBN = 256;     // CTA columns: the wgmma N
+constexpr int kBK = 64;      // K bytes of a stage (the 64-byte swizzle span)
+constexpr int kBox = 128;    // rows of one TMA box (SWEEP_BLOCK)
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kAcc = kBN / 2;               // int32 accumulators a thread
+constexpr int kATile = kBM * kBK;           // 8 KB
+constexpr int kBTile = kBN * kBK;           // 16 KB
+constexpr int kStageBytes = kATile + kBTile;
 constexpr int kMaxPlanes = 16;
+// an mbarrier wait that outlasts this (about 20 s) is a fault: trap, so the
+// launch fails instead of hanging the card
+constexpr long long kWatchdogCycles = 1LL << 35;
+
+enum Epilogue { kCount = 0, kAppend = 1, kScore = 2, kGram = 3 };
+
+template <int kMode>
+struct Layout {
+  static constexpr int kStages = kMode == kGram ? 8 : 4;
+  static constexpr int kApproxBytes =
+      kMode == kGram ? 0 : kAcc * kConsumers * 4;
+  // S: the block's column (thr_j or inv_n) and row (thr_i) values
+  static constexpr int kTableBytes = kMode == kGram ? 0 : (kBN + kBM) * 4;
+  static constexpr int kBarOffset =
+      kStages * kStageBytes + kApproxBytes + kTableBytes;
+  // + the full and empty barriers, + slack to align the base to 1024 bytes
+  static constexpr int kBytes = kBarOffset + 2 * kStages * 8 + 1024;
+};
 
 struct Weights {
   float w[kMaxPlanes];
 };
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-enum Epilogue { kCount = 0, kAppend = 1, kScore = 2 };
-
-// The int8 GEMM core shared by kernels S and G: acc (this thread's share of
-// a kBM x kBN block, int32) += A (kBM rows) . B (kBN rows)^T over K = ld
-// bytes, both row-major with row stride ld (a multiple of kBK). K steps of
-// kBK bytes are staged through As / Bs (kBM x kSRow each) with 16-byte
-// loads; warps as 4 (rows) x 2 (cols), each owning a 32 x 64 block of
-// mma.sync.m16n8k32 s8 tiles.
-__device__ __forceinline__ void block_mma(int (&acc)[kMT][kNT][4],
-                                          const int8_t* A, const int8_t* B,
-                                          int ld, int8_t* As, int8_t* Bs) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
-  for (int k0 = 0; k0 < ld; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < (kBM * kBK / 16) / kThreads; ++i) {
-      const int c = tid + i * kThreads;
-      const int r = c >> 2, q = (c & 3) * 16;
-      *reinterpret_cast<int4*>(&As[r * kSRow + q]) =
-          *reinterpret_cast<const int4*>(A + (long long)r * ld + k0 + q);
-      *reinterpret_cast<int4*>(&Bs[r * kSRow + q]) =
-          *reinterpret_cast<const int4*>(B + (long long)r * ld + k0 + q);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      unsigned a[kMT][4], b[kNT][2];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int8_t* s = &As[(wm * kWM + mt * 16 + g) * kSRow + kk + t * 4];
-        a[mt][0] = *reinterpret_cast<const unsigned*>(s);
-        a[mt][1] = *reinterpret_cast<const unsigned*>(s + 8 * kSRow);
-        a[mt][2] = *reinterpret_cast<const unsigned*>(s + 16);
-        a[mt][3] = *reinterpret_cast<const unsigned*>(s + 8 * kSRow + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int8_t* s = &Bs[(wn * kWN + nt * 8 + g) * kSRow + kk + t * 4];
-        b[nt][0] = *reinterpret_cast<const unsigned*>(s);
-        b[nt][1] = *reinterpret_cast<const unsigned*>(s + 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
-    }
-    __syncthreads();
-  }
-}
-
-// The operands of one launch: COUNT/APPEND read thr_*, counts, rc, total,
-// cap; SCORE reads inv_n, valid, scores, ld (and takes no coords: the grid
-// covers the whole tile_r x tile_c block).
+// The operands of one launch: COUNT/APPEND read thr_*, coords, counts, rc,
+// total, cap; SCORE reads inv_n, valid, scores, ld (its grid covers one
+// tile_r x tile_c block); GRAM reads c, ldc, n_blocks.
 struct Args {
-  const int8_t* planes_i;
-  const int8_t* planes_j;
   const float* thr_i;
   const float* thr_j;
   int P;
+  int nk;  // K steps of kBK bytes
   float dval;
-  int d_pad;
-  long long stride_i, stride_j;
   const int32_t* coords;
   int tile_r, tile_c;
   float slack_rel, slack_abs;
@@ -165,151 +156,519 @@ struct Args {
   int valid;
   float* scores;
   long long ld;
+  int32_t* c;
+  long long ldc;
+  int n_blocks;
 };
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads, 1)
-sweep_kernel(const Args args, const Weights wts) {
-  __shared__ __align__(16) int8_t As[kBM * kSRow];
-  __shared__ __align__(16) int8_t Bs[kBN * kSRow];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int P = args.P, d_pad = args.d_pad;
-  const int sub_c = args.tile_c / kBN;
-  const int per_tile = (args.tile_r / kBM) * sub_c;
-  const int tile = blockIdx.x / per_tile;
-  const int sub = blockIdx.x % per_tile;
-  const int tr = kMode == kScore ? 0 : args.coords[2 * tile];
-  const int tc = kMode == kScore ? 0 : args.coords[2 * tile + 1];
-  const int row0 = tr * args.tile_r + (sub / sub_c) * kBM;
-  const int col0 = tc * args.tile_c + (sub % sub_c) * kBN;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
 
-  float approx[kMT][kNT][4];
-  for (int p = 0; p < P; ++p) {
-    int acc[kMT][kNT][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+// arrive on the barrier at the same offset in CTA `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(
+          bar),
+      "r"(cta)
+      : "memory");
+}
 
-    block_mma(acc,
-              args.planes_i + p * args.stride_i + (long long)row0 * d_pad,
-              args.planes_j + p * args.stride_j + (long long)col0 * d_pad,
-              d_pad, As, Bs);
-    // fold plane p into the float32 combine, in plane order
-    const float w = wts.w[p];
+// every thread of both CTAs of the cluster (the start: all converged)
+__device__ __forceinline__ void cluster_sync_aligned() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the same, for threads that may have diverged (the end)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > kWatchdogCycles) __trap();
+  }
+}
+
+// one 64-byte x 128-row box of plane `plane` at (k bytes, row) -> smem dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int k, int row,
+                                         int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row),
+      "r"(plane)
+      : "memory");
+}
+
+// the same box into both CTAs of the cluster (same smem offset, each CTA's
+// own barrier at `bar`'s offset)
+__device__ __forceinline__ void tma_load_pair(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int k, int row,
+                                              int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"((uint16_t)3),
+      "r"(k), "r"(row), "r"(plane)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile of 64-byte rows in the
+// 64-byte swizzle (layout type 2): 8-row groups 512 bytes apart (SBO), LBO
+// unused (1). Adding 2 moves the start 32 bytes along K.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(8 * kBK / 16) << 32) |
+         (static_cast<uint64_t>(2) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving reads of the accumulators above the wait
+__device__ __forceinline__ void fence_acc(int (&d)[kAcc]) {
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 256 int32, this thread's 128) = A (64 x 32 B) . B (256 x 32 B)^T
+// + (scale_d ? d : 0)
+__device__ __forceinline__ void wgmma_m64n256k32(int (&d)[kAcc], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The consumer warpgroups: the main loop over P planes x nk K steps, the
+// plane folds (S) and the epilogue, for the CTA block at (row0, col0) with
+// col_lim valid columns; a CTA that is not `live` (the pair's second block
+// past a tile of an odd number of 128-row blocks) only feeds its peer.
+template <int kMode, int kStages>
+__device__ __forceinline__ void consume(const Args& args, const Weights& wts,
+                                        uint32_t a_smem, uint32_t b_smem,
+                                        float* approx, uint32_t full,
+                                        uint32_t empty, int row0, int col0,
+                                        int col_lim, int tile, bool live) {
+  const int ct = threadIdx.x, wg = ct >> 7, lane = ct & 31;
+  const int t = lane & 3;
+  // this thread's rows of the CTA block: rbase and rbase + 8
+  const int rbase = wg * 64 + ((ct >> 5) & 3) * 16 + (lane >> 2);
+  int acc[kAcc];
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float term = __fmul_rn(__int2float_rn(acc[mt][nt][i]), w);
-          approx[mt][nt][i] =
-              p == 0 ? term : __fadd_rn(approx[mt][nt][i], term);
-        }
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+
+  // S stages the values its epilogue reads into shared memory now, so the
+  // loads overlap the main loop: one column per thread (kBN == kConsumers),
+  // then the rows' thresholds
+  static_assert(kBN == kConsumers, "one table column per consumer thread");
+  float* table = approx + kAcc * kConsumers;
+  if (kMode != kGram && live) {
+    const int gc = col0 + ct;
+    table[ct] = kMode == kScore ? (gc < args.valid ? args.inv_n[gc] : 0.f)
+                                : (ct < col_lim ? args.thr_j[gc] : 0.f);
+    if (kMode != kScore && ct < kBM) table[kBN + ct] = args.thr_i[row0 + ct];
   }
 
-  if (kMode == kScore) {
+  // a stage is free once both CTAs' consumers are done with it (the peer
+  // multicasts its B half into this CTA's copy): one arrive per warp on
+  // each CTA's empty barrier
+  auto release = [&](int st) {
+    if (lane == 0) {
+      mbar_arrive_cluster(empty + 8 * st, 0);
+      mbar_arrive_cluster(empty + 8 * st, 1);
+    }
+  };
+  int s = 0;
+  uint32_t ph = 0;
+  for (int p = 0; p < args.P; ++p) {
+    for (int k = 0; k < args.nk; ++k) {
+      mbar_wait(full + 8 * s, ph);
+      const uint64_t da = smem_desc(a_smem + s * kATile + wg * 64 * kBK);
+      const uint64_t db = smem_desc(b_smem + s * kBTile);
+      wgmma_fence();
+      wgmma_m64n256k32(acc, da, db, k > 0);
+      wgmma_m64n256k32(acc, da + 2, db + 2, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      release(s);
+      if (++s == kStages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    fence_acc(acc);
+    if (kMode != kGram) {
+      // fold plane p into the float32 combine, in plane order; the last
+      // plane's sum stays in acc (as float bits) for the epilogue
+      const float w = wts.w[p];
+      float* ap = approx + ct;
+      if (p + 1 < args.P) {
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int gr = row0 + wm * kWM + mt * 16 + g + ((i >> 1) << 3);
-          const int gc = col0 + wn * kWN + nt * 8 + t * 2 + (i & 1);
-          args.scores[(long long)gr * args.ld + gc] =
-              gc < args.valid ? __fmul_rn(approx[mt][nt][i], args.inv_n[gc])
-                              : -INFINITY;
+        for (int i = 0; i < kAcc; ++i) {
+          const float term = __fmul_rn(__int2float_rn(acc[i]), w);
+          ap[i * kConsumers] =
+              p == 0 ? term : __fadd_rn(ap[i * kConsumers], term);
         }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) {
+          const float term = __fmul_rn(__int2float_rn(acc[i]), w);
+          acc[i] = __float_as_int(
+              p == 0 ? term : __fadd_rn(ap[i * kConsumers], term));
+        }
+      }
+    }
+  }
+
+  if (!live) return;
+  // accumulators in chunks of 32 (8 column groups of 8): G issues a
+  // chunk's loads of c together, ahead of its stores, so their latencies
+  // overlap; COUNT/APPEND keep one pass bit per accumulator in a word
+  constexpr int kChunk = 32;
+  static_assert(kAcc == 4 * kChunk, "four chunks of accumulators");
+  if (kMode == kGram) {
+    const int bi = row0 / kBM;
+#pragma unroll
+    for (int c0 = 0; c0 < kAcc; c0 += kChunk) {
+      int2 old[kChunk / 2];
+#pragma unroll
+      for (int u = 0; u < kChunk / 2; ++u) {
+        const int j = (c0 + 2 * u) / 4, h = u & 1;
+        const int gc = col0 + 8 * j + 2 * t, cb = gc / kBM;
+        const long long gr = row0 + rbase + 8 * h;
+        if (cb >= bi && cb < args.n_blocks)
+          old[u] = *reinterpret_cast<const int2*>(&args.c[gr * args.ldc + gc]);
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk / 2; ++u) {
+        const int j = (c0 + 2 * u) / 4, h = u & 1;
+        const int gc = col0 + 8 * j + 2 * t, cb = gc / kBM;
+        const long long gr = row0 + rbase + 8 * h;
+        if (cb >= bi && cb < args.n_blocks)
+          *reinterpret_cast<int2*>(&args.c[gr * args.ldc + gc]) = make_int2(
+              old[u].x + acc[c0 + 2 * u], old[u].y + acc[c0 + 2 * u + 1]);
+      }
+    }
     return;
   }
 
+  // the table is written by all consumer threads
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  if (kMode == kScore) {
+#pragma unroll
+    for (int u = 0; u < kAcc / 2; ++u) {
+      const int cl = 8 * (u >> 1) + 2 * t;
+      if (cl >= col_lim) continue;
+      const int gc = col0 + cl;
+      const long long gr = row0 + rbase + 8 * (u & 1);
+      float2 x;
+      x.x = gc < args.valid
+                ? __fmul_rn(__int_as_float(acc[2 * u]), table[cl])
+                : -INFINITY;
+      x.y = gc + 1 < args.valid
+                ? __fmul_rn(__int_as_float(acc[2 * u + 1]), table[cl + 1])
+                : -INFINITY;
+      *reinterpret_cast<float2*>(&args.scores[gr * args.ld + gc]) = x;
+    }
+    return;
+  }
+
+  // COUNT / APPEND: first every element's retention test (bit e of word c
+  // for accumulator 32 c + e), then the compaction, only in warps that
+  // hold a survivor
+  const float ti[2] = {table[kBN + rbase], table[kBN + rbase + 8]};
+  unsigned bits[kAcc / kChunk];
   int cnt = 0;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+  for (int c = 0; c < kAcc / kChunk; ++c) {
+    unsigned word = 0;
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+    for (int e = 0; e < kChunk; ++e) {
+      const int i = c * kChunk + e, h = (i >> 1) & 1;
+      const int cl = 8 * (i >> 2) + 2 * t + (i & 1);
+      const int gr = row0 + rbase + 8 * h;
+      const int gc = col0 + cl;
+      const float q = __fdiv_rn(__int_as_float(acc[i]), args.dval);
+      float th = __fadd_rn(ti[h], table[cl]);
+      th = __fmul_rn(0.05f, th);
+      th = __fmul_rn(th, args.slack_rel);
+      th = __fsub_rn(th, args.slack_abs);
+      const bool pass =
+          cl < col_lim && (q > th) &&
+          !(args.mask_self && (long long)gr == gc + args.diag_offset);
+      word |= (pass ? 1u : 0u) << e;
+    }
+    bits[c] = word;
+    cnt += __popc(word);
+  }
+  // The compaction loop stays rolled: unrolled 128 times, its code made
+  // the whole APPEND kernel ~20% slower (measured on the H100, PERF.md).
+  if (kMode == kAppend &&
+      __any_sync(kFullMask, bits[0] | bits[1] | bits[2] | bits[3])) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // mma C fragment: rows g / g+8, columns 2t / 2t+1
-        const int gr = row0 + wm * kWM + mt * 16 + g + ((i >> 1) << 3);
-        const int gc = col0 + wn * kWN + nt * 8 + t * 2 + (i & 1);
-        const float q = __fdiv_rn(approx[mt][nt][i], args.dval);
-        float th = __fadd_rn(args.thr_i[gr], args.thr_j[gc]);
-        th = __fmul_rn(0.05f, th);
-        th = __fmul_rn(th, args.slack_rel);
-        th = __fsub_rn(th, args.slack_abs);
-        const bool pass =
-            (q > th) &&
-            !(args.mask_self && (long long)gr == gc + args.diag_offset);
-        cnt += pass ? 1 : 0;
-        if (kMode == kAppend) {
-          const unsigned m = __ballot_sync(kFullMask, pass);
-          if (m) {  // warp-uniform
-            unsigned base = 0;
-            if (lane == 0) base = atomicAdd(args.total, (unsigned)__popc(m));
-            base = __shfl_sync(kFullMask, base, 0);
-            if (pass) {
-              const unsigned long long pos =
-                  (unsigned long long)base + __popc(m & ((1u << lane) - 1u));
-              if (pos < (unsigned long long)args.cap) {
-                args.rc[2 * pos] = gr;
-                args.rc[2 * pos + 1] = gc;
-              }
+    for (int c = 0; c < kAcc / kChunk; ++c) {
+#pragma unroll 1
+      for (int i = c * kChunk; i < (c + 1) * kChunk; ++i) {
+        const bool pass = (bits[c] >> (i % kChunk)) & 1u;
+        const unsigned m = __ballot_sync(kFullMask, pass);
+        if (m) {  // warp-uniform
+          unsigned base = 0;
+          if (lane == 0) base = atomicAdd(args.total, (unsigned)__popc(m));
+          base = __shfl_sync(kFullMask, base, 0);
+          if (pass) {
+            const unsigned long long pos =
+                (unsigned long long)base + __popc(m & ((1u << lane) - 1u));
+            if (pos < (unsigned long long)args.cap) {
+              args.rc[2 * pos] = row0 + rbase + 8 * ((i >> 1) & 1);
+              args.rc[2 * pos + 1] = col0 + 8 * (i >> 2) + 2 * t + (i & 1);
             }
           }
         }
       }
+    }
+  }
   cnt = __reduce_add_sync(kFullMask, cnt);
   if (lane == 0 && cnt) atomicAdd(&args.counts[tile], cnt);
 }
 
-// Kernel G: c[i, j] += sum_k a[i, k] * a[j, k] for an (n, ld) int8 chunk a
-// into an (n, n) int32 accumulator c, on the upper block triangle only
-// (block column >= block row; the caller mirrors once at the end). One CTA
-// per 128 x 128 block; it alone writes its block, so the epilogue is a
-// plain load, add and store.
-__global__ void __launch_bounds__(kThreads, 1)
-gram_kernel(const int8_t* a, int ld, int n_blocks, int32_t* c, long long ldc) {
-  __shared__ __align__(16) int8_t As[kBM * kSRow];
-  __shared__ __align__(16) int8_t Bs[kBN * kSRow];
-  int bi = 0, k = blockIdx.x;
-  while (k >= n_blocks - bi) {
-    k -= n_blocks - bi;
-    ++bi;
+template <int kMode>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap map_i,
+                const __grid_constant__ CUtensorMap map_j, const Args args,
+                const Weights wts) {
+  using Lay = Layout<kMode>;
+  constexpr int S = Lay::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t a_smem = base, b_smem = base + S * kATile;
+  float* approx = reinterpret_cast<float*>(smem + S * kStageBytes);
+  const uint32_t full = base + Lay::kBarOffset, empty = full + 8 * S;
+
+  // The cluster's two CTAs compute the two 128-row halves of one 256 x 256
+  // block: the same 256 columns (B), rows 128 apart (A). Each loads its A
+  // and one 128-row half of B, multicast into both.
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const int pair = blockIdx.x >> 1;
+  int row0, col0, col_lim = kBN, tile = 0;
+  bool live;
+  if (kMode == kGram) {
+    // the 256 x 256 blocks on and above the diagonal, row by row
+    const int nb2 = (args.n_blocks + 1) / 2;
+    int bp = 0, k = pair;
+    while (k >= nb2 - bp) {
+      k -= nb2 - bp;
+      ++bp;
+    }
+    row0 = (2 * bp + rank) * kBM;
+    col0 = (bp + k) * kBN;
+    live = 2 * bp + (int)rank < args.n_blocks;
+  } else {
+    const int sub_r = (args.tile_r + 2 * kBM - 1) / (2 * kBM);
+    const int sub_c = (args.tile_c + kBN - 1) / kBN;
+    const int per_tile = sub_r * sub_c;
+    tile = pair / per_tile;
+    const int sub = pair % per_tile;
+    const int tr = kMode == kScore ? 0 : args.coords[2 * tile];
+    const int tc = kMode == kScore ? 0 : args.coords[2 * tile + 1];
+    const int rin = (sub / sub_c) * 2 * kBM + rank * kBM;
+    const int cin = (sub % sub_c) * kBN;
+    row0 = tr * args.tile_r + rin;
+    col0 = tc * args.tile_c + cin;
+    col_lim = min(kBN, args.tile_c - cin);
+    live = rin < args.tile_r;
   }
-  const int row0 = bi * kBM, col0 = (bi + k) * kBN;
 
-  int acc[kMT][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-  block_mma(acc, a + (long long)row0 * ld, a + (long long)col0 * ld, ld, As,
-            Bs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync_aligned();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gr = row0 + wm * kWM + mt * 16 + g + ((i >> 1) << 3);
-        const int gc = col0 + wn * kWN + nt * 8 + t * 2 + (i & 1);
-        c[(long long)gr * ldc + gc] += acc[mt][nt][i];
-      }
+  // Both roles end in a cluster barrier: no CTA exits while its peer may
+  // still arrive on its barriers.
+  if (threadIdx.x >= kConsumers) {
+    // producer warpgroup: one thread keeps the ring full, plane after plane
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int p = 0; p < args.P; ++p)
+        for (int k = 0; k < args.nk; ++k) {
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          const uint32_t bar = full + 8 * s;
+          mbar_expect_tx(bar, kStageBytes);
+          tma_load(a_smem + s * kATile, &map_i, bar, k * kBK, row0, p);
+          tma_load_pair(b_smem + s * kBTile + rank * kBox * kBK, &map_j, bar,
+                        k * kBK, col0 + rank * kBox, p);
+          if (++s == S) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+    }
+    cluster_sync();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    consume<kMode, S>(args, wts, a_smem, b_smem, approx, full, empty, row0,
+                      col0, col_lim, tile, live);
+    cluster_sync();
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, reached through the runtime (the
+// library links nvcc's static runtime, not libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The map of (P, rows, d_pad) int8 planes, plane stride `stride` bytes, in
+// boxes of 64 bytes x 128 rows with the 64-byte swizzle; rows past `rows`
+// read as zeros. Returns a cudaError_t.
+int plane_map(CUtensorMap* map, const void* base, int P, long long rows,
+              int d_pad, long long stride) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)d_pad, (cuuint64_t)rows,
+                              (cuuint64_t)P};
+  const cuuint64_t strides[2] = {(cuuint64_t)d_pad, (cuuint64_t)stride};
+  const cuuint32_t box[3] = {kBK, kBox, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int kMode>
+int launch(const CUtensorMap& map_i, const CUtensorMap& map_j,
+           const Args& a, const Weights& w, long long grid,
+           cudaStream_t stream) {
+  const int bytes = Layout<kMode>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  gemm_kernel<kMode><<<(unsigned)grid, kThreads, bytes, stream>>>(map_i, map_j,
+                                                                  a, w);
+  return mvs_launch_status();
 }
 
 Weights load_weights(const void* weights_host, int P) {
@@ -321,14 +680,15 @@ Weights load_weights(const void* weights_host, int P) {
 
 }  // namespace
 
-// planes_*: (P, N*, d_pad) int8 with plane strides stride_*; thr_*: float32
-// squared-norm thresholds; coords: (n_tiles, 2) int32 tile indices (units
-// of tile_r rows / tile_c columns); weights_host: P float32 on the HOST.
-// counts: (n_tiles,) int32, zeroed by the caller. APPEND also takes rc:
-// (cap, 2) int32 and total: one uint32, zeroed by the caller. mask_self
-// drops the pairs whose row index equals column index + diag_offset: 0 when
-// both operands share one row numbering, the column operand's first global
-// row minus the row operand's when they are two windows of one database.
+// planes_*: (P, N*, d_pad) int8 with plane strides stride_* (N* = stride_*
+// / d_pad rows); thr_*: float32 squared-norm thresholds; coords: (n_tiles,
+// 2) int32 tile indices (units of tile_r rows / tile_c columns);
+// weights_host: P float32 on the HOST. counts: (n_tiles,) int32, zeroed by
+// the caller. APPEND also takes rc: (cap, 2) int32 and total: one uint32,
+// zeroed by the caller. mask_self drops the pairs whose row index equals
+// column index + diag_offset: 0 when both operands share one row numbering,
+// the column operand's first global row minus the row operand's when they
+// are two windows of one database.
 MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
                          const void* thr_i, const void* thr_j, int P, int d,
                          int d_pad, long long stride_i, long long stride_j,
@@ -339,22 +699,25 @@ MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
                          void* rc, void* total,
                          long long cap, void* stream) {
   if (P < 1 || P > kMaxPlanes || tile_r <= 0 || tile_c <= 0 ||
-      tile_r % kBM || tile_c % kBN || d_pad % kBK || n_tiles < 0)
+      tile_r % kBM || tile_c % kBox || d_pad <= 0 || d_pad % kBK ||
+      n_tiles < 0 || stride_i < d_pad || stride_j < d_pad ||
+      stride_i % kBK || stride_j % kBK)
     return (int)cudaErrorInvalidValue;
-  const long long grid =
-      (long long)n_tiles * (tile_r / kBM) * (tile_c / kBN);
+  const long long grid = 2LL * n_tiles * ((tile_r + 2 * kBM - 1) / (2 * kBM)) *
+                         ((tile_c + kBN - 1) / kBN);
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
   if (grid == 0) return mvs_launch_status();
+  CUtensorMap mi, mj;
+  int err = plane_map(&mi, planes_i, P, stride_i / d_pad, d_pad, stride_i);
+  if (!err) err = plane_map(&mj, planes_j, P, stride_j / d_pad, d_pad,
+                            stride_j);
+  if (err) return err;
   Args a{};
-  a.planes_i = (const int8_t*)planes_i;
-  a.planes_j = (const int8_t*)planes_j;
   a.thr_i = (const float*)thr_i;
   a.thr_j = (const float*)thr_j;
   a.P = P;
+  a.nk = d_pad / kBK;
   a.dval = (float)d;
-  a.d_pad = d_pad;
-  a.stride_i = stride_i;
-  a.stride_j = stride_j;
   a.coords = (const int32_t*)coords;
   a.tile_r = tile_r;
   a.tile_c = tile_c;
@@ -368,34 +731,36 @@ MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
   a.cap = cap;
   const Weights w = load_weights(weights_host, P);
   auto s = (cudaStream_t)stream;
-  if (append)
-    sweep_kernel<kAppend><<<(unsigned)grid, kThreads, 0, s>>>(a, w);
-  else
-    sweep_kernel<kCount><<<(unsigned)grid, kThreads, 0, s>>>(a, w);
-  return mvs_launch_status();
+  return append ? launch<kAppend>(mi, mj, a, w, grid, s)
+                : launch<kCount>(mi, mj, a, w, grid, s);
 }
 
 // The SCORE epilogue. q_planes: (P, rows, d_pad) int8 query planes (plane
 // stride stride_q); db_planes: (P, >= cols, d_pad) int8, one chunk of the
 // stack (plane stride stride_db); inv_n: (cols,) float32; scores: (rows,
-// ld) float32, ld >= cols. rows and cols are multiples of 128.
+// ld) float32, ld >= cols and even. rows and cols are multiples of 128.
 MVS_EXPORT int mvs_scan(const void* q_planes, const void* db_planes, int P,
                         int d_pad, long long stride_q, long long stride_db,
                         int rows, int cols, const void* inv_n, int valid,
                         const void* weights_host, void* scores, long long ld,
                         void* stream) {
   if (P < 1 || P > kMaxPlanes || rows <= 0 || cols <= 0 || rows % kBM ||
-      cols % kBN || d_pad % kBK || ld < cols)
+      cols % kBox || d_pad <= 0 || d_pad % kBK || ld < cols || ld % 2 ||
+      stride_q < (long long)rows * d_pad ||
+      stride_db < (long long)cols * d_pad || stride_q % kBK ||
+      stride_db % kBK)
     return (int)cudaErrorInvalidValue;
-  const long long grid = (long long)(rows / kBM) * (cols / kBN);
+  const long long grid =
+      2LL * ((rows + 2 * kBM - 1) / (2 * kBM)) * ((cols + kBN - 1) / kBN);
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mdb;
+  int err = plane_map(&mq, q_planes, P, stride_q / d_pad, d_pad, stride_q);
+  if (!err) err = plane_map(&mdb, db_planes, P, stride_db / d_pad, d_pad,
+                            stride_db);
+  if (err) return err;
   Args a{};
-  a.planes_i = (const int8_t*)q_planes;
-  a.planes_j = (const int8_t*)db_planes;
   a.P = P;
-  a.d_pad = d_pad;
-  a.stride_i = stride_q;
-  a.stride_j = stride_db;
+  a.nk = d_pad / kBK;
   a.tile_r = rows;
   a.tile_c = cols;
   a.inv_n = (const float*)inv_n;
@@ -403,24 +768,30 @@ MVS_EXPORT int mvs_scan(const void* q_planes, const void* db_planes, int P,
   a.scores = (float*)scores;
   a.ld = ld;
   const Weights w = load_weights(weights_host, P);
-  sweep_kernel<kScore><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      a, w);
-  return mvs_launch_status();
+  return launch<kScore>(mq, mdb, a, w, grid, (cudaStream_t)stream);
 }
 
 // Kernel G. a: (n, ld) int8, row-major, n a multiple of 128 and ld of 64
-// (zero rows and columns change no count); c: (n, ldc) int32. Adds a . a^T
-// into the blocks of c on and above the block diagonal.
+// (zero rows and columns change no count); c: (n, ldc) int32, ldc even.
+// Adds a . a^T into the blocks of c on and above the block diagonal.
 MVS_EXPORT int mvs_gram(const void* a, int n, int ld, void* c, long long ldc,
                         void* stream) {
-  if (n <= 0 || ld <= 0 || n % kBM || ld % kBK || ldc < n)
+  if (n <= 0 || ld <= 0 || n % kBM || ld % kBK || ldc < n || ldc % 2)
     return (int)cudaErrorInvalidValue;
-  const long long nb = n / kBM;
-  const long long grid = nb * (nb + 1) / 2;
+  const long long nb = n / kBM, nb2 = (nb + 1) / 2;
+  const long long grid = nb2 * (nb2 + 1);  // 2 CTAs per 256 x 256 block
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  gram_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)a, ld, (int)nb, (int32_t*)c, ldc);
-  return mvs_launch_status();
+  CUtensorMap m;
+  const int err = plane_map(&m, a, 1, n, ld, (long long)n * ld);
+  if (err) return err;
+  Args args{};
+  args.P = 1;
+  args.nk = ld / kBK;
+  args.c = (int32_t*)c;
+  args.ldc = ldc;
+  args.n_blocks = (int)nb;
+  const Weights w = load_weights(nullptr, 0);
+  return launch<kGram>(m, m, args, w, grid, (cudaStream_t)stream);
 }
 
 MVS_EXPORT const char* mvs_error_string(int code) {

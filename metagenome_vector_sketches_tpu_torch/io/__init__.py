@@ -1,3 +1,3 @@
-"""Ingest of the port: sketching hash files into db folders with kernel P.
-The on-disk contracts (hashes files, db folders) are the JAX package's host
-modules, imported unchanged."""
+"""Ingest of the port: sketching hash files into db folders with kernel P,
+and the on-disk contracts it reads and writes (hashes files, signature
+archives, db folders)."""

@@ -1,2 +1,2 @@
-"""The port's pairwise engine (matrix shard production on the device). The
-shard writer and reader are the JAX package's host modules."""
+"""The port's pairwise engine (matrix shard production on the device) and
+the shard writer and reader on the host."""

@@ -44,7 +44,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..host import DbFolder, log, parse_hashes_file, write_shard
+from ..io.dbfolder import DbFolder
+from ..io.hashes import parse_hashes_file
+from ..utils.log import log
+from .writer import write_shard
 from ..ops import minhash
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm

@@ -1,0 +1,107 @@
+"""Shard writer for the active jaccard_wo_sort matrix format.
+
+Replicates the reference writer's math exactly
+(write_sparse_results_jaccard_wo_sort, pairwise_comp_optimized.cpp:645-817):
+J = (dot/d) / (|A| + |B| - dot/d) in float64 with text-parsed squared norms,
+clamped to 1, quantized q = round(J*255) half-away-from-zero; self-pairs
+included. Layout documented in FORMATS.md (rows written in ascending order —
+a deliberate, documented divergence from the reference's unordered_map order,
+whose own reader treats the index as authoritative).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .. import codecs
+
+MULT_CONST = 255.0  # (1 << 8) - 1, pairwise_comp_optimized.cpp:654
+
+
+def quantize_jaccard(values: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                     norms_sq: np.ndarray, dimension: int) -> np.ndarray:
+    """int64 raw dots -> uint16 quantized Jaccard, reference float64 math.
+
+    jac is clamped to [0, 1]: a noisy estimate can push the intersection
+    past |A|+|B| (negative/infinite jac), and a negative float -> uint16
+    cast is undefined at the C level (the reference would hit the same UB;
+    no defined behavior exists to match). For jac >= 0, floor(x + 0.5) IS
+    round-half-away-from-zero, the documented invariant."""
+    inter = values.astype(np.float64) / float(dimension)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        jac = inter / (norms_sq[rows] + norms_sq[cols] - inter)
+    jac = np.clip(np.nan_to_num(jac, nan=0.0), 0.0, 1.0)
+    return np.floor(jac * MULT_CONST + 0.5).astype(np.uint16)
+
+
+def write_shard(folder: str, rows: np.ndarray, cols: np.ndarray,
+                values: np.ndarray, norms_sq: np.ndarray, dimension: int,
+                layout: str = "native") -> None:
+    """Write one shard folder from surviving (row, col, raw int64 dot) triples.
+
+    norms_sq: float64 squared norms for ALL vectors (text-parsed then squared,
+    reference pairwise_comp_optimized.cpp:893-901).
+
+    layout: 'native' (FORMATS.md serialization) or 'bits' (the reconstructed
+    jermp/bits layout, codecs.bitscompat — what real reference-built readers
+    and server artifacts use). The shard reader autodetects either.
+    """
+    if layout == "bits":
+        from ..codecs import bitscompat as cdc
+    else:
+        cdc = codecs
+    os.makedirs(folder, exist_ok=True)
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    values = np.asarray(values, dtype=np.int64)
+
+    # deterministic (row asc, col asc) ordering
+    order = np.lexsort((cols, rows))
+    rows, cols, values = rows[order], cols[order], values[order]
+    q = quantize_jaccard(values, rows, cols, norms_sq, dimension)
+
+    unique_rows, start_idx = np.unique(rows, return_index=True)
+    boundaries = np.append(start_idx, len(rows))
+
+    body = None
+    if layout == "native" and codecs.have_native():
+        # batched native build: one C++ call for the whole shard body
+        # (byte-identical with the per-row loop below)
+        from ..codecs import native as _native
+        body = _native.write_matrix_rows(cols.astype(np.uint64),
+                                         q.astype(np.uint64),
+                                         boundaries.astype(np.uint64))
+    if body is not None:
+        blob_all, positions, start_neighbor = body
+        with open(os.path.join(folder, "matrix.bin"), "wb") as bin_out:
+            bin_out.write(blob_all)
+    else:
+        positions = np.zeros(len(unique_rows), dtype=np.uint64)
+        start_neighbor = np.zeros(len(unique_rows), dtype=np.uint64)
+        pos = 0
+        with open(os.path.join(folder, "matrix.bin"), "wb") as bin_out:
+            for k, row in enumerate(unique_rows):
+                s, e = boundaries[k], boundaries[k + 1]
+                row_cols = cols[s:e]
+                row_q = q[s:e]
+                positions[k] = pos
+                start_neighbor[k] = row_cols[0]
+                blob = cdc.cv_encode(row_q.astype(np.uint64))
+                if len(row_cols) > 1:
+                    deltas = np.diff(row_cols).astype(np.uint64)
+                    assert np.all(deltas > 0), \
+                        "columns must be strictly increasing"
+                    blob += cdc.rice_encode(deltas)
+                bin_out.write(blob)
+                pos += len(blob)
+
+    with open(os.path.join(folder, "row_index.bin"), "wb") as index_out:
+        index_out.write(cdc.cv_encode(unique_rows.astype(np.uint64)))
+        pos_deltas = np.diff(positions) if len(positions) > 1 else \
+            np.empty(0, dtype=np.uint64)
+        index_out.write(cdc.cv_encode(pos_deltas.astype(np.uint64)))
+
+    with open(os.path.join(folder, "neighbor_start.bin"), "wb") as ngh_out:
+        ngh_out.write(cdc.rice_encode(start_neighbor))

@@ -30,7 +30,7 @@ from .pairwise_math import (SLACK_ABS, SLACK_REL, limbs_from_planes,
                             num_planes, plane_weights)
 
 D_ALIGN = 64          # d_pad granularity (kernel S's K step)
-SWEEP_BLOCK = 128     # kernel S's CTA edge: CUDA tiles are multiples of it
+SWEEP_BLOCK = 128     # kernel S's row block: CUDA tiles are multiples of it
 
 
 def pad_dim(d: int) -> int:

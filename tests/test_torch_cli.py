@@ -86,7 +86,8 @@ def test_standalone_projection_matches_jax_tool(tmp_path, capsys):
 
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter runs the port's CPU path end to end (sketch,
-    shard, query) and never loads jax."""
+    shard, query) and never loads jax nor any module of the JAX
+    package."""
     code = f"""
 import sys
 sys.path.insert(0, {REPO!r})
@@ -96,7 +97,7 @@ from metagenome_vector_sketches_tpu_torch.matrix.compute import (
     compute_pairwise_shard)
 from metagenome_vector_sketches_tpu_torch.cli import (
     pairwise_comp, project_everything, query_pc_mat, standalone_projection)
-from metagenome_vector_sketches_tpu_torch.host import query_engine
+from metagenome_vector_sketches_tpu_torch.query import engine as query_engine
 rng = np.random.default_rng(0)
 with open({str(tmp_path / 'h.txt')!r}, "w") as f:
     for i in range(40):
@@ -127,6 +128,9 @@ for engine in ("f32", "int8"):
                                verbose=False, engine=engine, device="cpu")
     assert hits[0][:2] == (0, "A0"), hits
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+jax_pkg = [m for m in sys.modules
+           if m.split(".")[0] == "metagenome_vector_sketches_tpu"]
+assert not jax_pkg, sorted(jax_pkg)
 print("NO_JAX_OK")
 """
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -77,6 +77,49 @@ def test_sweep_kernel_matches_plain(cuda, max_abs):
     assert key(got[0]) == key(want[0])
 
 
+def _survivors(rc, n):
+    return set(map(tuple, rc[:n].tolist()))
+
+
+@pytest.mark.parametrize("max_abs", [100, 3000, 30000, 2000000])
+@pytest.mark.parametrize("d", [64, 192, 2048])
+def test_sweep_core_matches_plain(cuda, d, max_abs):
+    """Kernel S's TMA/wgmma core at d_pad = 64, 192 (an odd number of
+    64-byte K steps) and 2048, P = 1, 3, 6, 10: COUNT on 128 x 128, 128 x
+    256 and 256 x 128 tiles, APPEND on one 128-row tile, on the 128-tile
+    triangle and on 128 x 256 tiles — all equal to the plain version."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    _, L, planes, thr = _state(cuda, N=512, d=d, max_abs=max_abs, seed=d)
+    assert planes.shape[0] == L * (L + 1) // 2 and planes.shape[2] == d
+    for kw in (dict(block=128), dict(block=128, block_j=256),
+               dict(block=256, block_j=128)):
+        assert torch.equal(pp.sweep_counts(planes, thr, d, **kw),
+                           pp.sweep_counts_plain(planes, thr, d, **kw))
+    cap = 1 << 17
+    for coords in ([(0, 0)], [(r, c) for r in range(4) for c in range(r, 4)]):
+        got = pw.sweep_extract(planes, thr, planes, thr, coords, 128, cap,
+                               True, d)
+        want = pw.sweep_extract_plain(planes, thr, planes, thr, coords, 128,
+                                      cap, True, d)
+        n = int(want[2].item())
+        assert n > 0 and torch.equal(got[1], want[1])
+        assert torch.equal(got[2], want[2])
+        assert _survivors(got[0], n) == _survivors(want[0], n)
+    # 128 x 256 tiles: the survivors of their 128 x 128 halves
+    wide = np.array([(r, c) for r in range(4) for c in range(2)])
+    counts, rc, total = pw.launch_sweep(planes, thr, planes, thr, wide, 128,
+                                        256, d, append=True, mask_self=True,
+                                        cap=cap)
+    halves = [(r, 2 * c + h) for r, c in wide.tolist() for h in range(2)]
+    want = pw.sweep_extract_plain(planes, thr, planes, thr, halves, 128, cap,
+                                  True, d)
+    n = int(want[2].item())
+    assert int(total.item()) == n
+    assert torch.equal(counts, want[1].view(-1, 2).sum(1).to(torch.int32))
+    assert _survivors(rc, n) == _survivors(want[0], n)
+
+
 def test_partials_kernel_matches_plain(cuda):
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
     for max_abs in (100, 3000, 30000, 2000000):
@@ -91,7 +134,7 @@ def test_engine_cuda_shard_equals_cpu_shard(cuda, tmp_path, max_abs, int16):
     """P = 3 (int32) and P = 6 (int16) databases, N not a multiple of the
     tile, d not a multiple of 64: the GPU shard equals the CPU shard."""
     import filecmp
-    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
     V, _, _, _ = _state("cpu", N=700, d=200, max_abs=max_abs)
     db = DbFolder.write(str(tmp_path / "db"), [f"S{i}" for i in range(700)],
@@ -138,6 +181,20 @@ def test_scan_kernel_matches_plain(cuda, B, d, max_abs):
     assert got.shape == (qp.shape[1], 1024)
     assert torch.equal(got, want)
     assert bool(torch.isinf(got[:, 1000:]).all())
+
+
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("d,max_abs", [(64, 100), (192, 2000000)])
+def test_scan_core_matches_plain(cuda, B, d, max_abs):
+    """Kernel S SCORE at d_pad = 64 and 192, P = 1 and 10, on a chunk of
+    640 rows (an odd number of 128-row blocks) with 555 valid."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    _, qp, db, inv = _scan_state(cuda, 640, d, max_abs, B, seed=B + d)
+    assert qp.shape[0] in (1, 10) and db.shape[1] == 640
+    got = pw.scan_scores(qp, db, inv, 555)
+    assert torch.equal(got, pw.scan_scores_plain(qp, db, inv, 555))
+    assert bool(torch.isinf(got[:, 555:]).all())
+    assert not bool(torch.isinf(got[:, :555]).any())
 
 
 def test_two_operand_partials_kernel_matches_plain(cuda):
@@ -195,7 +252,7 @@ def test_pairwise_comp_any_tile_on_cuda(cuda, tmp_path):
     shard bytes as --tile 2048."""
     import filecmp
     from metagenome_vector_sketches_tpu_torch.cli import pairwise_comp
-    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
     V, _, _, _ = _state("cpu", N=700, d=200, max_abs=3000)
     db = DbFolder.write(str(tmp_path / "db"), [f"S{i}" for i in range(700)],
                         V, 200)
@@ -219,7 +276,7 @@ def _padded_incidence(dev, n, u, density, seed):
 
 
 @pytest.mark.parametrize("n,u", [(1, 1), (130, 100), (300, 1000),
-                                 (1000, 16384)])
+                                 (1000, 16384), (128, 64), (384, 64)])
 def test_gram_kernel_matches_plain(cuda, n, u):
     """Kernel G over two chunks (ragged n and u, zero padded) against the
     plain float64 Gram: equal on the upper block triangle, the blocks below
@@ -249,7 +306,7 @@ def test_minhash_intersections_cuda_equal_cpu(cuda):
             mh.pairwise_intersections(sets_, chunk=chunk, device="cpu"))
 
 
-@pytest.mark.parametrize("offset", [128, -256, 256])
+@pytest.mark.parametrize("offset", [128, -256, 256, -128])
 def test_sweep_diag_offset_matches_plain(cuda, offset):
     """Kernel S APPEND on two windows of one db (rows a.. and a + offset..)
     with the self mask at diag_offset: equal to the plain version, and the
@@ -282,7 +339,7 @@ def test_streaming_cuda_shard_equals_resident(cuda, tmp_path):
     byte."""
     import filecmp
     from metagenome_vector_sketches_tpu_torch import _build
-    from metagenome_vector_sketches_tpu_torch.host import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
     V, _, _, _ = _state("cpu", N=4096, d=200, max_abs=3000)
     V[3000:3010] = V[5]

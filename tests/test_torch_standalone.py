@@ -1,0 +1,302 @@
+"""The port stands alone: it imports nothing of the JAX package, and its
+own copies of the JAX package's host layers (codecs, db folders, hashes
+files, the shard writer and reader, the FAISS index file, the query engine)
+behave exactly like the originals on seeded inputs."""
+
+import filecmp
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from metagenome_vector_sketches_tpu import codecs as j_codecs  # noqa: E402
+from metagenome_vector_sketches_tpu.ann import faissio as j_faissio  # noqa: E402
+from metagenome_vector_sketches_tpu.io import dbfolder as j_dbfolder  # noqa: E402
+from metagenome_vector_sketches_tpu.io import hashes as j_hashes  # noqa: E402
+from metagenome_vector_sketches_tpu.matrix import reader as j_reader  # noqa: E402
+from metagenome_vector_sketches_tpu.matrix import writer as j_writer  # noqa: E402
+from metagenome_vector_sketches_tpu.query import engine as j_engine  # noqa: E402
+from metagenome_vector_sketches_tpu_torch import codecs as t_codecs  # noqa: E402
+from metagenome_vector_sketches_tpu_torch.ann import faissio as t_faissio  # noqa: E402
+from metagenome_vector_sketches_tpu_torch.io import dbfolder as t_dbfolder  # noqa: E402
+from metagenome_vector_sketches_tpu_torch.io import hashes as t_hashes  # noqa: E402
+from metagenome_vector_sketches_tpu_torch.matrix import reader as t_reader  # noqa: E402
+from metagenome_vector_sketches_tpu_torch.matrix import writer as t_writer  # noqa: E402
+from metagenome_vector_sketches_tpu_torch.query import engine as t_engine  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "metagenome_vector_sketches_tpu_torch"
+
+
+def test_port_alone_walkthrough(tmp_path):
+    """A fresh interpreter imports every module of the port and drives the
+    CPU walkthrough through its command-line tools: sketch -> pairwise_comp
+    -> query_pc_mat -> jaccard index / search -> pairwise_comp --strategy
+    1. Neither jax nor any module of the JAX package gets loaded."""
+    t = str(tmp_path)
+    code = f"""
+import importlib, os, pkgutil, sys
+sys.path.insert(0, {REPO!r})
+import numpy as np
+import {PKG} as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from {PKG}.cli import (jaccard, pairwise_comp, project_everything,
+                       query_pc_mat)
+rng = np.random.default_rng(0)
+base = rng.integers(0, 2**63, size=60, dtype=np.uint64)
+with open(os.path.join({t!r}, "h.txt"), "w") as f:
+    for i in range(48):
+        hs = rng.integers(0, 2**63, size=60, dtype=np.uint64)
+        if i % 4:
+            hs[:40] = base[:40] + np.uint64(i // 4)
+        f.write(f"A{{i}}: " + " ".join(map(str, hs.tolist())) + "\\n")
+t = {t!r}
+p = lambda *x: os.path.join(t, *x)
+assert project_everything.main(["sketch", p("h.txt"), p("db"), "-d", "128",
+                                "--device", "cpu"]) == 0
+base_args = ["--db", p("db"), "--max_memory_gb", "1", "--num_threads", "1",
+             "--num_shards", "1", "--shard_idx", "0", "--device", "cpu"]
+assert pairwise_comp.main(base_args + ["--output_folder", p("m")]) == 0
+with open(p("q.txt"), "w") as f:
+    f.write("A1\\nA5\\n")
+assert query_pc_mat.main(["--matrix", p("m"), "--db", p("db"),
+                          "--query_file", p("q.txt"), "--top", "3",
+                          "--write_to_file", p("top.csv")]) == 0
+assert open(p("A1_top.csv")).readline().strip() == "ID,Jaccard"
+assert jaccard.main(["index", p("db"), "--device", "cpu"]) == 0
+with open(p("h.txt")) as f, open(p("qh.txt"), "w") as g:
+    g.write(f.readlines()[1])
+for engine in ("f32", "int8"):
+    assert jaccard.main(["search", p("db"), p("qh.txt"), "-j", "0.5",
+                         "--engine", engine, "--device", "cpu"]) == 0
+assert pairwise_comp.main(base_args + ["--output_folder", p("mh"),
+                                       "--strategy", "1", "--hashes",
+                                       p("h.txt")]) == 0
+for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+    assert os.path.getsize(p("mh", "shard_0", f)) > 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "metagenome_vector_sketches_tpu"))
+assert not loaded, loaded
+print("STANDALONE_OK")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=t, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "STANDALONE_OK" in r.stdout
+
+
+def test_port_modules_name_no_jax_package():
+    """No module of the port imports the JAX package or benchmarks/."""
+    import pkgutil
+    pkg = importlib.import_module(PKG)
+    for m in pkgutil.walk_packages(pkg.__path__, PKG + "."):
+        path = importlib.util.find_spec(m.name).origin
+        with open(path) as f:
+            for ln in f:
+                words = ln.split()
+                assert not (words[:1] in (["from"], ["import"]) and len(words)
+                            > 1 and words[1].split(".")[0] in (
+                                "metagenome_vector_sketches_tpu",
+                                "benchmarks")), (path, ln)
+
+
+# ---------------------------------------------------------------------------
+# parity of the copied host modules with their JAX-package originals
+# ---------------------------------------------------------------------------
+
+def _values(codec, rng):
+    if codec == "ef":
+        v = np.sort(rng.integers(0, 1 << 20, size=3000)).astype(np.uint64)
+        return (v,), {"universe": int(v[-1]) + 1}
+    v = rng.integers(0, 1 << 12, size=3000).astype(np.uint64)
+    v[::7] = rng.integers(0, 1 << 40, size=len(v[::7]))
+    return (v,), {}
+
+
+def _codec_modules(impl):
+    if impl == "dispatch":
+        return j_codecs, t_codecs
+    return (importlib.import_module(f"metagenome_vector_sketches_tpu.codecs."
+                                    f"{impl}"),
+            importlib.import_module(f"{PKG}.codecs.{impl}"))
+
+
+def _case_codec(impl, codec, tmp_path, ref_toy_dir):
+    jm, tm = _codec_modules(impl)
+    args, kw = _values(codec, np.random.default_rng(len(impl) + len(codec)))
+    jb = getattr(jm, f"{codec}_encode")(*args, **kw)
+    tb = getattr(tm, f"{codec}_encode")(*args, **kw)
+    assert bytes(jb) == bytes(tb)
+    blob = b"\x07" * 24 + bytes(jb)        # decode at an offset
+    # (values, consumed), plus the width for bitscompat's cv
+    jd = getattr(jm, f"{codec}_decode")(blob, 24)
+    td = getattr(tm, f"{codec}_decode")(blob, 24)
+    assert len(jd) == len(td) and jd[2:] == td[2:]
+    (jv, jn), (tv, tn) = jd[:2], td[:2]
+    assert jn == tn == len(jb)
+    np.testing.assert_array_equal(np.asarray(tv), np.asarray(jv))
+    np.testing.assert_array_equal(np.asarray(tv), args[0])
+
+
+def _db(tmp_path, int16):
+    rng = np.random.default_rng(3)
+    V = rng.integers(-40000, 40000, size=(50, 96)).astype(np.int32)
+    names = [f"ACC{i:03d}" for i in range(50)]
+    for side, mod in (("j", j_dbfolder), ("t", t_dbfolder)):
+        mod.DbFolder.write(str(tmp_path / side), names, V, 96,
+                           use_int16=int16)
+    return V, names
+
+
+def _case_dbfolder(int16, tmp_path, ref_toy_dir):
+    _db(tmp_path, int16)
+    files = sorted(os.listdir(tmp_path / "j"))
+    assert files == sorted(os.listdir(tmp_path / "t")) and files
+    for f in files:
+        assert filecmp.cmp(tmp_path / "j" / f, tmp_path / "t" / f,
+                           shallow=False), f
+    j, t = j_dbfolder.DbFolder(str(tmp_path / "j")), \
+        t_dbfolder.DbFolder(str(tmp_path / "t"))
+    assert j.names_and_norms()[0] == t.names_and_norms()[0]
+    np.testing.assert_array_equal(j.names_and_norms()[1],
+                                  t.names_and_norms()[1])
+    np.testing.assert_array_equal(j.load_vectors(), t.load_vectors())
+
+
+def _case_hashes(which, tmp_path, ref_toy_dir):
+    path = str(ref_toy_dir / "all_hashes_toy.txt")
+    if which == "query":
+        jn, js = j_hashes.parse_query_hashes_file(path)
+        tn, ts = t_hashes.parse_query_hashes_file(path)
+        assert jn == tn
+        pairs = list(zip(js, ts))
+    else:
+        j, t = j_hashes.parse_hashes_file(path), t_hashes.parse_hashes_file(
+            path)
+        assert [n for n, _ in j] == [n for n, _ in t]
+        pairs = [(a, b) for (_, a), (_, b) in zip(j, t)]
+    assert len(pairs) == 61
+    for a, b in pairs:
+        np.testing.assert_array_equal(a, b)
+    named = [(f"S{i}", set(b.tolist()[:50])) for i, (_, b) in
+             enumerate(pairs[:5])]
+    j_hashes.write_hashes_file(str(tmp_path / "j.txt"), named)
+    t_hashes.write_hashes_file(str(tmp_path / "t.txt"), named)
+    assert filecmp.cmp(tmp_path / "j.txt", tmp_path / "t.txt", shallow=False)
+
+
+def _triples(n, seed):
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, size=900)
+    c = rng.integers(0, n, size=900)
+    keep = np.unique(r * n + c)
+    r, c = keep // n, keep % n
+    vals = rng.integers(1, 5000, size=len(r)).astype(np.int64) * 64
+    ns = rng.uniform(2000.0, 9000.0, size=n)
+    return r, c, vals, ns
+
+
+def _case_write_shard(layout, tmp_path, ref_toy_dir):
+    r, c, v, ns = _triples(120, 5)
+    j_writer.write_shard(str(tmp_path / "j"), r, c, v, ns, 64, layout=layout)
+    t_writer.write_shard(str(tmp_path / "t"), r, c, v, ns, 64, layout=layout)
+    for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+        assert filecmp.cmp(tmp_path / "j" / f, tmp_path / "t" / f,
+                           shallow=False), f
+    np.testing.assert_array_equal(
+        t_writer.quantize_jaccard(v, r, c, ns, 64),
+        j_writer.quantize_jaccard(v, r, c, ns, 64))
+
+
+def _case_reader(layout, tmp_path, ref_toy_dir):
+    n = 120
+    for s, (lo, hi) in enumerate(((0, 60), (60, n))):
+        r, c, v, ns = _triples(n, 7 + s)
+        sel = (r >= lo) & (r < hi)
+        j_writer.write_shard(str(tmp_path / "m" / f"shard_{s}"), r[sel],
+                             c[sel], v[sel], ns, 64, layout=layout)
+    j = j_reader.MatrixReader(str(tmp_path / "m")).decode_all_triples(n)
+    t = t_reader.MatrixReader(str(tmp_path / "m")).decode_all_triples(n)
+    assert len(j[0]) > 0
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(a, b)
+    rows = [0, 5, 59, 60, 119]
+    for a, b in zip(
+            j_reader.MatrixReader(str(tmp_path / "m"))
+            .load_neighbors_for_rows(rows, n),
+            t_reader.MatrixReader(str(tmp_path / "m"))
+            .load_neighbors_for_rows(rows, n)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+
+
+def _case_faissio(metric, tmp_path, ref_toy_dir):
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(37, 24)).astype(np.float32)
+    m = getattr(j_faissio, metric)
+    j_faissio.write_flat(str(tmp_path / "j.index"), X, m)
+    t_faissio.write_flat(str(tmp_path / "t.index"), X, m)
+    assert filecmp.cmp(tmp_path / "j.index", tmp_path / "t.index",
+                       shallow=False)
+    jx, jm = j_faissio.read_flat(str(tmp_path / "j.index"))
+    tx, tm = t_faissio.read_flat(str(tmp_path / "j.index"))
+    assert jm == tm == m
+    np.testing.assert_array_equal(jx, tx)
+
+
+def _case_query_engine(sliced, tmp_path, ref_toy_dir):
+    n = 120
+    r, c, v, ns = _triples(n, 13)
+    j_writer.write_shard(str(tmp_path / "m" / "shard_0"), r, c, v, ns, 64)
+    norms = np.sqrt(ns).astype(np.float32)
+    names = [f"ACC{i:03d}" for i in range(n)]
+    m = str(tmp_path / "m")
+    if sliced:
+        rows, cols = [3, 7, 50, 119], list(range(0, n, 3))
+        np.testing.assert_array_equal(
+            t_engine.query_sliced(m, rows, cols, n, norms),
+            j_engine.query_sliced(m, rows, cols, n, norms))
+        return
+    qs = [0, 3, 7, 50, 119, -1, n + 2]
+    jr, tr = j_engine.query(m, qs, norms, names), \
+        t_engine.query(m, qs, norms, names)
+    assert any(x.neighbor_ids for x in jr)
+    for a, b in zip(jr, tr):
+        assert a.self_id == b.self_id and a.neighbor_ids == b.neighbor_ids
+        np.testing.assert_array_equal(a.jaccard_similarities,
+                                      b.jaccard_similarities)
+
+
+CASES = {
+    **{f"codec-{impl}-{codec}": (_case_codec, (impl, codec))
+       for impl in ("pyref", "native", "bitscompat", "dispatch")
+       for codec in ("cv", "rice", "ef")},
+    "dbfolder-int32": (_case_dbfolder, (False,)),
+    "dbfolder-int16": (_case_dbfolder, (True,)),
+    "hashes-parse": (_case_hashes, ("parse",)),
+    "hashes-query": (_case_hashes, ("query",)),
+    "write_shard-native": (_case_write_shard, ("native",)),
+    "write_shard-bits": (_case_write_shard, ("bits",)),
+    "reader-native": (_case_reader, ("native",)),
+    "reader-bits": (_case_reader, ("bits",)),
+    "faissio-ip": (_case_faissio, ("METRIC_INNER_PRODUCT",)),
+    "faissio-l2": (_case_faissio, ("METRIC_L2",)),
+    "query_engine-topk": (_case_query_engine, (False,)),
+    "query_engine-sliced": (_case_query_engine, (True,)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_host_copy_matches_jax_original(case, tmp_path, ref_toy_dir):
+    fn, args = CASES[case]
+    fn(*args, tmp_path, ref_toy_dir)
