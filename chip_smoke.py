@@ -18,10 +18,15 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    with planted groups -> sketch (P) -> one pairwise shard (S, X) ->
    top-k queries of planted rows; planted recall must be 1.0, an exact
    numpy oracle must agree on sampled rows, and every kernel's launch
-   count over that run must be > 0. Then each kernel is timed against its
-   plain version and its bound at the main path's shapes, with the TOP/s
-   and share of the int8 peak of S APPEND and a torch._int_mm yardstick of
-   the GEMM core alone (printed as such: the port never calls it);
+   count over that run must be > 0. The sketch's split (parse, batch
+   assembly, H2D, projection, D2H, db write) comes from host timers around
+   a copy of its steps, whose db must equal the run's. Then each kernel is timed against
+   its plain version and its bound at the main path's shapes (P also on a
+   skewed batch: the toy fixture's real set sizes, 3 to 80,772 hashes,
+   filling one project_many batch; P and X also as the kernel alone, from
+   a profiler trace; X from a cold L2), with the TOP/s and share of the int8 peak
+   of S APPEND and a torch._int_mm yardstick of the GEMM core alone
+   (printed as such: the port never calls it);
 3. cli: the README walkthrough through the port's command-line tools at
    N = 2048 on an int32 and an --int16 db, every output held against an
    exact numpy oracle — sketch, pairwise_comp (also with --finalize device
@@ -84,11 +89,15 @@ SOURCES = {"projection": "projection.cu", "sweep": "sweep.cu",
            "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu"}
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
 # the card's published rates (H100 SXM, dense, at 700 W): int8 tensor cores,
-# the rate outside the tensor cores (float32; kernels P's and X's integer
-# work is counted against it), device memory
+# the rate outside the tensor cores (float32; kernel X's integer work is
+# counted against it), device memory
 INT8_PEAK = 1979e12
 CORE_PEAK = 67e12
 HBM_RATE = 3.35e12
+# SASS instructions of splitmix64 per (hash, 64-lane block) in kernel P
+# (cuobjdump -sass of csrc/projection.cu; see its source note): the work
+# no design of P avoids, issued at 4 schedulers x 32 lanes per SM and clock
+SPLITMIX_SASS = 22
 # the kernels each counted path must launch
 MAIN_KERNELS = ("projection", "sweep", "partials")
 ANN_KERNELS = ("scan", "partials")
@@ -143,22 +152,38 @@ def rate_line(tag, what, t):
         f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
 
 
-def kernel_ms(fn, reps: int = 10):
-    """Mean device time of the port's GEMM kernel (gemm_kernel) per fn()
-    call, from a torch.profiler trace: the kernel alone, without the
-    wrapper's host work between launches. None if the trace holds no
-    device time."""
+def kernel_ms(fn, name: str, reps: int = 10, cold: bool = False):
+    """Mean device time per fn() call of the port's kernels whose name holds
+    ``name``, from a torch.profiler trace (compare_kernels.kernel_ms;
+    ``cold``: the L2 flushed before each call); None if the trace holds no
+    such device time."""
+    from metagenome_vector_sketches_tpu_torch.compare_kernels import (
+        kernel_ms as traced)
+    return traced(fn, name, reps, cold)
+
+
+def cold_ms(fn, reps: int = 10) -> float:
+    """Mean time of one fn() call from an idle device with a cold L2
+    (compare_kernels.cold_ms)."""
+    from metagenome_vector_sketches_tpu_torch.compare_kernels import (
+        cold_ms as cold)
+    return cold(fn, reps)
+
+
+def issue_rate() -> float:
+    """Lane-instructions per second the card can issue: 4 schedulers x 32
+    lanes x SMs x the SM clock nvidia-smi reads as clocks.max.sm (MHz)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages() if "gemm_kernel" in e.key)
-    return us / reps / 1e3 if us else None
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 4 * 32 * sms * mhz * 1e6
+
+
+def alone_str(ms) -> str:
+    return f"{ms:.4f} ms" if ms is not None else "not measured"
 
 
 def rows_of(rc, n):
@@ -380,7 +405,9 @@ def phase_kernels(errs):
         extra = torch.from_numpy(rng.integers(0, N, size=(4096, 2))
                                  .astype(np.int32)).cuda()
         cand = torch.cat([rc_k[:n], extra]).contiguous()
-        xk = pw.pair_partials(planes, cand, L)
+        flag = pw.range_flag("cuda")
+        xk = pw.pair_partials(planes, cand, L, flag=flag)
+        pw.check_range_flag(flag)
         xp = pw.pair_partials_plain(planes, cand, L)
         err = int((xk.long() - xp.long()).abs().max())
         check(err == 0, f"X differs from plain by {err} (L={L})")
@@ -431,11 +458,117 @@ def phase_kernels(errs):
 # phase 2: the main path at production size
 # ---------------------------------------------------------------------------
 
+def sketch_split(hashes, out, run_db):
+    """io/ingest.py::sketch's steps (and ops/projection.py::project_many's
+    batching), copied with host timers around each: -> {step: seconds}.
+    The copy's db folder must equal the run's (``run_db``)."""
+    import filecmp
+    import torch
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        parse_hashes_file)
+    from metagenome_vector_sketches_tpu_torch.ops import projection as pj
+    t = dict.fromkeys(("parse", "batch assembly", "H2D", "projection",
+                       "D2H", "db write"), 0.0)
+
+    def lap(step, t0):
+        t[step] += time.perf_counter() - t0
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    named = parse_hashes_file(hashes)
+    t0 = lap("parse", t0)
+    arrays = [pj._as_u64_array(h) for _, h in named]
+    sizes = np.array([len(a) for a in arrays], dtype=np.int64)
+    vectors = np.empty((len(arrays), D), dtype=np.int32)
+    s = 0
+    while s < len(arrays):
+        t0 = time.perf_counter()
+        e, tot = s + 1, int(sizes[s])
+        while e < len(arrays) and e - s < pj.BATCH_SETS \
+                and tot + sizes[e] <= pj.BATCH_HASHES:
+            tot += int(sizes[e])
+            e += 1
+        flat = np.concatenate(arrays[s:e])
+        offsets = np.zeros(e - s + 1, dtype=np.int64)
+        np.cumsum(sizes[s:e], out=offsets[1:])
+        t0 = lap("batch assembly", t0)
+        h = torch.from_numpy(flat.view(np.int64)).cuda()
+        torch.cuda.synchronize()
+        t0 = lap("H2D", t0)
+        v = pj.project_batch(h, offsets, D, "cuda")
+        torch.cuda.synchronize()
+        t0 = lap("projection", t0)
+        vectors[s:e] = v.cpu().numpy()
+        lap("D2H", t0)
+        s = e
+    t0 = time.perf_counter()
+    DbFolder.write(out, [n for n, _ in named], vectors, D)
+    lap("db write", t0)
+    for f in os.listdir(out):
+        check(filecmp.cmp(os.path.join(run_db, f), os.path.join(out, f),
+                          shallow=False), f"sketch split: {f} differs")
+    return t
+
+
+def _time_projection(flat, sizes, what):
+    """Kernel P on one CSR batch (offsets on the host, as project_many
+    passes them): equal to the plain version; -> (timings entry of the
+    wrapper call, kernel-alone ms). Bound: splitmix64's SASS instructions
+    per (hash, block) at the card's issue rate, or the bytes (8 per hash
+    and offset in, 4 d per set out)."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import projection as pj
+    h = torch.from_numpy(flat).cuda()
+    o = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    o_dev = torch.from_numpy(o).cuda()
+    check(torch.equal(pj.project_batch(h, o, D, "cuda"),
+                      pj.project_batch_plain(h, o_dev, D)),
+          f"projection differs from plain at the {what} batch")
+    n_hashes = int(sizes.sum())
+    t = timed(cuda_ms(lambda: pj.project_batch(h, o, D, "cuda")),
+              cuda_ms(lambda: pj.project_batch_plain(h, o_dev, D), reps=3),
+              SPLITMIX_SASS * n_hashes * ((D + 63) // 64), issue_rate(),
+              8 * n_hashes + 8 * len(o) + 4 * len(sizes) * D)
+    return t, kernel_ms(lambda: pj.project_batch(h, o, D, "cuda"),
+                        "project_")
+
+
+def _time_partials(x, rc, L, y=None):
+    """Kernel X on candidate pairs: equal to the plain version, range flag
+    clear; -> (timings entry of the wrapper call, kernel-alone ms), each
+    call from a cold L2 (the rows come from device memory, as on the
+    paths). Bound: its multiply-adds at the non-tensor rate, or the
+    distinct rows' limb bytes in, the pairs in and the partials out."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    flag = pw.range_flag("cuda")
+    check(torch.equal(pw.pair_partials(x, rc, L, y, flag),
+                      pw.pair_partials_plain(x, rc, L, y)),
+          f"partials differ from plain ({len(rc)} pairs)")
+    pw.check_range_flag(flag)
+    d_pad = x.shape[2]
+    if y is None:
+        rows = int(torch.unique(rc).numel())
+    else:
+        rows = int(torch.unique(rc[:, 0]).numel()) \
+            + int(torch.unique(rc[:, 1]).numel())
+    t = timed(cold_ms(lambda: pw.pair_partials(x, rc, L, y, flag)),
+              cold_ms(lambda: pw.pair_partials_plain(x, rc, L, y), reps=3),
+              2 * len(rc) * L * L * d_pad, CORE_PEAK,
+              rows * L * d_pad + 8 * len(rc) + 4 * len(rc) * pm.num_planes(L))
+    alone = kernel_ms(lambda: pw.pair_partials(x, rc, L, y, flag),
+                      "partials_kernel", cold=True)
+    pw.check_range_flag(flag)
+    return t, alone
+
+
 def phase_main(N, work, timings):
     import torch
     from metagenome_vector_sketches_tpu_torch import _build
     from metagenome_vector_sketches_tpu_torch.bench_data import (
-        GROUP, spot_check, synth_hashes_file)
+        GROUP, csr_hashes, skewed_set_sizes, spot_check, synth_hashes_file)
     from metagenome_vector_sketches_tpu_torch.io.hashes import (
         parse_hashes_file)
     from metagenome_vector_sketches_tpu_torch.io.ingest import sketch
@@ -494,23 +627,35 @@ def phase_main(N, work, timings):
         check(launches[k] > 0, f"kernel {k} was not launched by the main "
                                "path")
 
+    # the sketch's split, from a timed copy of its steps (after the counted
+    # run: these launches are not the main path's)
+    split = sketch_split(hashes, os.path.join(work, "db_split"), db_path)
+    say(f"[main] sketch split N={N}: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in split.items())
+        + f" (sum {sum(split.values()):.2f} s of the {t_sketch:.2f} s "
+        "sketch); the copy's db equals the run's")
+
     # kernels against their plain versions at the main path's shapes
-    # (after the counted run: these launches are not the main path's)
-    named = parse_hashes_file(hashes)[:32768]   # project_many's batch
+    named = parse_hashes_file(hashes)[:pj.BATCH_SETS]  # project_many's batch
     sizes = np.array([len(h) for _, h in named])
-    h = torch.from_numpy(np.concatenate([x for _, x in named])
-                         .view(np.int64)).cuda()
-    o = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])
-                         .astype(np.int64)).cuda()
-    got = pj.project_batch(h, o, D, "cuda")
-    check(torch.equal(got, pj.project_batch_plain(h, o, D)),
-          "projection differs from plain at main-path shapes")
-    n_hashes = int(sizes.sum())
-    timings["projection"] = timed(
-        cuda_ms(lambda: pj.project_batch(h, o, D, "cuda")),
-        cuda_ms(lambda: pj.project_batch_plain(h, o, D), reps=3),
-        n_hashes * D, CORE_PEAK,
-        8 * n_hashes + 8 * (len(named) + 1) + 4 * len(named) * D)
+    flat = np.concatenate([x for _, x in named]).view(np.int64)
+    timings["projection"], p_alone = _time_projection(flat, sizes, "main")
+    skew = skewed_set_sizes()
+    sk_flat, _ = csr_hashes(skew, seed=3)
+    t_skew, s_alone = _time_projection(sk_flat, skew, "skewed")
+    t = timings["projection"]
+    per_hash = [x / int(n.sum()) * 1e6 for x, n in ((t["ms"], sizes),
+                                                   (t_skew["ms"], skew))]
+    say(f"[main] P main batch: wrapper {t['ms']:.4f} ms, kernel alone "
+        f"{alone_str(p_alone)}; skewed batch ({len(skew)} sets, "
+        f"{int(skew.sum())} hashes, median {float(np.median(skew))}): wrapper "
+        f"{t_skew['ms']:.4f} ms, kernel alone {alone_str(s_alone)}, plain "
+        f"{t_skew['plain_ms']:.4f} ms, bound {t_skew['bound_ms']:.4f} ms "
+        f"({t_skew['bound_by']}); wrapper ns per hash {per_hash[0]:.3f} main, "
+        f"{per_hash[1]:.3f} skewed ({per_hash[1] / per_hash[0]:.2f}x)")
+    if p_alone and s_alone:
+        say(f"[main] P kernel alone ns per hash: skewed / main "
+            f"{s_alone / int(skew.sum()) / (p_alone / int(sizes.sum())):.2f}x")
 
     tile = 2048
     V = np.fromfile(os.path.join(db_path, "vectors.bin"), dtype=np.int32,
@@ -545,7 +690,8 @@ def phase_main(N, work, timings):
         2 * pairs * D * P, INT8_PEAK,
         planes.numel() + 4 * thr.numel() + 4 * len(coords) + 8 * n)
     alone = kernel_ms(lambda: pw.sweep_extract(planes, thr, planes, thr,
-                                               coords, tile, cap, True, D))
+                                               coords, tile, cap, True, D),
+                      "gemm_kernel")
     # the GEMM core alone, as a yardstick (not a kernel of the port): one
     # torch._int_mm per plane and tile, no combine, threshold or compaction
     blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
@@ -555,17 +701,8 @@ def phase_main(N, work, timings):
                             for p in range(P) for r, c in coords.tolist()])
     self_rc = torch.arange(4 * tile, dtype=torch.int32, device="cuda")
     cand = torch.cat([rc_k[:n], self_rc[:, None].expand(-1, 2)]).contiguous()
-    xk = pw.pair_partials(planes, cand, L)
-    check(torch.equal(xk, pw.pair_partials_plain(planes, cand, L)),
-          "partials differ from plain at main-path shapes")
-    rows_read = int(torch.unique(cand).numel())
-    timings["partials"] = timed(
-        cuda_ms(lambda: pw.pair_partials(planes, cand, L)),
-        cuda_ms(lambda: pw.pair_partials_plain(planes, cand, L), reps=3),
-        2 * len(cand) * L * L * planes.shape[2], CORE_PEAK,
-        rows_read * L * planes.shape[2] + 8 * len(cand)
-        + 4 * len(cand) * pm.num_planes(L))
-    say(f"[main] timed shapes: P {len(named)} sets ({n_hashes} "
+    timings["partials"], x_alone = _time_partials(planes, cand, L)
+    say(f"[main] timed shapes: P {len(named)} sets ({int(sizes.sum())} "
         f"hashes) at d={D}; S {len(coords)} tiles of {tile}^2 "
         f"({pairs} pairs, P={P}, {n} survivors); "
         f"X {len(cand)} pairs at L={L}")
@@ -574,9 +711,11 @@ def phase_main(N, work, timings):
         say(f"[main] {k}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']})")
+    say(f"[main] X wrapper {timings['partials']['ms']:.4f} ms, kernel alone "
+        f"(profiler) {alone_str(x_alone)}")
     rate_line("main", "S APPEND (10 tiles of 2048^2, P=3)", timings["sweep"])
     say(f"[main] S APPEND kernel alone (profiler): "
-        + (f"{alone:.4f} ms" if alone is not None else "not measured")
+        + alone_str(alone)
         + f"; yardstick of the GEMM core alone, not a kernel of the port: "
         f"{P} x {len(coords)} torch._int_mm 2048^3 (one per plane and tile) "
         f"{yard:.4f} ms")
@@ -1023,20 +1162,14 @@ def phase_ann(N, errs, timings):
     yard = cuda_ms(lambda: [torch._int_mm(qp[p], db[p].t())
                             for p in range(P)])
     # the pooled (query, row) pairs that fall in chunk 0
-    _, i_dev, _ = index._pool(qp, ANN_B, index.pool_for(ANN_K))
+    flag = pw.range_flag("cuda")
+    _, i_dev, _ = index._pool(qp, ANN_B, index.pool_for(ANN_K), flag)
+    pw.check_range_flag(flag)
     in0 = (i_dev >= 0) & (i_dev < ANN_CHUNK)
     qrow = torch.arange(ANN_B, device="cuda")[:, None].expand_as(i_dev)
     rc = torch.stack([qrow[in0], i_dev[in0]], 1).to(torch.int32) \
         .contiguous()
-    xk = pw.pair_partials(qp, rc, index.L, index._stack[0])
-    xp = pw.pair_partials_plain(qp, rc, index.L, index._stack[0])
-    err = int((xk.long() - xp.long()).abs().max())
-    check(err == 0, f"two-operand partials differ from plain by {err}")
-    errs["partials"] = max(errs["partials"], err)
-    x_ms = (cuda_ms(lambda: pw.pair_partials(qp, rc, index.L,
-                                             index._stack[0])),
-            cuda_ms(lambda: pw.pair_partials_plain(qp, rc, index.L,
-                                                   index._stack[0])))
+    t_x, x_alone = _time_partials(qp, rc, index.L, index._stack[0])
     t = timings["scan"]
     say(f"[ann] scan: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
         f"({qp.shape[1]} x {R} pairs, d={D}, P={P}), bound "
@@ -1045,8 +1178,10 @@ def phase_ann(N, errs, timings):
     say(f"[ann] yardstick of the GEMM core alone, not a kernel of the port: "
         f"{P} x torch._int_mm {qp.shape[1]} x {db.shape[2]} x {R} "
         f"{yard:.4f} ms")
-    say(f"[ann] partials (two operands): kernel {x_ms[0]:.3f} ms, plain "
-        f"{x_ms[1]:.3f} ms ({len(rc)} pooled pairs); exact")
+    say(f"[ann] partials (two operands): wrapper {t_x['ms']:.4f} ms, kernel "
+        f"alone (profiler) {alone_str(x_alone)}, plain {t_x['plain_ms']:.4f} "
+        f"ms, bound {t_x['bound_ms']:.4f} ms ({t_x['bound_by']}) "
+        f"({len(rc)} pooled pairs); exact")
     say(f"[ann] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         " GiB")
     return launches

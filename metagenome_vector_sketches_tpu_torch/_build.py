@@ -47,8 +47,8 @@ _F = ctypes.c_float
 
 # C signatures of the entry points (all return an int cudaError_t)
 _SIGNATURES = {
-    # hashes, offsets, n_sets, d, out, stream
-    "mvs_project": [_P, _P, _I, _I, _P, _P],
+    # hashes, offsets, item_off, n_sets, max_items, chunk, d, out, stream
+    "mvs_project": [_P, _P, _P, _I, _LL, _I, _I, _P, _P],
     # planes_i, planes_j, thr_i, thr_j, P, d, d_pad, stride_i, stride_j,
     # coords, n_tiles, tile_r, tile_c, weights(host), slack_rel, slack_abs,
     # mask_self, diag_offset, append, counts, rc, total, cap, stream
@@ -57,8 +57,9 @@ _SIGNATURES = {
     # q_planes, db_planes, P, d_pad, stride_q, stride_db, rows, cols,
     # inv_n, valid, weights(host), scores, ld, stream
     "mvs_scan": [_P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I, _P, _P, _LL, _P],
-    # xs, x_stride, ys, y_stride, L, d_pad, rc, n, out, stream
-    "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P, _P],
+    # xs, x_stride, ys, y_stride, L, d_pad, nx, ny, rc, n, out, bad, stream
+    "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _LL, _LL, _P, _LL, _P, _P,
+                     _P],
     # a, n, ld, c, ldc, stream
     "mvs_gram": [_P, _I, _I, _P, _LL, _P],
 }

@@ -100,14 +100,16 @@ def gather_rows(qp: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
 
 def _int_scan_pool(q_planes: torch.Tensor, B: int, stack: torch.Tensor,
                    inv_n: torch.Tensor, n_total: int, R: int, pool: int,
-                   L: int):
+                   L: int, flag: torch.Tensor):
     """Whole-index candidate pooling of the first B query rows of q_planes
     ((P, B_pad, d_pad) int8) over the (C, P, R_pad, d_pad) stack.
 
     -> (scores (B, pool_eff) float32 device ranking scores, indices
     (B, pool_eff) int64 global rows (-1 for none), partials (B, pool_eff,
     P) int32 kernel X partials), on the device, in (score desc, index asc)
-    order."""
+    order. Kernel X counts out-of-range pairs into ``flag``
+    (``pw.range_flag``), which the caller reads with
+    ``pw.check_range_flag`` where it next synchronises."""
     C, P, R_pad, _ = stack.shape
     dev = stack.device
     pool_eff = min(pool, C * R)
@@ -125,7 +127,8 @@ def _int_scan_pool(q_planes: torch.Tensor, B: int, stack: torch.Tensor,
         gidx = torch.where(lane < valid, base + lane, n_total)
         keys, sel = torch.topk(rank_keys(score, gidx), kc, dim=1)
         rc = torch.stack([rows, sel.to(torch.int32)], dim=2).reshape(-1, 2)
-        parts = pw.pair_partials(q_planes, rc, L, stack[c]).reshape(B, kc, P)
+        parts = pw.pair_partials(q_planes, rc, L, stack[c], flag) \
+            .reshape(B, kc, P)
         best, pos = merge_topk(best, keys, pool_eff)
         best_p = torch.gather(torch.cat([best_p, parts], dim=1), 1,
                               pos[:, :, None].expand(-1, -1, P))
@@ -315,11 +318,11 @@ class IntExactIndex:
         adaptive levels)."""
         return min(k + max(self.pool_margin, k >> 3), max(1, self.ntotal))
 
-    def _pool(self, qp: torch.Tensor, B: int, pool: int):
+    def _pool(self, qp: torch.Tensor, B: int, pool: int, flag):
         """Device candidate pooling of the first B rows of the query planes
         qp -> (scores, indices, partials), see :func:`_int_scan_pool`."""
         return _int_scan_pool(qp, B, self._stack, self._inv_n, self.ntotal,
-                              self.chunk_rows, pool, self.L)
+                              self.chunk_rows, pool, self.L, flag)
 
     def validate_queries(self, queries: np.ndarray) -> None:
         """Query-range check (search() and the adaptive search's int8
@@ -356,11 +359,13 @@ class IntExactIndex:
         qp = query_planes(Q, self.L, self.device)
         LAST_SEARCH_STAGES["prep_ms"] = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        _, i_dev, p_dev = self._pool(qp, B, pool)
+        flag = pw.range_flag(self.device)
+        _, i_dev, p_dev = self._pool(qp, B, pool, flag)
         LAST_SEARCH_STAGES["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         idx = i_dev.cpu().numpy()                      # (B, pool_eff)
         parts = p_dev.cpu().numpy()                    # (B, pool_eff, P)
+        pw.check_range_flag(flag)
         LAST_SEARCH_STAGES["device_d2h_ms"] = \
             (time.perf_counter() - t0) * 1e3
         LAST_SEARCH_STAGES["d2h_bytes"] = idx.nbytes + parts.nbytes

@@ -31,6 +31,7 @@ import torch
 from .._device import resolve_device
 from ..io.dbfolder import DbFolder
 from ..io.hashes import parse_query_hashes_file
+from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
 from .flat_index import FlatIPIndex, normalize_l2
 
@@ -185,8 +186,9 @@ def adaptive_search(index, queries_f64: np.ndarray, j: float,
         t0 = time.perf_counter()
         sel = torch.from_numpy(qidx).to(dev)
         if int_dev:
+            flag = pw.range_flag(dev)
             s_dev, I_dev, parts_round = index._pool(
-                gather_rows(qp_all, sel), B, k)
+                gather_rows(qp_all, sel), B, k, flag)
             D_dev = s_dev * invq_all[sel][:, None]
         else:
             D_dev, I_dev = index.search_device(q_dev[sel], k)
@@ -196,6 +198,8 @@ def adaptive_search(index, queries_f64: np.ndarray, j: float,
             (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         sig_h = sig.cpu().numpy()        # the round's one mandatory copy
+        if int_dev:
+            pw.check_range_flag(flag)
         any_above = sig_h[0] > 0
         kth = sig_h[1]
         LAST_ADAPTIVE_STAGES["stats_ms"] += (time.perf_counter() - t0) * 1e3

@@ -49,6 +49,37 @@ def synth_hashes_file(path, N, n_groups, n_heavy, seed=7):
             f.write(f"ACC{i:07d}: " + " ".join(map(str, row.tolist())) + "\n")
 
 
+TOY_HASHES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests", "fixtures", "ref_toy",
+    "all_hashes_toy.txt")
+
+
+def skewed_set_sizes(path=TOY_HASHES, seed=5) -> np.ndarray:
+    """Real FracMinHash set sizes: the sizes of the sets of an
+    all_hashes.txt file (default: the reference toy fixture's 61 accessions,
+    3 to 80,772 hashes, median 156), drawn with replacement from a seed
+    until one more would overflow the batch that ``project_many`` sends to
+    kernel P (BATCH_SETS sets, BATCH_HASHES hashes)."""
+    from .ops.projection import BATCH_HASHES, BATCH_SETS
+    with open(path) as f:
+        base = np.array([len(ln.split(":", 1)[1].split()) for ln in f
+                         if ":" in ln], dtype=np.int64)
+    draw = np.random.default_rng(seed).choice(base, size=BATCH_SETS)
+    n = int(np.searchsorted(np.cumsum(draw), BATCH_HASHES, side="right"))
+    return draw[:max(1, n)]
+
+
+def csr_hashes(sizes, seed=1):
+    """Random uint64 hashes (full range) for sets of the given sizes ->
+    (flat int64 bit patterns, int64 offsets), numpy."""
+    sizes = np.asarray(sizes, dtype=np.int64)
+    flat = np.random.default_rng(seed).integers(
+        0, 2**64, size=int(sizes.sum()), dtype=np.uint64)
+    offsets = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    return flat.view(np.int64), offsets
+
+
 def spot_check(db_path, matrix_path, N, d, n_rows=3, seed=1) -> bool:
     """Sampled-row parity of a one-shard matrix folder against the exact
     float64/int64 oracle computed from the on-disk vectors."""

@@ -1,22 +1,52 @@
-"""Time several builds of ``csrc/sweep.cu`` (kernels S and G) in turns on
-one GPU, each checked against the plain PyTorch versions first.
+"""Time several builds of the port's kernel sources in turns on one GPU,
+each checked against the plain PyTorch versions first.
 
     python -m metagenome_vector_sketches_tpu_torch.compare_kernels \\
         old=path/to/old_sweep.cu new=metagenome_vector_sketches_tpu_torch/csrc/sweep.cu
+    python -m metagenome_vector_sketches_tpu_torch.compare_kernels \\
+        --projection old=build/parent/projection.cu \\
+                     new=metagenome_vector_sketches_tpu_torch/csrc/projection.cu \\
+        --partials old=build/parent/partials.cu \\
+                   new=metagenome_vector_sketches_tpu_torch/csrc/partials.cu
 
-Every source must export the C entry points of ``_build._SIGNATURES``
-that it has (``mvs_sweep``, ``mvs_scan``, ``mvs_gram``); each is compiled
-on its own (nvcc, sm_90a, the port's flags) and swapped in as the port's
-kernel library. Timed at the shapes ``chip_smoke.py`` uses: S APPEND and
-COUNT on 10 tiles of 2048^2 at P = 3, S SCORE on 256 x 262,144 at P = 3,
-G on one 8,192 x 16,384 incidence chunk; CUDA events over 20 calls, the
-builds in the order given, then reversed, twice; medians printed.
+Each source is compiled on its own (nvcc, sm_90a, the port's flags,
+``-Xptxas -v``) and swapped in as the port's kernel library; ``--sass
+DIR`` also writes each build's ``cuobjdump -sass`` text into DIR.
+
+- ``sweep.cu`` builds (positional): kernels S and G at the shapes
+  ``chip_smoke.py`` uses: S APPEND and COUNT on 10 tiles of 2048^2 at
+  P = 3, S SCORE on 256 x 262,144 at P = 3, G on one 8,192 x 16,384
+  incidence chunk.
+- ``projection.cu`` builds: kernel P at the main path's batch (32,768 sets
+  x 256 hashes, d = 2048) and at a skewed batch (the toy fixture's real
+  set sizes, 3 to 80,772 hashes, drawn from a seed to fill one
+  ``project_many`` batch: ``bench_data.skewed_set_sizes``), at each
+  work-item size of ``--chunks`` (the first cut, which has no items, once).
+- ``partials.cu`` builds: kernel X at the main path's shape (20,762 random
+  pairs plus the 8,192 self-pairs of 4 x 2048 rows, L = 2) and the ANN
+  path's (256 queries x 114 pooled rows of a 262,144-row chunk, two
+  operands, L = 2).
+
+P and X are timed as the wrapper call and as the kernel alone (its
+device time in a torch.profiler trace). P's wrapper time is CUDA events
+over 20 calls back to back. X reads rows that a timed loop would leave in
+the L2, so each X call starts from an idle device with a cold L2
+(:func:`cold_ms`; the profiler's loop flushes the same way). A
+``projection.cu`` or
+``partials.cu`` source is called through the interface its entry point
+declares: the first cut's (``mvs_project`` with 6 parameters,
+``mvs_partials`` with 10; its wrapper's synchronising range check
+included) or the current one (the port's wrappers). The builds run in the
+order given, then reversed, twice; every turn's time and the medians are
+printed with the card's name.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -26,31 +56,62 @@ import numpy as np
 import torch
 
 from . import _build
+from .bench_data import BASE_HASHES, csr_hashes, skewed_set_sizes
 from .ops import minhash as mh
 from .ops import pairwise as pw
 from .ops import pairwise_math as pm
+from .ops import projection as pj
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# where --sass writes each build's cuobjdump -sass text (None: not at all)
+_SASS_DIR = None
+# the first cut's entry points (the earlier csrc/projection.cu and
+# csrc/partials.cu, before work items and the range flag)
+FIRST_CUT = {"mvs_project": [_P, _P, _I, _I, _P, _P],
+             "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P, _P]}
+
+
+def _n_params(src: str, fn: str) -> int:
+    with open(src) as f:
+        m = re.search(rf"MVS_EXPORT\s+int\s+{fn}\s*\(([^)]*)\)", f.read())
+    if m is None:
+        raise ValueError(f"{src} does not declare {fn}")
+    return len(m.group(1).split(","))
 
 
 def _load(name: str, src: str, out_dir: str) -> ctypes.CDLL:
-    out = os.path.join(out_dir, f"lib_{name}.so")
+    out = os.path.join(out_dir, f"lib_{name}_{os.path.basename(src)}.so")
     t0 = time.perf_counter()
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
                         _build.CSRC_DIR, "-Xptxas", "-v", "-shared", "-o",
                         out, src], capture_output=True, text=True)
-    print(f"[{name}] nvcc rc={r.returncode} in "
+    print(f"[{name}] {os.path.basename(src)}: nvcc rc={r.returncode} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for ln in r.stderr.splitlines():
-        if any(k in ln for k in ("error", "warning", "Used", "spill")):
+        if any(k in ln for k in ("error", "warning", "Used", "spill",
+                                 "Compiling")):
             print(f"[{name}]   {ln.strip()}")
     if r.returncode:
         raise RuntimeError(f"{src} does not build")
+    if _SASS_DIR:
+        dump = subprocess.run(
+            [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+             "-sass", out], capture_output=True, text=True, check=True).stdout
+        path = os.path.join(_SASS_DIR, f"{name}_{os.path.basename(src)}.sass")
+        with open(path, "w") as f:
+            f.write(dump)
+        print(f"[{name}] SASS in {path}")
     lib = ctypes.CDLL(out)
     for fn, argtypes in _build._SIGNATURES.items():
         if hasattr(lib, fn):
-            getattr(lib, fn).argtypes = argtypes
+            first = fn in FIRST_CUT and \
+                _n_params(src, fn) == len(FIRST_CUT[fn])
+            getattr(lib, fn).argtypes = FIRST_CUT[fn] if first else argtypes
             getattr(lib, fn).restype = ctypes.c_int
-    lib.mvs_error_string.argtypes = [ctypes.c_int]
-    lib.mvs_error_string.restype = ctypes.c_char_p
+            setattr(lib, f"{fn}_first_cut", first)
+    if hasattr(lib, "mvs_error_string"):
+        lib.mvs_error_string.argtypes = [ctypes.c_int]
+        lib.mvs_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -67,17 +128,214 @@ def _ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main(argv=None) -> int:
-    builds = [a.split("=", 1) for a in (argv or sys.argv[1:])]
-    if not builds or any(len(b) != 2 for b in builds):
-        print(__doc__, file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("compare_kernels: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    out_dir = tempfile.mkdtemp(prefix="compare_kernels_")
-    libs = {name: _load(name, src, out_dir) for name, src in builds}
+# written before each cold call: five times the H100's 50 MB L2
+L2_FLUSH_BYTES = 1 << 28
 
+
+def l2_flush():
+    """-> a function that writes a 256 MiB device buffer, evicting what the
+    L2 held."""
+    buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    return lambda: buf.fill_(0)
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Mean time of one fn() call from an idle device with a cold L2: before
+    each call the L2 is flushed and the device synchronised, then CUDA
+    events bracket the call alone (its host work up to the launch
+    included)."""
+    flush = l2_flush()
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush()
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def kernel_ms(fn, name: str, reps: int = 10, cold: bool = False):
+    """Mean device time per fn() call of the kernels whose name holds
+    ``name``, from a torch.profiler trace (the kernel alone, without the
+    wrapper's host work or its other launches); ``cold``: the L2 is flushed
+    before each call. None if the trace holds no such device time."""
+    from torch.profiler import ProfilerActivity, profile
+    if cold:
+        flush, call = l2_flush(), fn
+        def fn():
+            flush()
+            call()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages() if name in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: launch failed with error {rc}")
+
+
+def project(lib, h: torch.Tensor, o_host: torch.Tensor, d: int,
+            chunk: int = pj.CHUNK):
+    """Kernel P of ``lib`` through its interface's wrapper; offsets on the
+    host, as project_many passes them. ``chunk``: the work-item size of the
+    current interface (None for the first cut's, which has no items)."""
+    if not lib.mvs_project_first_cut:
+        _build._lib = lib
+        pj.CHUNK = chunk
+        return pj.project_batch(h, o_host, d, h.device)
+    o = o_host.to(h.device)
+    out = torch.empty(o.numel() - 1, d, dtype=torch.int32, device=h.device)
+    _check(lib, lib.mvs_project(h.data_ptr(), o.data_ptr(), o.numel() - 1,
+                                d, out.data_ptr(),
+                                _build.launch_stream(h.device)),
+           "projection kernel")
+    return out
+
+
+def partials(lib, planes, rc, L, planes_j=None):
+    """Kernel X of ``lib`` through its interface's wrapper (the first
+    cut's range check reads rc's extremes to the host)."""
+    planes_j = planes if planes_j is None else planes_j
+    if not lib.mvs_partials_first_cut:
+        _build._lib = lib
+        flag = pw.range_flag(planes.device)
+        return pw.pair_partials(planes, rc, L, planes_j, flag), flag
+    ni, nj, d_pad = planes.shape[1], planes_j.shape[1], planes.shape[2]
+    n = rc.shape[0]
+    out = torch.empty((n, pm.num_planes(L)), dtype=torch.int32,
+                      device=planes.device)
+    lo_r, hi_r, lo_c, hi_c = torch.stack(
+        [*torch.aminmax(rc[:, 0]), *torch.aminmax(rc[:, 1])]).tolist()
+    if min(lo_r, lo_c) < 0 or hi_r >= ni or hi_c >= nj:
+        raise ValueError("candidate rows/columns out of range")
+    _check(lib, lib.mvs_partials(planes.data_ptr(), ni * d_pad,
+                                 planes_j.data_ptr(), nj * d_pad, L, d_pad,
+                                 rc.data_ptr(), n, out.data_ptr(),
+                                 _build.launch_stream(planes.device)),
+           "partials kernel")
+    return out, None
+
+
+def _turns(libs, order, cases):
+    """cases: {label: fn(lib)}; -> {name: {label: [ms per turn]}}."""
+    runs = {name: {k: [] for k in cases} for name in libs}
+    for name in (order + order[::-1]) * 2:
+        for label, fn in cases.items():
+            runs[name][label].append(fn(libs[name]))
+    return runs
+
+
+def _report(runs, tag):
+    card = torch.cuda.get_device_name(0)
+    for name, r in runs.items():
+        for k, v in r.items():
+            vals = [x for x in v if x is not None]
+            print(f"[{tag}:{name}] {card}: {k} ms "
+                  f"{[round(x, 4) for x in vals]} median "
+                  + (f"{np.median(vals):.4f}" if vals else "not measured"),
+                  flush=True)
+
+
+def compare_projection(builds, out_dir, chunks) -> int:
+    libs = {name: _load(name, src, out_dir) for name, src in builds}
+    shapes = {}
+    for label, sizes in (("main", np.full(32768, BASE_HASHES)),
+                         ("skewed", skewed_set_sizes())):
+        flat, offsets = csr_hashes(sizes, seed=3)
+        shapes[label] = (torch.from_numpy(flat).cuda(),
+                         torch.from_numpy(offsets))
+        print(f"[P] {label}: {len(sizes)} sets, {len(flat)} hashes, sizes "
+              f"{int(sizes.min())}..{int(sizes.max())} (median "
+              f"{float(np.median(sizes))}), d = 2048", flush=True)
+    # (name, chunk): the first cut once, the current interface per chunk
+    variants = [(name, None) if lib.mvs_project_first_cut else (name, c)
+                for name, lib in libs.items()
+                for c in ([None] if lib.mvs_project_first_cut else chunks)]
+    for label, (h, o) in shapes.items():
+        want = pj.project_batch_plain(h, o.cuda(), 2048)
+        for name, c in variants:
+            ok = torch.equal(project(libs[name], h, o, 2048, c), want)
+            print(f"[P:{name}] {label} chunk {c}: equal to the plain version: "
+                  f"{ok}", flush=True)
+            if not ok:
+                return 3
+        del want
+    cases = {}
+    for label, (h, o) in shapes.items():
+        for c in chunks:
+            def run(lib, h=h, o=o, c=c):
+                return lambda: project(lib, h, o, 2048, c)
+            cases[f"{label} chunk {c} wrapper"] = \
+                lambda lib, run=run, c=c: None if lib.mvs_project_first_cut \
+                and c != chunks[0] else _ms(run(lib))
+            cases[f"{label} chunk {c} kernel alone"] = \
+                lambda lib, run=run, c=c: None if lib.mvs_project_first_cut \
+                and c != chunks[0] else kernel_ms(run(lib), "project_")
+    default = pj.CHUNK
+    try:
+        _report(_turns(libs, [n for n, _ in builds], cases), "P")
+    finally:
+        pj.CHUNK = default
+    return 0
+
+
+def compare_partials(builds, out_dir) -> int:
+    libs = {name: _load(name, src, out_dir) for name, src in builds}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    L, D, R, B, kc = 2, 2048, 262144, 256, 114
+    planes = torch.randint(-128, 128, (3, 4 * 2048, D), generator=g,
+                           device="cuda", dtype=torch.int8)
+    pairs = torch.randint(0, 4 * 2048, (20762, 2), generator=g,
+                          device="cuda", dtype=torch.int32)
+    self_rc = torch.arange(4 * 2048, dtype=torch.int32, device="cuda")
+    main_rc = torch.cat([pairs, self_rc[:, None].expand(-1, 2)]).contiguous()
+    qp = torch.randint(-128, 128, (3, B, D), generator=g, device="cuda",
+                       dtype=torch.int8)
+    db = torch.randint(-128, 128, (3, R, D), generator=g, device="cuda",
+                       dtype=torch.int8)
+    rows = torch.arange(B, dtype=torch.int32, device="cuda")[:, None] \
+        .expand(B, kc)
+    cols = torch.randint(0, R, (B, kc), generator=g, device="cuda",
+                         dtype=torch.int32)
+    ann_rc = torch.stack([rows, cols], 2).reshape(-1, 2).contiguous()
+    shapes = {"main": (planes, main_rc, None), "ann": (qp, ann_rc, db)}
+    for label, (x, rc, y) in shapes.items():
+        want = pw.pair_partials_plain(x, rc, L, y)
+        for name, lib in libs.items():
+            got, flag = partials(lib, x, rc, L, y)
+            ok = torch.equal(got, want) and (flag is None
+                                             or int(flag.item()) == 0)
+            print(f"[X:{name}] {label}: {rc.shape[0]} pairs, equal to the "
+                  f"plain version: {ok}", flush=True)
+            if not ok:
+                return 3
+    cases = {}
+    for label, (x, rc, y) in shapes.items():
+        cases[f"{label} wrapper"] = lambda lib, x=x, rc=rc, y=y: cold_ms(
+            lambda: partials(lib, x, rc, L, y))
+        cases[f"{label} kernel alone"] = \
+            lambda lib, x=x, rc=rc, y=y: kernel_ms(
+                lambda: partials(lib, x, rc, L, y), "partials_kernel",
+                cold=True)
+    _report(_turns(libs, [n for n, _ in builds], cases), "X")
+    return 0
+
+
+def compare_sweep(builds, out_dir) -> int:
+    libs = {name: _load(name, src, out_dir) for name, src in builds}
     g = torch.Generator(device="cuda").manual_seed(1)
     D, tile, R = 2048, 2048, 262144
     V = (torch.randn((4 * tile, D), generator=g, device="cuda") * 150) \
@@ -123,23 +381,62 @@ def main(argv=None) -> int:
             return 3
     del want_q, want_g
 
-    runs = {name: {"S": [], "COUNT": [], "SCORE": [], "G": []}
-            for name in libs}
-    order = [name for name, _ in builds]
-    for name in (order + order[::-1]) * 2:
-        _build._lib = libs[name]
-        r = runs[name]
-        r["S"].append(_ms(lambda: pw.sweep_extract(
-            planes, thr, planes, thr, coords, tile, cap, True, D)))
-        r["COUNT"].append(_ms(lambda: pw.launch_sweep(
-            planes, thr, planes, thr, coords, tile, tile, D, False, False)))
-        r["SCORE"].append(_ms(lambda: pw.scan_scores(qp, db, inv, R - 77)))
-        r["G"].append(_ms(lambda: mh.gram_accumulate(C, A)))
-    card = torch.cuda.get_device_name(0)
-    for name, r in runs.items():
-        print(f"[{name}] {card}: " + "  ".join(
-            f"{k} ms {[round(x, 4) for x in v]} median {np.median(v):.4f}"
-            for k, v in r.items()))
+    def use(lib, fn):
+        _build._lib = lib
+        return _ms(fn)
+
+    cases = {
+        "S": lambda lib: use(lib, lambda: pw.sweep_extract(
+            planes, thr, planes, thr, coords, tile, cap, True, D)),
+        "COUNT": lambda lib: use(lib, lambda: pw.launch_sweep(
+            planes, thr, planes, thr, coords, tile, tile, D, False, False)),
+        "SCORE": lambda lib: use(lib, lambda: pw.scan_scores(
+            qp, db, inv, R - 77)),
+        "G": lambda lib: use(lib, lambda: mh.gram_accumulate(C, A)),
+    }
+    _report(_turns(libs, [n for n, _ in builds], cases), "S/G")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("sweep", nargs="*", metavar="name=sweep.cu")
+    ap.add_argument("--projection", nargs="+", default=[],
+                    metavar="name=projection.cu")
+    ap.add_argument("--partials", nargs="+", default=[],
+                    metavar="name=partials.cu")
+    ap.add_argument("--chunks", default=str(pj.CHUNK),
+                    help="kernel P work-item sizes to time, comma-separated "
+                         f"(default {pj.CHUNK}; a first-cut build has none)")
+    ap.add_argument("--sass", metavar="DIR",
+                    help="write each build's cuobjdump -sass text into DIR "
+                         "and print its kernels' innermost loops")
+    args = ap.parse_args(argv)
+    global _SASS_DIR
+    _SASS_DIR = args.sass
+    if _SASS_DIR:
+        os.makedirs(_SASS_DIR, exist_ok=True)
+    chunks = [int(c) for c in args.chunks.split(",")]
+    groups = [(compare_sweep, args.sweep),
+              (lambda b, o: compare_projection(b, o, chunks), args.projection),
+              (compare_partials, args.partials)]
+    if not any(b for _, b in groups):
+        ap.error("no builds given")
+    for _, builds in groups:
+        if any("=" not in b for b in builds):
+            ap.error("every build is name=path")
+    if not torch.cuda.is_available():
+        print("compare_kernels: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    out_dir = tempfile.mkdtemp(prefix="compare_kernels_")
+    for fn, builds in groups:
+        if builds:
+            rc = fn([b.split("=", 1) for b in builds], out_dir)
+            if rc:
+                return rc
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -314,10 +314,13 @@ def _make_finalizer(norms_sq, begin_row, end_row, total, d, exact_filter):
 
 def _exact_dots(planes, rc, L, planes_j=None):
     """Kernel X on candidate pairs (rows of planes, rows of planes_j —
-    planes itself when None), ONE device->host copy, and the host's exact
-    combine -> (rows int64, cols int64, dots int64), operand-local."""
-    parts = pw.pair_partials(planes, rc, L, planes_j)
+    planes itself when None), ONE device->host copy (after which kernel
+    X's range flag is read), and the host's exact combine -> (rows int64,
+    cols int64, dots int64), operand-local."""
+    flag = pw.range_flag(planes.device)
+    parts = pw.pair_partials(planes, rc, L, planes_j, flag)
     host = torch.cat([rc, parts], dim=1).cpu().numpy()
+    pw.check_range_flag(flag)
     dots = pm.combine_plane_partials(host[:, 2:].T, L)
     return host[:, 0].astype(np.int64), host[:, 1].astype(np.int64), dots
 

@@ -121,13 +121,14 @@ def retention_mask(approx: torch.Tensor, thr_i: torch.Tensor,
 # Kernel S launcher (both epilogues)
 # ---------------------------------------------------------------------------
 
-def _check_planes(planes: torch.Tensor, name: str) -> None:
+def _check_planes(planes: torch.Tensor, name: str,
+                  align: int = D_ALIGN) -> None:
     if planes.dtype != torch.int8 or planes.ndim != 3 \
             or not planes.is_contiguous():
         raise ValueError(f"{name} must be a contiguous (P, N, d_pad) int8 "
                          "tensor")
-    if planes.shape[2] % D_ALIGN or planes.data_ptr() % 16:
-        raise ValueError(f"{name}: d_pad must be a multiple of {D_ALIGN} and "
+    if planes.shape[2] % align or planes.data_ptr() % 16:
+        raise ValueError(f"{name}: d_pad must be a multiple of {align} and "
                          "the data 16-byte aligned")
 
 
@@ -322,18 +323,47 @@ def pair_partials_plain(planes: torch.Tensor, rc: torch.Tensor, L: int,
     return out
 
 
+def range_flag(device) -> torch.Tensor:
+    """A zeroed (1,) int32 counter on ``device`` into which kernel X counts
+    the candidates outside its operands' rows (:func:`pair_partials`); one
+    flag may serve many launches."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def check_range_flag(flag: torch.Tensor) -> None:
+    """Raise ValueError if kernel X met out-of-range candidates. Reads the
+    flag to the host: call it where the caller synchronises anyway."""
+    bad = int(flag.item())
+    if bad:
+        raise ValueError(f"{bad} candidate pair(s) had rows/columns outside "
+                         "the planes")
+
+
 def pair_partials(planes: torch.Tensor, rc: torch.Tensor, L: int,
-                  planes_j: torch.Tensor | None = None) -> torch.Tensor:
+                  planes_j: torch.Tensor | None = None,
+                  flag: torch.Tensor | None = None) -> torch.Tensor:
     """Exact int32 limb-pair partial dots of candidate pairs rc ((n, 2)
     int32: a row of planes, a row of planes_j — planes itself when
     planes_j is None; the first L planes of each are the limbs)
     -> (n, L(L+1)/2) int32: D_aa for a < L, then D_ab + D_ba for a < b —
-    the order pairwise_math.combine_plane_partials takes (transposed)."""
+    the order pairwise_math.combine_plane_partials takes (transposed).
+
+    Out-of-range candidates raise ValueError: on the CPU here; on CUDA the
+    kernel counts them into ``flag`` (:func:`range_flag`, required) and
+    leaves their output rows unwritten, and :func:`check_range_flag`
+    raises where the caller reads the flag, so the call itself never
+    waits for the device."""
     if planes.device.type == "cpu":
+        nj = (planes if planes_j is None else planes_j).shape[1]
+        r, c = rc[:, 0], rc[:, 1]
+        if rc.shape[0] and bool(((r < 0) | (r >= planes.shape[1]) | (c < 0)
+                                 | (c >= nj)).any()):
+            raise ValueError(f"candidate rows/columns outside [0, "
+                             f"{planes.shape[1]}) x [0, {nj})")
         return pair_partials_plain(planes, rc, L, planes_j)
     planes_j = planes if planes_j is None else planes_j
-    _check_planes(planes, "planes")
-    _check_planes(planes_j, "planes_j")
+    _check_planes(planes, "planes", 16)     # kernel X reads 16-byte steps
+    _check_planes(planes_j, "planes_j", 16)
     P, ni, d_pad = planes.shape
     nj = planes_j.shape[1]
     if planes_j.shape[2] != d_pad or planes_j.device != planes.device:
@@ -344,20 +374,20 @@ def pair_partials(planes: torch.Tensor, rc: torch.Tensor, L: int,
             or not rc.is_contiguous() or rc.device != planes.device:
         raise ValueError("rc must be a contiguous (n, 2) int32 tensor on the "
                          "planes' device")
+    if flag is None or flag.dtype != torch.int32 or flag.numel() != 1 \
+            or flag.device != planes.device:
+        raise ValueError("flag must be a (1,) int32 tensor on the planes' "
+                         "device (range_flag), read with check_range_flag")
     n = rc.shape[0]
     out = torch.empty((n, num_planes(L)), dtype=torch.int32,
                       device=planes.device)
     if n == 0:
         return out
-    lo_r, hi_r, lo_c, hi_c = torch.stack(
-        [*torch.aminmax(rc[:, 0]), *torch.aminmax(rc[:, 1])]).tolist()
-    if min(lo_r, lo_c) < 0 or hi_r >= ni or hi_c >= nj:
-        raise ValueError(f"candidate rows/columns outside [0, {ni}) x "
-                         f"[0, {nj})")
     lib = _build.library()
     err = lib.mvs_partials(planes.data_ptr(), ni * d_pad, planes_j.data_ptr(),
-                           nj * d_pad, L, d_pad, rc.data_ptr(), n,
-                           out.data_ptr(), _build.launch_stream(planes.device))
+                           nj * d_pad, L, d_pad, ni, nj, rc.data_ptr(), n,
+                           out.data_ptr(), flag.data_ptr(),
+                           _build.launch_stream(planes.device))
     _build.check(err, "partials kernel")
     _build.count_launch("partials")
     return out

@@ -53,23 +53,62 @@ def project_batch_plain(hashes: torch.Tensor, offsets: torch.Tensor,
     return out[:, :d].contiguous()
 
 
+# kernel P's work item: at most CHUNK hashes of one set (chosen on an H100:
+# PERF.md). MAX_CHUNK is the kernel's limit (csrc/projection.cu
+# counts up to 4,095 words per lane without a flush)
+MAX_CHUNK = 4095
+CHUNK = 1024
+
+
+def chunk_items(offsets: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """Kernel P's work items: each set of the CSR ``offsets`` is cut into
+    items of at most ``chunk`` hashes, an empty set into one empty item.
+    -> (B + 1,) int64 item offsets: set s owns items item_off[s] ..
+    item_off[s + 1] - 1. Computed on the offsets' device, without
+    synchronising."""
+    counts = offsets[1:] - offsets[:-1]
+    per_set = torch.clamp((counts + chunk - 1) // chunk, min=1)
+    item_off = torch.zeros(offsets.numel(), dtype=torch.int64,
+                           device=offsets.device)
+    torch.cumsum(per_set, 0, out=item_off[1:])
+    return item_off
+
+
+def item_bounds(offsets: torch.Tensor, item_off: torch.Tensor,
+                chunk: int = CHUNK):
+    """Plain version of the kernel's item lookup: -> (set, start, end) int64
+    tensors of every item (hashes[start:end] of set ``set``)."""
+    items = torch.arange(int(item_off[-1]), device=offsets.device)
+    set_ = torch.searchsorted(item_off, items, right=True) - 1
+    start = offsets[set_] + (items - item_off[set_]) * chunk
+    return set_, start, torch.minimum(start + chunk, offsets[set_ + 1])
+
+
 def _project_cuda(hashes: torch.Tensor, offsets: torch.Tensor,
-                  d: int) -> torch.Tensor:
-    for name, t in (("hashes", hashes), ("offsets", offsets)):
-        if t.dtype != torch.int64 or not t.is_contiguous() or t.ndim != 1:
-            raise ValueError(f"{name} must be a contiguous 1-D int64 tensor")
-    if offsets.device != hashes.device:
-        raise ValueError("hashes and offsets must be on the same device")
+                  item_off: torch.Tensor, d: int,
+                  chunk: int) -> torch.Tensor:
+    """Kernel P on the work items ``item_off`` (:func:`chunk_items` of
+    ``offsets`` at ``chunk``)."""
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}]")
+    for name, t in (("hashes", hashes), ("offsets", offsets),
+                    ("item_off", item_off)):
+        if t.dtype != torch.int64 or not t.is_contiguous() or t.ndim != 1 \
+                or t.device != hashes.device:
+            raise ValueError(f"{name} must be a contiguous 1-D int64 tensor "
+                             "on the hashes' device")
     B = offsets.numel() - 1
-    if B >= 2**31 or (B + 1) * d >= 2**62:
-        raise ValueError(f"batch of {B} sets at d={d} is too large")
+    if B >= 2**31 or (B + 1) * d >= 2**62 or item_off.numel() != B + 1:
+        raise ValueError(f"batch of {B} sets at d={d} is too large or its "
+                         "items do not match")
     out = torch.empty(B, d, dtype=torch.int32, device=hashes.device)
     if B == 0 or d == 0:
         return out
     lib = _build.library()
-    rc = lib.mvs_project(hashes.data_ptr(), offsets.data_ptr(), B, d,
-                         out.data_ptr(),
-                         _build.launch_stream(hashes.device))
+    rc = lib.mvs_project(hashes.data_ptr(), offsets.data_ptr(),
+                         item_off.data_ptr(), B,
+                         B + hashes.numel() // chunk, chunk, d,
+                         out.data_ptr(), _build.launch_stream(hashes.device))
     _build.check(rc, "projection kernel")
     _build.count_launch("projection")
     return out
@@ -83,7 +122,7 @@ def project_batch(hashes_flat, offsets, d: int, device) -> torch.Tensor:
     o = torch.as_tensor(offsets, dtype=torch.int64).to(dev).contiguous()
     if dev.type == "cpu":
         return project_batch_plain(h, o, d)
-    return _project_cuda(h, o, d)
+    return _project_cuda(h, o, chunk_items(o, CHUNK), d, CHUNK)
 
 
 # project_many's batch bounds (the device holds a batch's hashes and its

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from metagenome_vector_sketches_tpu_torch.ops import projection as pj  # noqa: E402
+
 pytestmark = pytest.mark.gpu
 
 
@@ -43,17 +45,86 @@ def _state(dev, N=512, d=200, max_abs=3000, seed=0):
     return V, L, planes, thr
 
 
+def _project_both(dev, sizes, d, seed=1, flat=None):
+    """Kernel P (offsets from the host and from the device) and the plain
+    version on the same CSR batch."""
+    rng = np.random.default_rng(seed)
+    sizes = np.asarray(sizes, dtype=np.int64)
+    if flat is None:
+        flat = rng.integers(0, 2**64, size=int(sizes.sum()), dtype=np.uint64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    h = torch.from_numpy(flat.view(np.int64)).to(dev)
+    o = torch.from_numpy(offsets).to(dev)
+    want = pj.project_batch_plain(h, o, d)
+    for off in (offsets, o):
+        # leave garbage in the block the caching allocator hands out next:
+        # every output row must be written (split sets' rows zeroed first)
+        torch.full(want.shape, -7, dtype=torch.int32, device=dev)
+        assert torch.equal(pj.project_batch(h, off, d, dev), want)
+
+
 def test_projection_kernel_matches_plain(cuda):
-    from metagenome_vector_sketches_tpu_torch.ops import projection as pj
-    rng = np.random.default_rng(1)
-    sizes = np.array([0, 1, 31, 32, 33, 1000, 7])
-    flat = rng.integers(0, 2**64, size=int(sizes.sum()), dtype=np.uint64)
-    offsets = np.concatenate([[0], np.cumsum(sizes)])
     for d in (64, 200, 2048):
-        got = pj.project_batch(flat.view(np.int64), offsets, d, cuda)
-        h = torch.from_numpy(flat.view(np.int64)).to(cuda)
-        o = torch.from_numpy(offsets.astype(np.int64)).to(cuda)
-        assert torch.equal(got, pj.project_batch_plain(h, o, d))
+        _project_both(cuda, [0, 1, 31, 32, 33, 1000, 7], d)
+
+
+def test_project_batch_cpu_device_takes_cuda_tensors(cuda):
+    """device="cpu" runs the plain version on CUDA inputs moved over."""
+    sizes = np.array([3, 0, 700])
+    flat = np.random.default_rng(4).integers(0, 2**64, size=int(sizes.sum()),
+                                             dtype=np.uint64)
+    h = torch.from_numpy(flat.view(np.int64))
+    o = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)]))
+    got = pj.project_batch(h.to(cuda), o.to(cuda), 256, "cpu")
+    assert got.device.type == "cpu"
+    assert torch.equal(got, pj.project_batch_plain(h, o, 256))
+
+
+# around the Harley-Seal group (16 words), the lane counter's capacity
+# (MAX_CHUNK = 4,095 = 2^12 - 1 words, reached by an item of that size)
+# and the work item (CHUNK hashes)
+@pytest.mark.parametrize("sizes,chunk", [
+    ([0], pj.CHUNK), ([1], pj.CHUNK), ([15, 16, 17], pj.CHUNK),
+    ([255, 256, 257], pj.CHUNK),
+    ([4095], 4095), ([4096], 4095), ([4097], 4095),
+    ([pj.CHUNK], pj.CHUNK), ([pj.CHUNK + 1], pj.CHUNK),
+    ([3 * pj.CHUNK + 7, 2, 0, pj.CHUNK + 1], pj.CHUNK),
+    ([1 << 20], pj.CHUNK)])
+def test_projection_kernel_set_sizes(cuda, monkeypatch, sizes, chunk):
+    monkeypatch.setattr(pj, "CHUNK", chunk)
+    _project_both(cuda, sizes, 2048)
+
+
+def test_projection_kernel_identical_hashes_fill_the_counter(cuda,
+                                                            monkeypatch):
+    """Every word equal: each lane count reaches the item's full size."""
+    monkeypatch.setattr(pj, "CHUNK", pj.MAX_CHUNK)
+    sizes = [4095, 4096, 8191, 12292]
+    flat = np.full(sum(sizes), 0xDEADBEEF12345678, dtype=np.uint64)
+    _project_both(cuda, sizes, 256, flat=flat)
+
+
+def test_projection_kernel_toy_largest_set(cuda):
+    import pathlib
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        parse_hashes_file)
+    toy = pathlib.Path(__file__).parent / "fixtures" / "ref_toy"
+    named = parse_hashes_file(str(toy / "all_hashes_toy.txt"))
+    sets = sorted((h for _, h in named), key=len)
+    assert len(sets[-1]) == 80772
+    flat = np.concatenate([sets[-1], sets[0], sets[len(sets) // 2]])
+    _project_both(cuda, [len(sets[-1]), len(sets[0]),
+                         len(sets[len(sets) // 2])], 2048,
+                  flat=flat.astype(np.uint64))
+
+
+@pytest.mark.parametrize("d", [1, 63, 64, 100, 256, 2048, 4096])
+def test_projection_kernel_dimensions(cuda, d):
+    _project_both(cuda, [0, 1, 16, 17, 300, 5000, 3], d, seed=d)
+
+
+def test_projection_kernel_fewer_sets_than_sms(cuda):
+    _project_both(cuda, np.arange(1, 60) * 101, 2048)
 
 
 @pytest.mark.parametrize("max_abs", [3000, 30000])
@@ -125,8 +196,62 @@ def test_partials_kernel_matches_plain(cuda):
     for max_abs in (100, 3000, 30000, 2000000):
         _, L, planes, _ = _state(cuda, max_abs=max_abs)
         rc = torch.randint(0, 512, (3000, 2), dtype=torch.int32, device=cuda)
-        assert torch.equal(pw.pair_partials(planes, rc, L),
+        flag = pw.range_flag(cuda)
+        assert torch.equal(pw.pair_partials(planes, rc, L, flag=flag),
                            pw.pair_partials_plain(planes, rc, L))
+        pw.check_range_flag(flag)
+
+
+@pytest.mark.parametrize("d_pad", [16, 64, 2048])
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
+def test_partials_kernel_limbs_and_widths(cuda, L, d_pad):
+    """L = 1..5 limbs at d_pad 16, 64, 2048: one pair, a count that is not a
+    multiple of a CTA's 16 candidates, repeated rows, two operands."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    g = torch.Generator(device=cuda).manual_seed(L * d_pad)
+    P = pm.num_planes(L)
+    x = torch.randint(-128, 128, (P, 40, d_pad), generator=g, device=cuda,
+                      dtype=torch.int8)
+    y = torch.randint(-128, 128, (P, 70, d_pad), generator=g, device=cuda,
+                      dtype=torch.int8)
+    flag = pw.range_flag(cuda)
+    for n in (1, 77, 5000):
+        rc = torch.stack([torch.randint(0, 40, (n,), generator=g, device=cuda),
+                          torch.randint(0, 40, (n,), generator=g,
+                                        device=cuda)], 1).to(torch.int32)
+        rc[n // 2:] = rc[0]                             # repeated rows
+        rc = rc.contiguous()
+        assert torch.equal(pw.pair_partials(x, rc, L, flag=flag),
+                           pw.pair_partials_plain(x, rc, L))
+        rc2 = rc.clone()
+        rc2[:, 1] = (rc2[:, 1] * 7) % 70
+        assert torch.equal(pw.pair_partials(x, rc2, L, y, flag),
+                           pw.pair_partials_plain(x, rc2, L, y))
+    pw.check_range_flag(flag)
+
+
+def test_partials_kernel_range_flag(cuda):
+    """Out-of-range candidates are counted, not computed: ValueError where
+    the flag is read; the next launch in the process still works."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    _, L, planes, _ = _state(cuda, max_abs=3000)
+    good = torch.tensor([[0, 1], [5, 7]], dtype=torch.int32, device=cuda)
+    for bad in ([512, 0], [0, -1], [-3, 2], [0, 512]):
+        flag = pw.range_flag(cuda)
+        rc = torch.cat([good, torch.tensor([bad], dtype=torch.int32,
+                                           device=cuda)]).contiguous()
+        out = pw.pair_partials(planes, rc, L, flag=flag)
+        with pytest.raises(ValueError, match="1 candidate pair"):
+            pw.check_range_flag(flag)
+        assert torch.equal(out[:2], pw.pair_partials_plain(planes, good, L))
+    with pytest.raises(ValueError, match="flag"):
+        pw.pair_partials(planes, good, L)
+    flag = pw.range_flag(cuda)
+    assert torch.equal(pw.pair_partials(planes, good, L, flag=flag),
+                       pw.pair_partials_plain(planes, good, L))
+    pw.check_range_flag(flag)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("max_abs,int16", [(3000, False), (30000, True)])
@@ -205,7 +330,9 @@ def test_two_operand_partials_kernel_matches_plain(cuda):
         rc = torch.stack([torch.randint(0, 37, (3000,), device=cuda),
                           torch.randint(0, 500, (3000,), device=cuda)],
                          1).to(torch.int32).contiguous()
-        got = pw.pair_partials(qp, rc, L, db)
+        flag = pw.range_flag(cuda)
+        got = pw.pair_partials(qp, rc, L, db, flag)
+        pw.check_range_flag(flag)
         assert torch.equal(got, pw.pair_partials_plain(qp, rc, L, db))
         assert got.shape == (3000, pm.num_planes(L))
 

@@ -205,3 +205,49 @@ def test_pair_partials_match_plane_partial_dots(max_abs):
     np.testing.assert_array_equal(
         pm.combine_plane_partials(got.numpy().T, L),
         np.einsum("kd,kd->k", V[r].astype(np.int64), V[c].astype(np.int64)))
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
+def test_pair_partials_limbs_match_plane_partial_dots(L):
+    """L = 1..5 limb planes (any int8): one operand against
+    plane_partial_dots; two operands against plane_partial_dots on the
+    two operands' rows concatenated."""
+    rng = np.random.default_rng(L)
+    P, d_pad = pm.num_planes(L), 64
+    x = rng.integers(-128, 128, size=(P, 40, d_pad), dtype=np.int8)
+    y = rng.integers(-128, 128, size=(P, 70, d_pad), dtype=np.int8)
+    r = rng.integers(0, 40, size=257).astype(np.int32)
+    c = rng.integers(0, 40, size=257).astype(np.int32)
+    r[100:] = r[0]                                      # repeated rows
+    got = pw.pair_partials(torch.from_numpy(x),
+                           torch.from_numpy(np.stack([r, c], 1)), L)
+    want = np.asarray(ref.plane_partial_dots(jnp.asarray(x), jnp.asarray(r),
+                                             jnp.asarray(c), L))
+    np.testing.assert_array_equal(got.numpy().T, want)
+    c2 = rng.integers(0, 70, size=257).astype(np.int32)
+    got2 = pw.pair_partials(torch.from_numpy(x),
+                            torch.from_numpy(np.stack([r, c2], 1)), L,
+                            torch.from_numpy(y))
+    want2 = np.asarray(ref.plane_partial_dots(
+        jnp.asarray(np.concatenate([x, y], axis=1)), jnp.asarray(r),
+        jnp.asarray(c2 + 40), L))
+    np.testing.assert_array_equal(got2.numpy().T, want2)
+
+
+@pytest.mark.parametrize("bad", [[40, 0], [0, -1], [-3, 2], [0, 70]])
+def test_pair_partials_rejects_out_of_range_pairs(bad):
+    """A candidate outside [0, rows of planes) x [0, rows of planes_j)
+    raises ValueError (kernel X counts it into its range flag instead,
+    read where the caller synchronises)."""
+    x = torch.zeros((3, 40, 16), dtype=torch.int8)
+    y = torch.zeros((3, 70, 16), dtype=torch.int8)
+    rc = torch.tensor([[0, 1], bad], dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        pw.pair_partials(x, rc, 2, y)
+    flag = pw.range_flag("cpu")
+    assert torch.equal(pw.pair_partials(x, rc[:1], 2, y, flag),
+                       pw.pair_partials_plain(x, rc[:1], 2, y))
+    pw.check_range_flag(flag)
+    flag += 2
+    with pytest.raises(ValueError, match="2 candidate pair"):
+        pw.check_range_flag(flag)

@@ -106,3 +106,96 @@ def test_db_folder_matches_reference_fixtures(tmp_path, ref_toy_dir, db,
         with open(os.path.join(path, "vector_norms.txt")) as f:
             return {ln.split()[0]: ln.split()[1] for ln in f if ln.strip()}
     assert norm_strings(out.path) == norm_strings(ref.path)
+
+
+def _toy_sets(ref_toy_dir):
+    """The reference toy fixture's 61 real hash sets (3 to 80,772 hashes)."""
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        parse_hashes_file)
+    sets = [h for _, h in parse_hashes_file(
+        str(ref_toy_dir / "all_hashes_toy.txt"))]
+    assert min(map(len, sets)) == 3 and max(map(len, sets)) == 80772
+    return sets
+
+
+# the toy sets by size, so that the JAX batch pads each group to its own
+# largest set (one batch of all 61 would pad to 61 x 80,772 slots)
+@pytest.mark.parametrize("lo,hi", [(0, 300), (300, 5000), (5000, 1 << 20)])
+def test_project_batch_toy_set_sizes_match_jax_and_host(ref_toy_dir, lo, hi):
+    """The fixture's real sets (3 to 80,772 hashes, one CSR batch per size
+    group) at d = 256: equal to project_device_batch and project_host."""
+    d = 256
+    sets = [s for s in _toy_sets(ref_toy_dir) if lo < len(s) <= hi]
+    sizes = np.array([len(s) for s in sets])
+    flat = np.concatenate(sets).astype(np.uint64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    got = pj.project_batch(flat.view(np.int64), offsets, d, "cpu").numpy()
+    arr = np.zeros((len(sets), int(sizes.max())), dtype=np.uint64)
+    for i, s in enumerate(sets):
+        arr[i, :len(s)] = s
+    hi32, lo32 = split_u64(arr)
+    want = np.asarray(project_device_batch(
+        jnp.asarray(hi32), jnp.asarray(lo32),
+        jnp.asarray(sizes.astype(np.int32)), d))
+    np.testing.assert_array_equal(got, want)
+    for i, s in enumerate(sets):
+        np.testing.assert_array_equal(got[i], project_host(s, d))
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 156, 4095])
+def test_chunk_items_cover_every_hash_once(ref_toy_dir, chunk):
+    """Kernel P's work items on the toy sizes plus empty sets: each item is
+    1..chunk hashes of one set (an empty set one empty item), the items of
+    a set tile it in order, and the kernel's grid bound B + H // chunk
+    holds."""
+    sizes = np.array([0] + [len(s) for s in _toy_sets(ref_toy_dir)] + [0, 0])
+    offsets = torch.from_numpy(
+        np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64))
+    item_off = pj.chunk_items(offsets, chunk)
+    assert item_off.dtype == torch.int64 and int(item_off[0]) == 0
+    per_set = np.diff(item_off.numpy())
+    np.testing.assert_array_equal(
+        per_set, np.maximum(1, -(-sizes // chunk)))
+    assert int(item_off[-1]) <= len(sizes) + int(sizes.sum()) // chunk
+    set_, start, end = (t.numpy() for t in pj.item_bounds(offsets, item_off,
+                                                          chunk))
+    assert len(set_) == int(item_off[-1])
+    np.testing.assert_array_equal(np.bincount(set_, minlength=len(sizes)),
+                                  per_set)
+    n = end - start
+    assert ((n >= 1) & (n <= chunk) | (sizes[set_] == 0) & (n == 0)).all()
+    # in order and back to back: every hash of every set exactly once
+    assert (start == np.concatenate([[0], end[:-1]])).all()
+    assert end[-1] == sizes.sum()
+    o = offsets.numpy()
+    assert ((start >= o[set_]) & (end <= o[set_ + 1])).all()
+
+
+def test_skewed_set_sizes_fill_one_project_many_batch(ref_toy_dir):
+    """The skewed timing batch: real toy set sizes, seeded, as many as one
+    project_many batch takes."""
+    from metagenome_vector_sketches_tpu_torch.bench_data import (
+        skewed_set_sizes)
+    base = sorted(len(s) for s in _toy_sets(ref_toy_dir))
+    sizes = skewed_set_sizes()
+    assert set(sizes.tolist()) <= set(base)
+    assert len(sizes) <= pj.BATCH_SETS and sizes.sum() <= pj.BATCH_HASHES
+    assert sizes.sum() > pj.BATCH_HASHES - base[-1]
+    assert np.median(sizes) == np.median(base)
+    np.testing.assert_array_equal(sizes, skewed_set_sizes())
+
+
+def test_project_batch_chunk_is_cuda_only(monkeypatch):
+    """The work-item size is kernel P's: the CPU's plain version ignores
+    it, and the kernel's wrapper refuses a size outside [1, MAX_CHUNK]
+    (the kernel's counters)."""
+    sets = _sets(3, [5000, 0, 17])
+    flat = torch.from_numpy(np.concatenate(sets).view(np.int64))
+    offsets = torch.tensor([0, 5000, 5000, 5017], dtype=torch.int64)
+    want = pj.project_batch(flat, offsets, 128, "cpu")
+    monkeypatch.setattr(pj, "CHUNK", 7)
+    assert torch.equal(pj.project_batch(flat, offsets, 128, "cpu"), want)
+    for bad in (0, pj.MAX_CHUNK + 1):
+        with pytest.raises(ValueError, match="chunk"):
+            pj._project_cuda(flat, offsets, pj.chunk_items(offsets, 7), 128,
+                             bad)
