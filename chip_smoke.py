@@ -51,7 +51,18 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    (a universe of ~2.1M hashes): the shard equal to an exact sparse
    oracle, every planted pair and self-pair present, kernel G against its
    plain version, its bound and torch._int_mm(A, A.t()) at the path's
-   chunk shape, the stage walls.
+   chunk shape, the stage walls;
+7. tools (after phase 3, on its int32 db and shards): read_pc_mat
+   --query_file and the port's read_pc_mat_module (query, query_sliced)
+   against the exact oracle and query_pc_mat's top-5 files; the decoded
+   triples through the legacy format A and query_ava_matrix (also
+   zstd-compressed where a zstd back end loads) and export_npz; the toy
+   fixture sketched with --device device (vectors.bin byte-equal) and its
+   shard, inside device_trace, equal to compute_pairwise_oracle, the trace
+   naming gemm_kernel and partials_kernel; the residency cache: shards 0
+   and 1 of 2 of phase 2's db in one process, the second's stage_ms under
+   5% of the first's, byte-equal to shard 1 staged after
+   clear_device_cache().
 
 Each path's kernels must be launched in that path's counted run (counts
 set to 0 just before it, read just after). At the end no module of jax or
@@ -719,6 +730,9 @@ def phase_main(N, work, timings):
         + f"; yardstick of the GEMM core alone, not a kernel of the port: "
         f"{P} x {len(coords)} torch._int_mm 2048^3 (one per plane and tile) "
         f"{yard:.4f} ms")
+    # the shard's planes stay in the residency slot: free them for the
+    # phases that follow
+    mc.clear_device_cache()
     return launches
 
 
@@ -989,6 +1003,256 @@ def phase_cli(work):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the query, legacy and analysis tools, the toy fixture's
+# conformance, the residency cache and the device trace
+# ---------------------------------------------------------------------------
+
+TOOLS_KERNELS = ("projection", "sweep", "partials")
+
+
+def _stdout_of(main, argv):
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    check(rc == 0, f"{main.__module__} {' '.join(argv[:2])} exit code {rc}")
+    return buf.getvalue().splitlines()
+
+
+def _tools_queries(work, want, names, N):
+    """read_pc_mat and the port's read_pc_mat_module on phase 3's card-made
+    int32 db and its two shards: every neighbour and Jaccard equals the
+    exact oracle and phase 3's query_pc_mat top-5 files."""
+    from metagenome_vector_sketches_tpu_torch import read_pc_mat_module as rpc
+    from metagenome_vector_sketches_tpu_torch.cli import read_pc_mat
+    db_path = os.path.join(work, "cli_db_int32")
+    mat = os.path.join(work, "cli_mat_int32")
+    qrows = list(range(0, 64, 3))
+    rows, cols = list(range(0, 40, 2)), list(range(64))
+    files = {}
+    for fname, ids in (("q", qrows), ("rows", rows), ("cols", cols)):
+        files[fname] = os.path.join(work, f"tools_{fname}.txt")
+        with open(files[fname], "w") as f:
+            f.write("\n".join(names[i] for i in ids) + "\n")
+
+    def oracle_row(i):
+        nb = sorted(((c, q) for (r, c), q in want.items() if r == i),
+                    key=lambda t: (-t[1], t[0]))
+        return ([names[c] for c, _ in nb],
+                np.array([np.float32(q / 255.0) for _, q in nb],
+                         dtype=np.float32))
+
+    res = rpc.query(mat, db_path, files["q"])
+    check(len(res) == len(qrows), "read_pc_mat_module.query: result count")
+    expect = []
+    for i, r in zip(qrows, res):
+        ids, jac = oracle_row(i)
+        check(r["id"] == names[i] and list(r["neighbor_ids"]) == ids
+              and np.array_equal(r["jaccard_similarities"], jac),
+              f"read_pc_mat_module.query of {names[i]} differs from oracle")
+        with open(os.path.join(work, f"{names[i]}_top_int32.csv")) as f:
+            top = f.read().splitlines()[1:]
+        check(top == [f"{a},{float(x):.6g}" for a, x in zip(ids[:5], jac)],
+              f"query_pc_mat's top-5 of {names[i]} differs from "
+              "read_pc_mat_module.query")
+        n = min(10, len(ids))
+        expect += [f"Query {names[i]}: #Neighbors = {len(ids)}",
+                   f"Top {n} neighbors:",
+                   f"Neighbor IDs: {np.array(ids)[:n]}",
+                   f"Jaccard Similarities: {jac[:n]}", ""]
+    out = _stdout_of(read_pc_mat.main, ["--matrix", mat, "--db", db_path,
+                                        "--query_file", files["q"]])
+    check(out[0].startswith("Processing query_file")
+          and out[1].startswith("Query completed in") and out[2] == ""
+          and "\n".join(out[3:]) == "\n".join(expect),
+          "read_pc_mat --query_file differs from the exact oracle")
+    sl = rpc.query_sliced(mat, db_path, files["rows"], files["cols"])
+    check(sl["row-list"] == [names[i] for i in rows]
+          and sl["col-list"] == [names[j] for j in cols],
+          "read_pc_mat_module.query_sliced: row and column ids")
+    for i in rows:
+        check(sl["jac-dict"][names[i]] == [
+            float(np.float32(want.get((i, j), 0) / 255.0)) for j in cols],
+            f"read_pc_mat_module.query_sliced row {names[i]} differs from "
+            "oracle")
+    say(f"[tools] read_pc_mat --query_file and read_pc_mat_module.query "
+        f"({len(qrows)} queries) and query_sliced ({len(rows)} x "
+        f"{len(cols)}) equal the exact oracle and query_pc_mat's top-5")
+    return qrows
+
+
+def _tools_legacy(work, want, names, qrows, N):
+    """The card-made shards' decoded triples through the legacy format A
+    (quantised Jaccards as the values, dimension 1) and query_ava_matrix,
+    plain and zstd-compressed; export_npz of the shards."""
+    from metagenome_vector_sketches_tpu_torch.analysis.export import (
+        export_npz)
+    from metagenome_vector_sketches_tpu_torch.cli import query_ava_matrix
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import legacy
+    from metagenome_vector_sketches_tpu_torch.matrix.reader import (
+        MatrixReader)
+    from metagenome_vector_sketches_tpu_torch.utils import zstdio
+    db_path = os.path.join(work, "cli_db_int32")
+    mat = os.path.join(work, "cli_mat_int32")
+    r, c, q = MatrixReader(mat).decode_all_triples(N)
+    npz = np.load(export_npz(mat, N, os.path.join(work, "tools_coo.npz")))
+    check({(int(a), int(b)): int(x) for a, b, x in zip(
+        npz["row"], npz["col"], npz["data"])} == want
+        and len(npz["row"]) == len(r),
+        "export_npz differs from decode_all_triples and the oracle")
+    leg = os.path.join(work, "tools_legacy")
+    legacy.write_legacy_prev(leg, r, c, q, 1)
+    back = legacy.read_legacy_prev(leg)
+    check({(row, int(cc)): int(v) for row, (cs, vs) in back.items()
+           for cc, v in zip(cs, vs)} == want,
+          "legacy format A round trip differs from the oracle")
+    _, norms = DbFolder(db_path).names_and_norms_f32()
+    ids = qrows[:8]
+    expect = [f"Total vectors loaded: {N}"]
+    for i in ids:
+        expect.append(f"Query: {i} ({names[i]})")
+        cs = sorted(cc for rr, cc in want if rr == i)
+        vals = [want[(i, cc)] for cc in cs]
+        na = float(norms[i]) ** 2
+        jac = np.array([v / (na + float(norms[cc]) ** 2 - v)
+                        for cc, v in zip(cs, vals)])
+        for k in np.argsort(-jac, kind="stable")[:5]:
+            expect.append(f"  {cs[k]} ({names[cs[k]]}) intersection="
+                          f"{vals[k]} jaccard={jac[k]:.6g}")
+        expect.append("")
+    argv = ["--matrix", leg, "--db", db_path, "--query_ids",
+            *map(str, ids), "--top", "5"]
+    check(_stdout_of(query_ava_matrix.main, argv) == expect,
+          "query_ava_matrix differs from the exact oracle")
+    zst = "not available: skipped"
+    if zstdio.available():
+        legacy.compress_legacy_folder(leg)
+        check(all(f.endswith(".zst") for f in os.listdir(leg))
+              and _stdout_of(query_ava_matrix.main, argv) == expect,
+              "query_ava_matrix on the .zst folder differs")
+        zst = f"{zstdio._get_backend()[0]}: the .zst folder reads the same"
+    say(f"[tools] export_npz and legacy format A hold the oracle's "
+        f"{len(want)} triples; query_ava_matrix ({len(ids)} queries) equals "
+        f"the exact oracle; zstd {zst}")
+
+
+def _tools_toy(work):
+    """The toy fixture on the card: sketch --device device writes its
+    vectors.bin; one shard, inside device_trace, equals
+    compute_pairwise_oracle, and the trace names kernels S and X."""
+    import filecmp
+    import re
+    from metagenome_vector_sketches_tpu_torch.cli import project_everything
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.matrix.reader import (
+        MatrixReader)
+    from metagenome_vector_sketches_tpu_torch.matrix.writer import (
+        quantize_jaccard)
+    from metagenome_vector_sketches_tpu_torch.utils.profiling import (
+        device_trace)
+    toy = os.path.join(ROOT, "tests", "fixtures", "ref_toy")
+    toy_db = os.path.join(toy, "toy_db_256")
+    out_db = os.path.join(work, "tools_toy_db")
+    check(project_everything.main(
+        ["sketch", os.path.join(toy, "all_hashes_toy.txt"), out_db, "-d",
+         "256", "--device", "device"]) == 0, "sketch --device device")
+    check(filecmp.cmp(os.path.join(toy_db, "vectors.bin"),
+                      os.path.join(out_db, "vectors.bin"), shallow=False),
+          "sketch --device device differs from toy_db_256/vectors.bin")
+    trace_dir = os.path.join(work, "tools_trace")
+    mat = os.path.join(work, "tools_toy_mat")
+    with device_trace(trace_dir):
+        mc.compute_pairwise_shard(toy_db, mat, device="cuda", verbose=False)
+    db = DbFolder(toy_db)
+    V = db.load_vectors().astype(np.int32)
+    _, norms = db.names_and_norms()
+    ns = norms * norms
+    r, c, v = mc.compute_pairwise_oracle(V, ns, db.dimension, db.dtype)
+    q = quantize_jaccard(v, r, c, ns, db.dimension)
+    want = set(zip(r.tolist(), c.tolist(), q.tolist()))
+    rr, cc, qq = MatrixReader(mat).decode_all_triples(len(V))
+    check(set(zip(rr.tolist(), cc.tolist(), qq.tolist())) == want,
+          "toy_db_256 shard differs from compute_pairwise_oracle")
+    traces = os.listdir(trace_dir)
+    check(len(traces) == 1, f"device_trace wrote {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e.get("name", "") for e in events
+                      if e.get("cat") == "kernel"})
+    mine = {m.group(0) for k in kernels for m in [re.search(
+        r"(gemm_kernel|partials_kernel|project_\w+)(<[^>]*>)?", k)] if m}
+    say(f"[tools] device_trace kernels of the port: "
+        f"{json.dumps(sorted(mine))}; {len(kernels)} kernel names in all")
+    for name in ("gemm_kernel", "partials_kernel"):
+        check(any(name in k for k in kernels), f"the trace names no {name}")
+    say(f"[tools] toy_db_256: sketch --device device writes its vectors.bin;"
+        f" its shard on the card equals compute_pairwise_oracle ({len(want)} "
+        f"triples); the trace ({os.path.getsize(os.path.join(trace_dir, traces[0]))}"
+        " B) names gemm_kernel and partials_kernel")
+
+
+def _tools_cache(work, N):
+    """Shards 0 and 1 of 2 of phase 2's db in one process: the second
+    re-uses the staged planes; after clear_device_cache a fresh shard 1 is
+    byte-equal."""
+    import filecmp
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    db_path = os.path.join(work, "db")
+    walls, stages = [], []
+    for s in (0, 1):
+        t0 = time.perf_counter()
+        mc.compute_pairwise_shard(db_path, os.path.join(work, "cache_mat"),
+                                  num_shards=2, shard_idx=s, device="cuda",
+                                  verbose=False)
+        walls.append(time.perf_counter() - t0)
+        stages.append(dict(mc.LAST_STAGES))
+    check(all(st["mode"] == "fused" for st in stages),
+          "the cache check's shards must run resident")
+    stage_ms = [st["stage_ms"] for st in stages]
+    say(f"[tools] residency cache N={N}: shard 0 of 2 wall {walls[0]:.3f} s "
+        f"(stage_ms {stage_ms[0]:.3f}), shard 1 of 2 wall {walls[1]:.3f} s "
+        f"(stage_ms {stage_ms[1]:.3f}, {100 * stage_ms[1] / stage_ms[0]:.2f}%"
+        " of the first)")
+    check(stage_ms[1] < 0.05 * stage_ms[0],
+          "the second shard's stage_ms is not under 5% of the first's")
+    mc.clear_device_cache()
+    mc.compute_pairwise_shard(db_path, os.path.join(work, "cache_fresh"),
+                              num_shards=2, shard_idx=1, device="cuda",
+                              verbose=False)
+    for f in SHARD_FILES:
+        check(filecmp.cmp(os.path.join(work, "cache_mat", "shard_1", f),
+                          os.path.join(work, "cache_fresh", "shard_1", f),
+                          shallow=False),
+              f"shard_1/{f} from the slot differs from a fresh staging")
+    say("[tools] shard 1 from the slot is byte-equal to shard 1 after "
+        "clear_device_cache()")
+
+
+def phase_tools(N, work):
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    n_cli = 2048
+    want = _oracle(os.path.join(work, "cli_db_int32"), "int32")
+    names, _ = DbFolder(os.path.join(work, "cli_db_int32")).names_and_norms()
+    _build.reset_launch_counts()
+    qrows = _tools_queries(work, want, names, n_cli)
+    _tools_legacy(work, want, names, qrows, n_cli)
+    _tools_toy(work)
+    _tools_cache(work, N)
+    launches = _build.launch_counts()
+    mc.clear_device_cache()
+    say(f"[tools] launches {launches}")
+    for k in TOOLS_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the tools "
+                               "phase")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: ANN serving at the JAX package's ANN-at-scale size
 # ---------------------------------------------------------------------------
 
@@ -1237,6 +1501,7 @@ def phase_stream(N, work):
     for k in STREAM_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the "
                                "streaming path")
+    mc.clear_device_cache()      # the resident run's planes
     return launches
 
 
@@ -1403,6 +1668,7 @@ def main() -> int:
         paths.append(phase_stream(args.n, work))
         paths.append(phase_minhash(work, errs, timings))
         phase_cli(work)
+        paths.append(phase_tools(args.n, work))
         paths.append(phase_ann(args.ann_n, errs, timings))
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -23,3 +23,15 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
+
+
+def serving_devices(mesh_devices: int, dev: torch.device) -> int:
+    """The devices a --mesh_devices value asks for on dev's type (the JAX
+    package's parallel/mesh.py::serving_mesh convention): 1 is one device,
+    0 every local device (1 on the CPU, torch.cuda.device_count() on CUDA),
+    n > 1 the first n."""
+    if mesh_devices < 0:
+        raise ValueError(f"--mesh_devices must be >= 0, got {mesh_devices}")
+    if mesh_devices:
+        return mesh_devices
+    return torch.cuda.device_count() if dev.type == "cuda" else 1

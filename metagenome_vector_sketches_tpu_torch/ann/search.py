@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, serving_devices
 from ..io.dbfolder import DbFolder
 from ..io.hashes import parse_query_hashes_file
 from ..ops import pairwise as pw
@@ -302,11 +302,13 @@ def search_index(index_folder: str, query_file: str, j: float,
     | 'int8' (int8-plane exact engine staged from the db folder's integer
     vectors; float64-exact cosines, no faiss.index needed) | 'int8_approx'
     (the same engine in its 'approx' mode, which selects exactly in the
-    port). mesh_devices must be 1: the multi-GPU engine is not ported."""
-    if mesh_devices != 1:
-        raise ValueError(f"mesh_devices={mesh_devices}: only 1 is supported "
-                         "(the multi-GPU serving engine is not yet ported)")
+    port). mesh_devices: 1, or 0 where that resolves to one local device
+    (the CPU, a one-card host); more devices raise, the multi-GPU engine is
+    not ported."""
     dev = resolve_device(device)
+    if serving_devices(mesh_devices, dev) != 1:
+        raise ValueError(f"mesh_devices={mesh_devices}: one device only "
+                         "(the multi-GPU serving engine is not yet ported)")
     db = DbFolder(index_folder)
     d = db.dimension
     sample_names, hash_sets = parse_query_hashes_file(query_file)

@@ -6,7 +6,8 @@ plus --device (default cuda):
   jaccard index <output_index_folder> [-t threads]
   jaccard search <index_folder> <query_file> [-j jaccard] [--engine ...]
   jaccard test <index_folder> <hashes_file> [-n samples] [-j jaccard]
---mesh_devices other than 1 (the multi-GPU serving engine) is refused.
+--mesh_devices 0 means every local device (one on the CPU); a count
+above one (the multi-GPU serving engine) is refused.
 `index` is host work (normalise + write faiss.index); its --device is
 checked like the others'.
 """
@@ -16,7 +17,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .._device import CLI_DEFAULT_DEVICE, resolve_device
+from .._device import CLI_DEFAULT_DEVICE, resolve_device, serving_devices
 
 __version__ = "0.1.0"
 __date__ = "2026-08-16"
@@ -88,11 +89,12 @@ def main(argv=None) -> int:
         return 0
     if not args.command:
         parser.error("the following arguments are required: command")
-    if getattr(args, "mesh_devices", 1) != 1:
-        print("jaccard: --mesh_devices other than 1 (the multi-GPU serving "
-              "engine) is not yet ported", file=sys.stderr)
-        return 2
     device = resolve_device(args.device)
+    if serving_devices(getattr(args, "mesh_devices", 1), device) != 1:
+        print("jaccard: --mesh_devices resolving to more than one device "
+              "(the multi-GPU serving engine) is not yet ported",
+              file=sys.stderr)
+        return 2
     print(f"Version: {__version__}, Date: {__date__}")
     print("Command line:", " ".join(sys.argv))
     if args.command == "index":
@@ -105,13 +107,13 @@ def main(argv=None) -> int:
             folder += "/"
         search_index(folder, args.query_file, args.j,
                      recall_target=args.recall_target, engine=args.engine,
-                     device=device)
+                     mesh_devices=args.mesh_devices, device=device)
     elif args.command == "test":
         from ..ann.validate import validate
         validate(args.index_folder, args.hashes_file,
                  n_samples=args.n_samples, j=args.j, seed=args.seed,
                  plot=False, save_plot=args.save_plot, engine=args.engine,
-                 device=device)
+                 mesh_devices=args.mesh_devices, device=device)
     return 0
 
 

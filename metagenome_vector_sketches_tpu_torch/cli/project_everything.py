@@ -4,7 +4,8 @@ them into db folders (reference CLI: src/project_everything.cpp:364-417).
 Usage:
   project_everything convert <signature_folder> <hash_file> [-t threads]
   project_everything sketch <hash_file> <index_folder> [-t threads]
-                            [-d dimension] [--int16] [--device cuda|cpu]
+                            [-d dimension] [--int16]
+                            [--device cuda|cpu|host|device|auto]
 """
 
 from __future__ import annotations
@@ -32,8 +33,16 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--int16", action="store_true",
                    help="Use int16 instead of int32 for vector storage")
     s.add_argument("--device", default=CLI_DEFAULT_DEVICE,
-                   help="torch device of the projection (default cuda)")
+                   help="torch device of the projection (default cuda); "
+                        "the JAX tool's host, device and auto mean cpu, "
+                        "cuda and cuda")
     return p
+
+
+# the JAX tool's --device choices as torch devices: host is the CPU, device
+# and auto the card (never a silent fall back to the CPU)
+JAX_DEVICE_NAMES = {"host": "cpu", "device": CLI_DEFAULT_DEVICE,
+                    "auto": CLI_DEFAULT_DEVICE}
 
 
 def main(argv=None) -> int:
@@ -45,7 +54,7 @@ def main(argv=None) -> int:
     else:
         ingest.sketch(args.hash_file, args.index_folder,
                       dimension=args.dimension, use_int16=args.int16,
-                      device=args.device)
+                      device=JAX_DEVICE_NAMES.get(args.device, args.device))
     return 0
 
 

@@ -3,6 +3,8 @@ one projected vector per line on stdout, floats space-separated
 (reference: src/standalone_projection.cpp:11-46).
 
 Usage: standalone_projection <hashes_file> <dimension> [--device cuda|cpu]
+
+Missing arguments print the JAX tool's usage line and return 1.
 """
 
 from __future__ import annotations
@@ -17,10 +19,14 @@ from .._device import CLI_DEFAULT_DEVICE
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="standalone_projection")
-    p.add_argument("hashes_file")
-    p.add_argument("dimension", type=int)
+    p.add_argument("hashes_file", nargs="?")
+    p.add_argument("dimension", type=int, nargs="?")
     p.add_argument("--device", default=CLI_DEFAULT_DEVICE)
     args = p.parse_args(argv)
+    if args.dimension is None:
+        print("Usage: standalone_projection <hashes_file> <dimension>",
+              file=sys.stderr)
+        return 1
     lines = []
     with open(args.hashes_file) as f:
         for line in f:

@@ -21,6 +21,11 @@ Port of the JAX package's fused engine
    exact int64 dots, applies the reference's exact retention (int32 or
    int16 semantics) and writes the shard with the shared writer.
 
+The staged planes stay in a one-slot residency cache (JAX ``_RESIDENT``,
+``:273-388``), so the next shard of the same db skips step 1;
+:func:`clear_device_cache` empties it, and a run on another db evicts it
+before anything is measured or staged.
+
 When the planes exceed the device budget, the streaming engine
 (:func:`_compute_streaming`) keeps a group of the shard's row tiles on the
 device and streams windows of column tiles past it (the full rectangle,
@@ -74,6 +79,43 @@ _MAX_DISPATCH_WALLS = 50
 
 # tile edges already reported as rounded (each is logged once a process)
 _ROUNDED_TILES: set = set()
+
+# one-slot device-residency cache (the JAX package's _RESIDENT): a process
+# that writes several shards of one db re-uses its staged planes and
+# thresholds instead of staging them again for every shard. Only the
+# resident engine fills and reads it.
+_RESIDENT: dict = {}
+
+
+def clear_device_cache() -> None:
+    _RESIDENT.clear()
+
+
+def _resident_key(db, total, tile, L, d, max_abs, dev) -> tuple:
+    """The slot's key (the JAX package's): the db files' path, mtimes and
+    sizes, the staging parameters, and the device in place of the mesh."""
+    vec_path = os.path.join(db.path, "vectors.bin")
+    norm_path = os.path.join(db.path, "vector_norms.txt")
+    return (os.path.abspath(vec_path),
+            os.path.getmtime(vec_path), os.path.getsize(vec_path),
+            os.path.getmtime(norm_path), os.path.getsize(norm_path),
+            total, tile, L, d, max_abs, dev)
+
+
+def _keep_only(key) -> int:
+    """Empty the slot unless it holds ``key``; an evicted slot's device
+    memory goes back to the driver, so the budget and the staging see the
+    card without it (two dbs' planes never sit on the card together).
+    -> bytes the kept slot holds (0 when empty)."""
+    if _RESIDENT.get("key") == key:
+        planes, thr = _RESIDENT["value"]
+        return planes.numel() * planes.element_size() + 4 * thr.numel()
+    if _RESIDENT:
+        on_cuda = _RESIDENT["value"][0].is_cuda
+        _RESIDENT.clear()
+        if on_cuda:
+            torch.cuda.empty_cache()
+    return 0
 
 
 def sweep_tile(tile_rows: int, device) -> int:
@@ -208,16 +250,19 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
         return shard_folder
 
     t0 = time.perf_counter()
+    key = _resident_key(db, total, tile, L, d, max_abs, dev)
+    held = _keep_only(key)
     budget = device_budget_bytes
     if budget is None and dev.type == "cuda":
-        budget = int(0.8 * torch.cuda.mem_get_info(dev)[0])
+        # a kept slot's planes count as free: the run re-uses them
+        budget = int(0.8 * (torch.cuda.mem_get_info(dev)[0] + held))
     npad = (total + tile - 1) // tile * tile
     args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
             exact_filter, max_abs, dev)
     if budget is not None and pm.num_planes(L) * npad * d > budget:
         rows, cols, vals = _compute_streaming(*args, budget)
     else:
-        rows, cols, vals = _compute_device_resident(*args)
+        rows, cols, vals = _compute_device_resident(*args, key)
     if verbose:
         dt = (time.perf_counter() - t0) * 1000
         log(f"Total computation time: {dt:.0f} ms ({len(rows)} surviving pairs)")
@@ -268,9 +313,14 @@ def _thresholds(norms_sq, L, max_abs, d):
     return (norms_sq + pm.threshold_adjust(L, max_abs, d)).astype(np.float32)
 
 
-def _stage_database(db, norms_sq, total, tile, L, d, max_abs, dev):
+def _stage_database(db, norms_sq, total, tile, L, d, max_abs, dev, key):
     """-> ((P, Npad, d_pad) int8 planes, (Npad,) float32 thresholds) on
-    dev. Peak device memory is the planes plus one int32 chunk."""
+    dev, from the residency slot when it holds ``key`` (the stale-max check
+    ran when it was filled, and the key holds max_abs and the files'
+    mtimes), else staged and kept in the slot. Peak device memory is the
+    planes plus one int32 chunk."""
+    if _RESIDENT.get("key") == key:
+        return _RESIDENT["value"]
     npad = (total + tile - 1) // tile * tile
     V = _vectors(db, total, d)
     planes = torch.zeros((pm.num_planes(L), npad, pw.pad_dim(d)),
@@ -281,7 +331,10 @@ def _stage_database(db, norms_sq, total, tile, L, d, max_abs, dev):
                      max_abs, db, dev)
     thr = np.full(npad, np.float32(1e30), dtype=np.float32)
     thr[:total] = _thresholds(norms_sq, L, max_abs, d)
-    return planes, torch.from_numpy(thr).to(dev)
+    value = (planes, torch.from_numpy(thr).to(dev))
+    _RESIDENT.clear()
+    _RESIDENT.update(key=key, value=value)
+    return value
 
 
 def _make_finalizer(norms_sq, begin_row, end_row, total, d, exact_filter):
@@ -339,10 +392,10 @@ def _self_pairs(planes, lo, hi, row_base, L, finalize_dots, dev):
 
 
 def _compute_device_resident(db, norms_sq, total, begin_row, end_row, tile,
-                             L, d, exact_filter, max_abs, dev):
+                             L, d, exact_filter, max_abs, dev, key):
     ts = time.perf_counter()
     planes, thr = _stage_database(db, norms_sq, total, tile, L, d, max_abs,
-                                  dev)
+                                  dev, key)
     _sync(dev)
     _acc("stage_ms", ts)
     LAST_STAGES["mode"] = "fused"
@@ -563,6 +616,33 @@ def compute_minhash_shard(hashes_file: str, output_folder: str,
     LAST_STAGES["write_ms"] = (time.perf_counter() - tw) * 1e3
     LAST_STAGES["pairs_written"] = len(r)
     return shard_folder
+
+
+def compute_pairwise_oracle(vectors: np.ndarray, norms_sq: np.ndarray,
+                            dimension: int, dtype: str = "int32",
+                            row_range: tuple[int, int] | None = None):
+    """Brute-force float64/int64 numpy oracle of the reference semantics —
+    used by the conformance tests (the reference pairwise binary cannot be
+    built: its `bits` submodule is unpinned/empty). The JAX package's
+    function, unchanged: int16 dbs keep dot / d > thr, int32 dbs compare
+    the truncating int division."""
+    n = vectors.shape[0]
+    lo, hi = row_range if row_range else (0, n)
+    v = vectors.astype(np.int64)
+    rows, cols, vals = [], [], []
+    for i in range(lo, hi):
+        dots = v[i] @ v.T  # exact int64
+        thr = 0.05 * (norms_sq[i] + norms_sq)
+        if dtype == "int16":
+            keep = dots.astype(np.float64) / dimension > thr
+        else:
+            q = np.where(dots >= 0, dots // dimension, -((-dots) // dimension))
+            keep = q.astype(np.float64) > thr
+        j = np.flatnonzero(keep)
+        rows.append(np.full(len(j), i, dtype=np.int64))
+        cols.append(j.astype(np.int64))
+        vals.append(dots[j])
+    return (np.concatenate(rows), np.concatenate(cols), np.concatenate(vals))
 
 
 def _concat(parts):

@@ -250,6 +250,33 @@ def test_jaccard_cli_equals_jax(tmp_path, ref_toy_dir, capsys, engine):
     assert out["port"] == out["jax"]
 
 
+@pytest.mark.parametrize("command", ["search", "test"])
+def test_jaccard_mesh_devices_zero_equals_jax(tmp_path, ref_toy_dir, capsys,
+                                              command):
+    """--mesh_devices 0 means every local device, which is one on the CPU:
+    the port's search and test print what its --mesh_devices 1 prints and
+    what the JAX tool prints with --mesh_devices 0."""
+    hashes = str(ref_toy_dir / "all_hashes_toy.txt")
+    with open(hashes) as f, open(tmp_path / "q.txt", "w") as g:
+        g.writelines(f.readlines()[:3])
+    out = {}
+    for side, main, dev, meshes in (
+            ("jax", j_jaccard.main, [], ("0",)),
+            ("port", t_jaccard.main, ["--device", "cpu"], ("0", "1"))):
+        db = tmp_path / side
+        shutil.copytree(str(ref_toy_dir / "toy_db_256"), db)
+        assert main(["index", str(db), *dev]) == 0
+        args = ["search", str(db), str(tmp_path / "q.txt")] \
+            if command == "search" else ["test", str(db), hashes, "-n", "5",
+                                         "--seed", "3"]
+        for md in meshes:
+            capsys.readouterr()
+            assert main([*args, "-j", "0.1", "--mesh_devices", md, *dev]) == 0
+            out[side, md] = _neighbor_lines(capsys.readouterr().out)
+    assert len(out["port", "0"]) > 3
+    assert out["port", "0"] == out["port", "1"] == out["jax", "0"]
+
+
 def test_jaccard_cli_refuses_mesh_and_missing_cuda(tmp_path, capsys):
     rc = t_jaccard.main(["search", str(tmp_path), "q.txt", "--mesh_devices",
                          "8", "--device", "cpu"])

@@ -84,6 +84,47 @@ def test_standalone_projection_matches_jax_tool(tmp_path, capsys):
     assert capsys.readouterr().out == want
 
 
+@pytest.mark.parametrize("given", ["nothing", "hashes_file"])
+def test_standalone_projection_usage_equals_jax_tool(tmp_path, capsys,
+                                                     given):
+    """Missing arguments: the JAX tool's usage line on stderr and exit code
+    1, with or without the port's --device."""
+    argv = [] if given == "nothing" else [str(tmp_path / "h.txt")]
+    assert j_standalone.main(list(argv)) == 1
+    want = capsys.readouterr()
+    assert want.err.startswith("Usage: standalone_projection") and \
+        not want.out
+    for port_argv in (argv, argv + ["--device", "cpu"]):
+        assert t_standalone.main(port_argv) == 1
+        assert capsys.readouterr() == want
+
+
+@pytest.mark.parametrize("name", ["host", "device", "auto"])
+def test_sketch_takes_jax_device_names(tmp_path, ref_toy_dir, name):
+    """sketch --device takes the JAX tool's names: host is the CPU and
+    writes the JAX run's db (whose vectors.bin is toy_db_256's); device
+    and auto are the card, so without one they raise the default's error
+    and write nothing."""
+    hashes = str(ref_toy_dir / "all_hashes_toy.txt")
+    argv = ["sketch", hashes, str(tmp_path / "port"), "-d", "256"]
+    if name != "host" and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError) as got:
+            t_project.main(argv + ["--device", name])
+        with pytest.raises(RuntimeError) as default:
+            t_project.main(argv)
+        assert str(got.value) == str(default.value)
+        assert "cuda" in str(got.value)
+        assert not (tmp_path / "port").exists()
+        return
+    assert j_project.main(["sketch", hashes, str(tmp_path / "jax"), "-d",
+                           "256", "--device", name]) == 0
+    assert t_project.main(argv + ["--device", name]) == 0
+    for f in DB_FILES:
+        _same(tmp_path / "jax" / f, tmp_path / "port" / f)
+    _same(ref_toy_dir / "toy_db_256" / "vectors.bin",
+          tmp_path / "port" / "vectors.bin")
+
+
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter runs the port's CPU path end to end (sketch,
     shard, query) and never loads jax nor any module of the JAX

@@ -10,6 +10,8 @@ Equality is exact: the kernels compute integer results exactly and the
 float32 sweep combine in the plain version's order.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -506,3 +508,77 @@ def test_minhash_cli_cuda_equals_cpu(cuda, tmp_path):
     for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
         assert filecmp.cmp(tmp_path / "cpu" / "shard_0" / f,
                            tmp_path / "cuda" / "shard_0" / f, shallow=False)
+
+
+def _cache_db(path, seed, n=8192, d=1024):
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    rng = np.random.default_rng(seed)
+    V = rng.integers(-2000, 2001, size=(n, d)).astype(np.int32)
+    V[1] = V[0]
+    return DbFolder.write(str(path), [f"S{i}" for i in range(n)], V, d)
+
+
+def test_held_slot_of_another_db_does_not_force_streaming(cuda, tmp_path,
+                                                          monkeypatch):
+    """The residency slot holding another db's planes is evicted (and its
+    memory handed back to the driver) before the free memory is read: with
+    the card's free memory faked so that the budget fits the new planes
+    only without the held ones, the new db still runs resident, and its
+    shard equals a fresh run's."""
+    import filecmp
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    mc.clear_device_cache()
+    a, b = _cache_db(tmp_path / "a", 1), _cache_db(tmp_path / "b", 2)
+    mc.compute_pairwise_shard(a.path, str(tmp_path / "ma"), verbose=False,
+                              device=cuda)
+    held = mc._RESIDENT["value"][0]
+    S = held.numel()
+    torch.cuda.synchronize()
+    real = torch.cuda.mem_get_info
+    # with a's planes held the faked free memory is S / 2 (budget 0.4 S:
+    # b would stream); a's eviction frees at least S more (budget >= 1.2 S)
+    offset = real(cuda)[0] - S // 2
+    del held
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda *x: (real(*x)[0] - offset, real(*x)[1]))
+    mc.compute_pairwise_shard(b.path, str(tmp_path / "mb"), verbose=False,
+                              device=cuda)
+    assert mc.LAST_STAGES["mode"] == "fused"
+    assert mc._RESIDENT["key"][0] == os.path.abspath(
+        os.path.join(b.path, "vectors.bin"))
+    monkeypatch.undo()
+    mc.clear_device_cache()
+    mc.compute_pairwise_shard(b.path, str(tmp_path / "fresh"), verbose=False,
+                              device=cuda)
+    mc.clear_device_cache()
+    for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+        assert filecmp.cmp(tmp_path / "mb" / "shard_0" / f,
+                           tmp_path / "fresh" / "shard_0" / f, shallow=False)
+
+
+def test_residency_cache_hit_on_cuda(cuda, tmp_path):
+    """Shard 1 of 2 re-uses shard 0's planes on the card (no staging) and
+    is byte-equal to shard 1 staged afresh."""
+    import filecmp
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    mc.clear_device_cache()
+    db = _cache_db(tmp_path / "db", 3)
+    kw = dict(num_shards=2, verbose=False, device=cuda)
+    mc.compute_pairwise_shard(db.path, str(tmp_path / "hit"), shard_idx=0,
+                              **kw)
+    planes = mc._RESIDENT["value"][0]
+    _build.reset_launch_counts()
+    mc.compute_pairwise_shard(db.path, str(tmp_path / "hit"), shard_idx=1,
+                              **kw)
+    assert mc._RESIDENT["value"][0] is planes
+    assert mc.LAST_STAGES["stage_h2d_ms"] == 0
+    assert _build.launch_counts()["sweep"] > 0
+    del planes
+    mc.clear_device_cache()
+    mc.compute_pairwise_shard(db.path, str(tmp_path / "fresh"), shard_idx=1,
+                              **kw)
+    mc.clear_device_cache()
+    for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+        assert filecmp.cmp(tmp_path / "hit" / "shard_1" / f,
+                           tmp_path / "fresh" / "shard_1" / f, shallow=False)

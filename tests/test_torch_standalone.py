@@ -37,8 +37,8 @@ PKG = "metagenome_vector_sketches_tpu_torch"
 def test_port_alone_walkthrough(tmp_path):
     """A fresh interpreter imports every module of the port and drives the
     CPU walkthrough through its command-line tools: sketch -> pairwise_comp
-    -> query_pc_mat -> jaccard index / search -> pairwise_comp --strategy
-    1. Neither jax nor any module of the JAX package gets loaded."""
+    -> query_pc_mat (and the pybind drop-in) -> jaccard index / search ->
+    pairwise_comp --strategy 1. Neither jax nor any module of the JAX package gets loaded."""
     t = str(tmp_path)
     code = f"""
 import importlib, os, pkgutil, sys
@@ -70,6 +70,9 @@ assert query_pc_mat.main(["--matrix", p("m"), "--db", p("db"),
                           "--query_file", p("q.txt"), "--top", "3",
                           "--write_to_file", p("top.csv")]) == 0
 assert open(p("A1_top.csv")).readline().strip() == "ID,Jaccard"
+from {PKG} import read_pc_mat_module
+res = read_pc_mat_module.query(p("m"), p("db"), p("q.txt"))
+assert [r["id"] for r in res] == ["A1", "A5"] and len(res[0]["neighbor_ids"])
 assert jaccard.main(["index", p("db"), "--device", "cpu"]) == 0
 with open(p("h.txt")) as f, open(p("qh.txt"), "w") as g:
     g.write(f.readlines()[1])
@@ -277,7 +280,27 @@ def _case_query_engine(sliced, tmp_path, ref_toy_dir):
                                       b.jaccard_similarities)
 
 
+# the JAX package's JAX-free modules the port keeps as byte-for-byte copies
+# under the same relative paths
+COPIES = (
+    "analysis/__init__.py", "analysis/accuracy.py", "analysis/clusters.py",
+    "analysis/export.py", "analysis/interpret.py", "ann/faissio.py",
+    "cli/query_ava_matrix.py", "cli/read_pc_mat.py", "codecs/__init__.py",
+    "codecs/bitscompat.py", "codecs/native.py", "codecs/pyref.py",
+    "io/dbfolder.py", "io/hashes.py", "io/sigzip.py", "matrix/legacy.py",
+    "matrix/reader.py", "matrix/writer.py", "query/__init__.py",
+    "query/engine.py", "query/outputs.py", "utils/__init__.py",
+    "utils/log.py", "utils/npyio.py", "utils/zstdio.py")
+
+
+def _case_copy(rel, tmp_path, ref_toy_dir):
+    with open(os.path.join(REPO, "metagenome_vector_sketches_tpu", rel),
+              "rb") as f, open(os.path.join(REPO, PKG, rel), "rb") as g:
+        assert f.read() == g.read(), rel
+
+
 CASES = {
+    **{f"copy-{rel}": (_case_copy, (rel,)) for rel in COPIES},
     **{f"codec-{impl}-{codec}": (_case_codec, (impl, codec))
        for impl in ("pyref", "native", "bitscompat", "dispatch")
        for codec in ("cv", "rice", "ef")},
