@@ -62,7 +62,19 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    naming gemm_kernel and partials_kernel; the residency cache: shards 0
    and 1 of 2 of phase 2's db in one process, the second's stage_ms under
    5% of the first's, byte-equal to shard 1 staged after
-   clear_device_cache().
+   clear_device_cache();
+8. mesh: the multi-device layer on a mesh of two slots of the one card
+   (each slot on its own stream): phase 2's shard over the mesh, resident
+   and streaming (phase 5's budget), byte-equal to phase 2's shard; a
+   DistributedIntExactIndex staged from an int16 db folder of phase 4's
+   vectors, its (D, I) equal to the single-device index's; under a
+   torch.distributed world of one on NCCL, compute_pairwise_multihost with
+   num_shards=2 (byte-equal to the single-device shards 0 and 1), the f32
+   distributed top-k (equal to the flat index's up to ties) and the
+   pipeline step on 4,096 of phase 2's sets (survivors equal to a plain
+   count, top-k equal to a plain float32 top-k up to ties), every timed
+   call's result checked; walls beside the single-device ones. Two cards, NCCL between
+   them and launches on cuda:1 need a second card (tests/test_torch_gpu.py).
 
 Each path's kernels must be launched in that path's counted run (counts
 set to 0 just before it, read just after). At the end no module of jax or
@@ -1631,6 +1643,310 @@ def phase_minhash(work, errs, timings):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the multi-device layer on two slots of the one card
+# ---------------------------------------------------------------------------
+
+MESH_KERNELS = ("projection", "sweep", "partials", "scan")
+PIPE_B = 4096           # phase 2's first sets: its planted groups of 4
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ann_queries(N, chunks):
+    """Phase 4's B planted query rows (the same draw) -> (int32 (B, D))."""
+    import torch
+    rng = np.random.default_rng(9)
+    groups = np.sort(rng.choice(N // ANN_GROUP_STRIDE, ANN_B, replace=False))
+    rows = (groups * ANN_GROUP_STRIDE).tolist()
+    return torch.cat([chunks[r // ANN_CHUNK][1][r % ANN_CHUNK][None]
+                      for r in rows]).cpu().numpy()
+
+
+def _walls(fn, reps=3):
+    """(the result of each call, the wall of each call in ms); every call
+    returns host arrays or synchronises the card."""
+    import torch
+    outs, walls = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return outs, walls
+
+
+def _same_up_to_ties(I, If, Df, what):
+    """Fails unless every (B, k) index of I equals If's or sits in a tie
+    of the reference scores Df (a gap of at most 1e-5 to a neighbour)."""
+    gap = np.abs(np.diff(Df, axis=1))
+    for b, r in zip(*np.nonzero(I != If)):
+        near = [gap[b, x] for x in (r - 1, r) if 0 <= x < Df.shape[1] - 1]
+        check(min(near, default=0.0) <= 1e-5,
+              f"{what} I[{b}, {r}] differs outside a tie")
+
+
+def _pipeline_batch(work):
+    """Phase 2's first PIPE_B hash sets as the pipeline step's padded
+    (B, H) uint32 halves and (B,) counts."""
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        parse_hashes_file)
+    path = os.path.join(work, "pipe_hashes.txt")
+    with open(os.path.join(work, "all_hashes.txt")) as f, \
+            open(path, "w") as g:
+        for _, ln in zip(range(PIPE_B), f):
+            g.write(ln)
+    sets = [h.astype(np.uint64) for _, h in parse_hashes_file(path)]
+    H = max(len(h) for h in sets)
+    full = np.zeros((len(sets), H), dtype=np.uint64)
+    for b, h in enumerate(sets):
+        full[b, :len(h)] = h
+    counts = np.array([len(h) for h in sets], dtype=np.int32)
+    return ((full >> np.uint64(32)).astype(np.uint32),
+            (full & np.uint64(0xFFFFFFFF)).astype(np.uint32), counts, sets)
+
+
+def _pipeline_plain(sets, n_slots, L):
+    """The pipeline step's survivors through the plain versions on the card
+    (projection, planes, the float32 combine, the raw retention test); the
+    squared norms are taken per slot block, as the step takes them."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import projection as pj
+    flat = np.concatenate(sets).view(np.int64)
+    offsets = np.concatenate([[0], np.cumsum([len(h) for h in sets])])
+    vecs = pj.project_batch_plain(torch.from_numpy(flat).cuda(),
+                                  torch.from_numpy(offsets).cuda(), D)
+    sqrt_d = torch.full((1, 1), float(np.float32(np.sqrt(D))), device="cuda")
+    norms = torch.cat([((x / sqrt_d) * (x / sqrt_d)).sum(dim=1) for x in
+                       vecs.to(torch.float32).chunk(n_slots)])
+    planes = pw.karatsuba_planes(pw.decompose_limbs(vecs, L))
+    mask = pw.retention_mask(pw.approx_dot_f32(planes, planes), norms, norms,
+                             D, 1.0, 0.0)
+    return mask.sum(dim=1).to(torch.int32), vecs
+
+
+def _pipeline_topk_plain(vecs, k):
+    """The pipeline step's float32 top-k through plain PyTorch on the card:
+    L2-normalised sketches, their float32 product (TF32 off), torch.topk
+    -> (scores (B, k), indices (B, k)) on the host."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ann.flat_index import (
+        fp32_matmul)
+    vf = vecs.to(torch.float32)
+    unit = vf * torch.rsqrt(torch.clamp((vf * vf).sum(dim=1, keepdim=True),
+                                        min=1e-30))
+    with fp32_matmul():
+        d, i = torch.topk(unit @ unit.T, k, dim=1)
+    return d.cpu().numpy(), i.cpu().numpy()
+
+
+def phase_mesh(N, ann_n, work, card):
+    import torch
+    import torch.distributed as dist
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ann import int_index as ii
+    from metagenome_vector_sketches_tpu_torch.ann.distributed import (
+        DistributedIntExactIndex)
+    from metagenome_vector_sketches_tpu_torch.ann.flat_index import (
+        FlatIPIndex, normalize_l2)
+    from metagenome_vector_sketches_tpu_torch.bench_data import GROUP
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    from metagenome_vector_sketches_tpu_torch.parallel import multihost
+    from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh
+    from metagenome_vector_sketches_tpu_torch.parallel.pairwise import (
+        distributed_topk)
+    from metagenome_vector_sketches_tpu_torch.parallel.pipeline import (
+        make_pipeline_step)
+
+    cuda0 = torch.device("cuda", 0)
+    mesh = Mesh([cuda0, cuda0])
+    db_path = os.path.join(work, "db")
+    L = pm.pick_limbs(max(1, DbFolder(db_path).max_component()))
+    tile = 2048
+    budget = pm.num_planes(L) * ((N + tile - 1) // tile * tile) * D // 2
+
+    # set-up and the single-device references (before the counted run):
+    # phase 4's vectors again, its engines' results, the int16 db folder of
+    # its vectors, the pipeline's batch, a resident shard on the warm card
+    t0 = time.perf_counter()
+    chunks = _ann_chunks(ann_n)
+    V_q = _ann_queries(ann_n, chunks)
+    single = ii.IntExactIndex.from_device_chunks(list(chunks), D)
+    singles, w_single = _walls(lambda: single.search(V_q, ANN_K))
+    Di, Ii = singles[0]
+    del single
+    U = torch.cat([v.float() for _, v in chunks])
+    U /= U.norm(dim=1, keepdim=True).clamp_(min=1e-30)
+    flat = FlatIPIndex.from_device_chunks(
+        [(s, U[s:s + ANN_CHUNK]) for s in range(0, ann_n, ANN_CHUNK)], D)
+    Qn = normalize_l2(V_q.astype(np.float32))
+    Df, If = flat.search(Qn, ANN_K)
+    del flat
+    V16 = np.empty((ann_n, D), dtype=np.int16)
+    for s, v in chunks:
+        V16[s:s + v.shape[0]] = v.to(torch.int16).cpu().numpy()
+    del chunks
+    ann_db = os.path.join(work, "ann_db")
+    DbFolder.write(ann_db, [f"ACC{i:07d}" for i in range(ann_n)], V16, D,
+                   use_int16=True)
+    del V16
+    hi, lo, counts, sets = _pipeline_batch(work)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mc.compute_pairwise_shard(db_path, os.path.join(work, "mesh_single"),
+                              device="cuda", verbose=False)
+    w_single_shard = time.perf_counter() - t0
+    single_stages = {k: (round(v, 1) if isinstance(v, float) else v)
+                     for k, v in mc.LAST_STAGES.items()
+                     if k != "dispatch_walls_ms"}
+    mc.clear_device_cache()
+    torch.cuda.synchronize()
+    say(f"[mesh] set-up {t_setup:.1f} s: phase 4's {ann_n} x {D} vectors, "
+        "their single-device int8 and f32 results, their int16 db folder, "
+        f"the pipeline batch of {PIPE_B} sets")
+
+    # the counted run of the mesh paths
+    _build.reset_launch_counts()
+    walls = {}
+    t0 = time.perf_counter()
+    mc.compute_pairwise_shard(db_path, os.path.join(work, "mesh_mat"),
+                              device="cuda", verbose=False, mesh=mesh)
+    walls["shard"] = time.perf_counter() - t0
+    mesh_stages = {k: (round(v, 1) if isinstance(v, float) else v)
+                   for k, v in mc.LAST_STAGES.items()
+                   if k != "dispatch_walls_ms"}
+    t0 = time.perf_counter()
+    mc.compute_pairwise_shard(db_path, os.path.join(work, "mesh_stream"),
+                              device_budget_bytes=budget, device="cuda",
+                              verbose=False, mesh=mesh)
+    walls["stream"] = time.perf_counter() - t0
+    stream_mode = mc.LAST_STAGES["mode"]
+    mc.clear_device_cache()
+    t0 = time.perf_counter()
+    dist_idx = DistributedIntExactIndex.from_dbfolder(ann_db, mesh=mesh)
+    torch.cuda.synchronize()
+    walls["int8_build"] = time.perf_counter() - t0
+    dists, w_dist = _walls(lambda: dist_idx.search(V_q, ANN_K))
+    del dist_idx
+    multihost.initialize(coordinator_address=f"127.0.0.1:{_free_port()}",
+                         num_processes=1, process_id=0, device="cuda")
+    try:
+        backend = dist.get_backend()
+        gmesh = Mesh([cuda0, cuda0], group=dist.group.WORLD)
+        t0 = time.perf_counter()
+        folders = multihost.compute_pairwise_multihost(
+            db_path, os.path.join(work, "mesh_multihost"), num_shards=2,
+            mesh=gmesh, device="cuda", verbose=False)
+        walls["multihost"] = time.perf_counter() - t0
+        mc.clear_device_cache()
+        q_dev = torch.from_numpy(Qn).cuda()
+        topks, w_topk = _walls(lambda: distributed_topk(
+            gmesh, q_dev, U, ANN_K))
+        step = make_pipeline_step(gmesh, D, L, ANN_K)
+        steps, w_pipe = _walls(lambda: step(hi, lo, counts))
+    finally:
+        dist.destroy_process_group()
+    launches = _build.launch_counts()
+    del U
+
+    # the checks
+    for k in MESH_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the mesh "
+                               "paths")
+    check(stream_mode == "fused-streaming",
+          f"budget {budget} did not stream on the mesh ({stream_mode})")
+    for name in ("mesh_mat", "mesh_stream", "mesh_single"):
+        _same_shards(os.path.join(work, "mat"), os.path.join(work, name), 1,
+                     f"{name} vs phase 2's shard")
+    check(backend == "nccl", f"the CUDA world's backend is {backend}")
+    check(folders == [os.path.join(work, "mesh_multihost", f"shard_{s}")
+                      for s in (0, 1)], f"multihost wrote {folders}")
+    _same_shards(os.path.join(work, "cache_mat"),
+                 os.path.join(work, "mesh_multihost"), 2,
+                 "NCCL world-of-one shards vs the single-device shards")
+    say("[mesh] 2-slot shards (resident and streaming) byte-equal to phase "
+        "2's; the NCCL world of one's shards 0 and 1 of 2 byte-equal to "
+        "the single-device ones")
+    for c, (Dd, Id) in enumerate(singles[1:] + dists):
+        check(np.array_equal(Id, Ii) and np.array_equal(Dd, Di),
+              f"int8 search call {c} (D, I) differ from the single-device "
+              "index's first call")
+    say(f"[mesh] 2-slot int8 index from the db folder: (D, I) of each of "
+        f"{len(dists)} calls equal the single-device index's "
+        f"(N={ann_n}, B={ANN_B}, k={ANN_K})")
+    d_err = 0.0
+    for c, (D8, I8) in enumerate(topks):
+        D8, I8 = D8.cpu().numpy(), I8.cpu().numpy()
+        d_err = max(d_err, float(np.abs(np.sort(D8, 1)
+                                        - np.sort(Df, 1)).max()))
+        _same_up_to_ties(I8, If, Df, f"2-slot f32 top-k call {c}")
+    check(d_err <= 1e-5, f"2-slot f32 top-k D off the flat index's by {d_err}")
+    say(f"[mesh] 2-slot f32 top-k over NCCL, {len(topks)} calls: D within "
+        f"{d_err:.2e} of the flat index's, I equal up to ties")
+    want, vecs = _pipeline_plain(sets, gmesh.size, L)
+    Dp, Ip = _pipeline_topk_plain(vecs, ANN_K)
+    grouped = min(PIPE_B, max(1, N // 64) * GROUP)    # phase 2's groups
+    p_err = 0.0
+    for c, (surv, top_i, top_d) in enumerate(steps):
+        check(torch.equal(surv, want), f"pipeline call {c}: survivors differ "
+                                       "from the plain count")
+        check(bool((surv[:grouped] >= 4).all()) and bool((surv >= 1).all()),
+              f"pipeline call {c}: a row lost itself or a planted row its "
+              "group")
+        top_d = top_d.cpu().numpy()
+        check(bool(np.isfinite(top_d).all()),
+              f"pipeline call {c}: a top-k score is not finite")
+        p_err = max(p_err, float(np.abs(top_d - Dp).max()))
+        _same_up_to_ties(top_i.cpu().numpy(), Ip, Dp,
+                         f"pipeline call {c} top-k")
+    check(p_err <= 1e-5, f"pipeline top-k scores off the plain float32 "
+                         f"top-k by {p_err}")
+    check(pm.pick_limbs(max(1, int(vecs.abs().max()))) <= L,
+          "the pipeline batch needs more limbs than its step")
+    surv = steps[0][0]
+    say(f"[mesh] pipeline step on {PIPE_B} of phase 2's sets (L={L}), "
+        f"{len(steps)} calls: survivors equal the plain count "
+        f"(min {int(surv.min())}, max {int(surv.max())}); top-{ANN_K} "
+        f"scores within {p_err:.2e} of a plain float32 top-k, indices "
+        "equal up to ties")
+
+    # what making the launch device current costs each launch (host): the
+    # library's cudaSetDevice and PyTorch's device guard
+    reps = 10000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with _build.launch_stream(cuda0):
+            pass
+    guard_us = (time.perf_counter() - t0) / reps * 1e6
+
+    # the timings, on the card named in the first line
+    say(f"[mesh] {card}: shard N={N} d={D}: 2-slot wall "
+        f"{walls['shard']:.2f} s, single-device (warm) "
+        f"{w_single_shard:.2f} s; 2-slot stages {json.dumps(mesh_stages)}; "
+        f"single stages {json.dumps(single_stages)}")
+    say(f"[mesh] {card}: 2-slot streaming wall {walls['stream']:.2f} s "
+        f"(budget {budget} B); NCCL world of one, shards 0 and 1 of 2 "
+        f"{walls['multihost']:.2f} s")
+    say(f"[mesh] {card}: int8 search N={ann_n} B={ANN_B} k={ANN_K} walls "
+        f"(ms, 3 calls): 2 slots {[round(w, 1) for w in w_dist]}, single "
+        f"{[round(w, 1) for w in w_single]}; 2-slot build from the db folder "
+        f"{walls['int8_build']:.1f} s")
+    say(f"[mesh] {card}: f32 top-k (NCCL) walls (ms) "
+        f"{[round(w, 1) for w in w_topk]}; pipeline step walls (ms) "
+        f"{[round(w, 1) for w in w_pipe]}; launches {launches}")
+    say(f"[mesh] {card}: launch_stream (the launch device made current) "
+        f"{guard_us:.2f} us per launch on the host ({reps} entries)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=65536,
@@ -1638,6 +1954,8 @@ def main() -> int:
     ap.add_argument("--ann-n", type=int, default=1 << 20,
                     help="rows of the ANN phase's index (default 1,048,576)")
     args = ap.parse_args()
+    if args.ann_n % 2:
+        ap.error("--ann-n must be even (phase 8 splits it over two slots)")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -1670,6 +1988,7 @@ def main() -> int:
         phase_cli(work)
         paths.append(phase_tools(args.n, work))
         paths.append(phase_ann(args.ann_n, errs, timings))
+        paths.append(phase_mesh(args.n, args.ann_n, work, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")

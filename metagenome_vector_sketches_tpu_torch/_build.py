@@ -14,10 +14,16 @@ Launch counts: each kernel wrapper calls :func:`count_launch` right after a
 launch that succeeded, and nowhere else, so a run can show that its main
 path went through the kernels (:func:`reset_launch_counts`,
 :func:`launch_counts`).
+
+Devices: every launch happens inside :func:`launch_stream`, which makes the
+tensors' device current both for PyTorch (restored after the launch) and in
+the library's own CUDA runtime (``mvs_set_device``), so the kernels launch
+on any ``cuda:N``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -154,6 +160,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.mvs_error_string.argtypes = [ctypes.c_int]
             lib.mvs_error_string.restype = ctypes.c_char_p
+            lib.mvs_set_device.argtypes = [ctypes.c_int]
+            lib.mvs_set_device.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -166,14 +174,22 @@ def check(rc: int, what: str) -> None:
                            f"({msg})")
 
 
-def launch_stream(device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``, for a launch. nvcc links the
-    library against its own static CUDA runtime, whose current device is
-    cuda:0, so the kernels launch on cuda:0 only."""
+@contextlib.contextmanager
+def launch_stream(device, lib=None):
+    """For the launches inside the block: ``device`` current for PyTorch
+    (its previous device comes back after the block) and in the kernel
+    library's own runtime (``lib``, the port's library by default: nvcc
+    links it against a static CUDA runtime whose current device is per
+    thread and separate from PyTorch's). Yields PyTorch's current stream on
+    the device as a c_void_p, the launch's stream argument."""
     import torch
+    device = torch.device(device)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if index != 0:
-        raise NotImplementedError(
-            f"the port's kernels launch on cuda:0 only (got cuda:{index})")
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    lib = library() if lib is None else lib
+    with torch.cuda.device(index):
+        rc = lib.mvs_set_device(index)
+        if rc != 0:
+            raise RuntimeError(f"cudaSetDevice({index}) failed with error "
+                               f"{rc}")
+        yield ctypes.c_void_p(torch.cuda.current_stream(index).cuda_stream)

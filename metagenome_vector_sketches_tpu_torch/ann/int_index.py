@@ -98,11 +98,24 @@ def gather_rows(qp: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def chunk_layout(C: int, R: int, n: int) -> tuple[list, list]:
+    """(bases, valid) of a stack of C chunks of R rows that holds rows
+    0 .. n - 1 in order: chunk c holds rows c * R .. c * R + valid[c] - 1."""
+    bases = [c * R for c in range(C)]
+    return bases, [max(0, min(n - b, R)) for b in bases]
+
+
 def _int_scan_pool(q_planes: torch.Tensor, B: int, stack: torch.Tensor,
                    inv_n: torch.Tensor, n_total: int, R: int, pool: int,
-                   L: int, flag: torch.Tensor):
+                   L: int, flag: torch.Tensor, bases, valid):
     """Whole-index candidate pooling of the first B query rows of q_planes
     ((P, B_pad, d_pad) int8) over the (C, P, R_pad, d_pad) stack.
+
+    Chunk c holds the global rows bases[c] .. bases[c] + valid[c] - 1 (JAX
+    ``_int_scan_pool``'s explicit per-chunk layout, so a mesh slot's chunks
+    and per-process row blocks keep their global indices; a single-device
+    stack's is :func:`chunk_layout`). Every global index is below
+    n_total.
 
     -> (scores (B, pool_eff) float32 device ranking scores, indices
     (B, pool_eff) int64 global rows (-1 for none), partials (B, pool_eff,
@@ -120,11 +133,10 @@ def _int_scan_pool(q_planes: torch.Tensor, B: int, stack: torch.Tensor,
     best = torch.empty((B, 0), dtype=torch.int64, device=dev)
     best_p = torch.empty((B, 0, P), dtype=torch.int32, device=dev)
     for c in range(C):
-        base = c * R
-        valid = max(0, min(n_total - base, R))
-        score = pw.scan_scores(q_planes, stack[c], inv_n[c], valid)[:B]
+        base, val = int(bases[c]), int(valid[c])
+        score = pw.scan_scores(q_planes, stack[c], inv_n[c], val)[:B]
         # invalid lanes all carry the index n_total (decoded to -1)
-        gidx = torch.where(lane < valid, base + lane, n_total)
+        gidx = torch.where(lane < val, base + lane, n_total)
         keys, sel = torch.topk(rank_keys(score, gidx), kc, dim=1)
         rc = torch.stack([rows, sel.to(torch.int32)], dim=2).reshape(-1, 2)
         parts = pw.pair_partials(q_planes, rc, L, stack[c], flag) \
@@ -229,17 +241,20 @@ class IntExactIndex:
         self.pool_margin = int(pool_margin)
         self.max_abs = max_abs
         self.L = pm.pick_limbs(max(1, max_abs)) if L is None else L
-        n, d = self._shape
-        C = (n + R - 1) // R
-        self._stack = torch.zeros(
-            (C, pm.num_planes(self.L), pw.pad_rows(R, dev), pw.pad_dim(d)),
-            dtype=torch.int8, device=dev)
+        n = self._shape[0]
+        self._stack = self._plane_stack((n + R - 1) // R, dev)
 
-    def _stage(self, c: int, block: torch.Tensor) -> None:
-        """Write one chunk's planes ((rows, d) int32 on the device) into the
-        stack in place."""
-        pw.planes_update(self._stack[c], pw.decompose_limbs(block, self.L),
-                         0)
+    def _plane_stack(self, chunks: int, dev) -> torch.Tensor:
+        """A zero (chunks, P, R_pad, d_pad) int8 plane stack on dev."""
+        return torch.zeros((chunks, pm.num_planes(self.L),
+                            pw.pad_rows(self.chunk_rows, dev),
+                            pw.pad_dim(self.d)), dtype=torch.int8, device=dev)
+
+    def _stage(self, c: int, block: torch.Tensor, stack=None) -> None:
+        """Write one chunk's planes ((rows, d) int32 on the stack's device)
+        into chunk c of ``stack`` (default: the index's own), in place."""
+        stack = self._stack if stack is None else stack
+        pw.planes_update(stack[c], pw.decompose_limbs(block, self.L), 0)
 
     def _finish_norms(self) -> None:
         C, _, R_pad, _ = self._stack.shape
@@ -321,8 +336,11 @@ class IntExactIndex:
     def _pool(self, qp: torch.Tensor, B: int, pool: int, flag):
         """Device candidate pooling of the first B rows of the query planes
         qp -> (scores, indices, partials), see :func:`_int_scan_pool`."""
+        bases, valid = chunk_layout(self._stack.shape[0], self.chunk_rows,
+                                    self.ntotal)
         return _int_scan_pool(qp, B, self._stack, self._inv_n, self.ntotal,
-                              self.chunk_rows, pool, self.L, flag)
+                              self.chunk_rows, pool, self.L, flag, bases,
+                              valid)
 
     def validate_queries(self, queries: np.ndarray) -> None:
         """Query-range check (search() and the adaptive search's int8

@@ -28,11 +28,12 @@ import time
 import numpy as np
 import torch
 
-from .._device import resolve_device, serving_devices
+from .._device import resolve_device
 from ..io.dbfolder import DbFolder
 from ..io.hashes import parse_query_hashes_file
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
+from ..parallel.mesh import serving_mesh
 from .flat_index import FlatIPIndex, normalize_l2
 
 INITIAL_NB_SEARCHES = 50
@@ -302,35 +303,52 @@ def search_index(index_folder: str, query_file: str, j: float,
     | 'int8' (int8-plane exact engine staged from the db folder's integer
     vectors; float64-exact cosines, no faiss.index needed) | 'int8_approx'
     (the same engine in its 'approx' mode, which selects exactly in the
-    port). mesh_devices: 1, or 0 where that resolves to one local device
-    (the CPU, a one-card host); more devices raise, the multi-GPU engine is
-    not ported."""
+    port).
+
+    mesh_devices (``parallel.mesh.serving_mesh``: 1 one device, 0 every
+    local device of ``device``'s type, n the first n) above one device
+    serves every adaptive level through the distributed indexes (rows or
+    chunks split over the devices, candidate pools merged;
+    ann/distributed.py); the results are the single-device ones."""
     dev = resolve_device(device)
-    if serving_devices(mesh_devices, dev) != 1:
-        raise ValueError(f"mesh_devices={mesh_devices}: one device only "
-                         "(the multi-GPU serving engine is not yet ported)")
+    mesh = serving_mesh(mesh_devices, device=dev)
     db = DbFolder(index_folder)
     d = db.dimension
     sample_names, hash_sets = parse_query_hashes_file(query_file)
     q_int, queries = project_queries(hash_sets, d, device=dev)
     names, norms = db.names_and_norms()
+    where = mesh.key if mesh is not None else str(dev)
     if engine in ("int8", "int8_approx"):
         from .int_index import IntExactIndex
         rt = recall_target if recall_target < 1.0 else 0.95
         approx = engine == "int8_approx" or recall_target < 1.0
         mode = "approx" if approx else "exact"
         key = (_artifact_stat(os.path.join(index_folder, "vectors.bin")),
-               "int8", mode, rt, str(dev))
-        index = _cached_index(key, lambda: IntExactIndex.from_dbfolder(
-            index_folder, mode=mode, recall_target=rt, device=dev))
+               "int8", mode, rt, where)
+        if mesh is not None:
+            # staged straight into the split layout: splitting a
+            # single-device index would hold the whole stack on one card
+            from .distributed import DistributedIntExactIndex
+            index = _cached_index(key, lambda: (
+                DistributedIntExactIndex.from_dbfolder(
+                    index_folder, mesh=mesh, mode=mode, recall_target=rt)))
+        else:
+            index = _cached_index(key, lambda: IntExactIndex.from_dbfolder(
+                index_folder, mode=mode, recall_target=rt, device=dev))
         hits, query_norms = adaptive_search(index, queries, j, verbose,
                                             db_norms=norms,
                                             queries_int=q_int)
     else:
         fpath = os.path.join(index_folder, "faiss.index")
-        key = (_artifact_stat(fpath), "f32", str(dev))
-        index = _cached_index(key, lambda: FlatIPIndex.load(fpath,
-                                                            device=dev))
+        key = (_artifact_stat(fpath), "f32", where)
+        if mesh is not None:
+            from .distributed import DistributedFlatIPIndex
+            index = _cached_index(key, lambda: (
+                DistributedFlatIPIndex.from_flat(
+                    FlatIPIndex.load(fpath, device=dev), mesh=mesh)))
+        else:
+            index = _cached_index(key, lambda: FlatIPIndex.load(fpath,
+                                                                device=dev))
         index.recall_target = recall_target
         hits, query_norms = adaptive_search(index, queries, j, verbose,
                                             db_norms=norms)

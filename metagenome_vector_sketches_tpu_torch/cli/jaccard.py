@@ -6,8 +6,9 @@ plus --device (default cuda):
   jaccard index <output_index_folder> [-t threads]
   jaccard search <index_folder> <query_file> [-j jaccard] [--engine ...]
   jaccard test <index_folder> <hashes_file> [-n samples] [-j jaccard]
---mesh_devices 0 means every local device (one on the CPU); a count
-above one (the multi-GPU serving engine) is refused.
+--mesh_devices 0 means every local device of --device's type (one on the
+CPU), n > 1 the first n, served through the distributed indexes; more
+devices than the process has are refused, as in the JAX package.
 `index` is host work (normalise + write faiss.index); its --device is
 checked like the others'.
 """
@@ -17,7 +18,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .._device import CLI_DEFAULT_DEVICE, resolve_device, serving_devices
+from .._device import CLI_DEFAULT_DEVICE, resolve_device
 
 __version__ = "0.1.0"
 __date__ = "2026-08-16"
@@ -90,11 +91,6 @@ def main(argv=None) -> int:
     if not args.command:
         parser.error("the following arguments are required: command")
     device = resolve_device(args.device)
-    if serving_devices(getattr(args, "mesh_devices", 1), device) != 1:
-        print("jaccard: --mesh_devices resolving to more than one device "
-              "(the multi-GPU serving engine) is not yet ported",
-              file=sys.stderr)
-        return 2
     print(f"Version: {__version__}, Date: {__date__}")
     print("Command line:", " ".join(sys.argv))
     if args.command == "index":

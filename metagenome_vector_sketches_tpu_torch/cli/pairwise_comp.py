@@ -4,8 +4,9 @@ matrix on the device (reference CLI: src/pairwise_comp_optimized.cpp:834-844).
 The reference's flags and the JAX package's extensions, plus --device
 (default cuda). --strategy 1 writes the exact MinHash shard from --hashes; --finalize and --gate_sparse_tiles
 are accepted and write the same shard as a plain run, as in the JAX
-package. Only --mesh_devices above 1 (the multi-GPU engine, not ported yet)
-is refused.
+package. --mesh_devices n > 1 runs the shard mesh-parallel over the first
+n local devices of --device's type (0: every local device), and more
+devices than the process has are refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -80,18 +81,8 @@ def tile_from_memory(max_memory_gb: float, dimension: int) -> int:
     return tile
 
 
-def _not_ported(args) -> str | None:
-    if args.mesh_devices not in (0, 1):
-        return "--mesh_devices > 1 (the multi-GPU engine) is not yet ported"
-    return None
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    why = _not_ported(args)
-    if why:
-        print(f"pairwise_comp: {why}", file=sys.stderr)
-        return 2
     from ..matrix.compute import compute_minhash_shard, compute_pairwise_shard
     if args.strategy == 1:
         if not args.hashes:
@@ -106,10 +97,14 @@ def main(argv=None) -> int:
     # a power of two in [256, 2048]: a multiple of kernel S's block
     tile = args.tile or tile_from_memory(args.max_memory_gb,
                                          DbFolder(args.db).dimension)
+    # LOCAL devices (parallel.mesh.serving_mesh's 1/0/n rule, with its
+    # range checks)
+    from ..parallel.mesh import serving_mesh
+    mesh = serving_mesh(args.mesh_devices, device=args.device)
     compute_pairwise_shard(args.db, args.output_folder,
                            num_shards=args.num_shards,
                            shard_idx=args.shard_idx, tile_rows=tile,
-                           resume=args.resume,
+                           resume=args.resume, mesh=mesh,
                            finalize=None if args.finalize == "auto"
                            else args.finalize,
                            gate=args.gate_sparse_tiles, device=args.device)

@@ -112,6 +112,8 @@ def _load(name: str, src: str, out_dir: str) -> ctypes.CDLL:
     if hasattr(lib, "mvs_error_string"):
         lib.mvs_error_string.argtypes = [ctypes.c_int]
         lib.mvs_error_string.restype = ctypes.c_char_p
+    lib.mvs_set_device.argtypes = [ctypes.c_int]    # common.cuh's
+    lib.mvs_set_device.restype = ctypes.c_int
     return lib
 
 
@@ -198,10 +200,10 @@ def project(lib, h: torch.Tensor, o_host: torch.Tensor, d: int,
         return pj.project_batch(h, o_host, d, h.device)
     o = o_host.to(h.device)
     out = torch.empty(o.numel() - 1, d, dtype=torch.int32, device=h.device)
-    _check(lib, lib.mvs_project(h.data_ptr(), o.data_ptr(), o.numel() - 1,
-                                d, out.data_ptr(),
-                                _build.launch_stream(h.device)),
-           "projection kernel")
+    with _build.launch_stream(h.device, lib) as stream:
+        rc = lib.mvs_project(h.data_ptr(), o.data_ptr(), o.numel() - 1, d,
+                             out.data_ptr(), stream)
+    _check(lib, rc, "projection kernel")
     return out
 
 
@@ -221,11 +223,11 @@ def partials(lib, planes, rc, L, planes_j=None):
         [*torch.aminmax(rc[:, 0]), *torch.aminmax(rc[:, 1])]).tolist()
     if min(lo_r, lo_c) < 0 or hi_r >= ni or hi_c >= nj:
         raise ValueError("candidate rows/columns out of range")
-    _check(lib, lib.mvs_partials(planes.data_ptr(), ni * d_pad,
-                                 planes_j.data_ptr(), nj * d_pad, L, d_pad,
-                                 rc.data_ptr(), n, out.data_ptr(),
-                                 _build.launch_stream(planes.device)),
-           "partials kernel")
+    with _build.launch_stream(planes.device, lib) as stream:
+        err = lib.mvs_partials(planes.data_ptr(), ni * d_pad,
+                               planes_j.data_ptr(), nj * d_pad, L, d_pad,
+                               rc.data_ptr(), n, out.data_ptr(), stream)
+    _check(lib, err, "partials kernel")
     return out, None
 
 

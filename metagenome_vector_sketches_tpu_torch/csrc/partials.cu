@@ -126,19 +126,23 @@ partials_kernel(const int8_t* __restrict__ xs, long long x_stride,
   }
 }
 
-// CTAs of partials_kernel<L> that stay resident on all SMs at once
+// CTAs of partials_kernel<L> that stay resident on all SMs at once of the
+// current device (mvs_set_device), kept per device and L: two cards of one
+// process may differ in SM count
 template <int L>
 int resident_ctas() {
-  static int ctas = 0;  // per L; computed once
-  if (ctas == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, partials_kernel<L>,
-                                                  kThreads, 0);
-    ctas = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  return ctas;
+  static int cache[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int* slot = dev >= 0 && dev < kMaxDevices ? &cache[dev] : nullptr;
+  if (slot && *slot) return *slot;
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, partials_kernel<L>,
+                                                kThreads, 0);
+  const int n = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  if (slot) *slot = n;
+  return n;
 }
 
 template <int L>

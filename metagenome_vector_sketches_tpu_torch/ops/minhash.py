@@ -85,8 +85,8 @@ def gram_accumulate(C: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"C must be a contiguous ({n}, {n}) int32 tensor on "
                          "A's device")
     lib = _build.library()
-    err = lib.mvs_gram(A.data_ptr(), n, u, C.data_ptr(), n,
-                       _build.launch_stream(A.device))
+    with _build.launch_stream(A.device) as stream:
+        err = lib.mvs_gram(A.data_ptr(), n, u, C.data_ptr(), n, stream)
     _build.check(err, "gram kernel")
     _build.count_launch("gram")
     return C

@@ -101,19 +101,21 @@ def approx_dot_f32(vi: torch.Tensor, vj: torch.Tensor) -> torch.Tensor:
 
 
 def retention_mask(approx: torch.Tensor, thr_i: torch.Tensor,
-                   thr_j: torch.Tensor, d: int) -> torch.Tensor:
+                   thr_j: torch.Tensor, d: int, slack_rel: float = SLACK_REL,
+                   slack_abs: float = SLACK_ABS) -> torch.Tensor:
     """THE float32 retention predicate of the sweep:
-    approx / d > 0.05 * (t_i + t_j) * SLACK_REL - SLACK_ABS, one rounded op
-    at a time (kernel S runs the same sequence). The divisor is a device
-    tensor: PyTorch's CUDA division by a CPU scalar multiplies by the
-    reciprocal, which is not the rounded quotient."""
+    approx / d > 0.05 * (t_i + t_j) * slack_rel - slack_abs, one rounded op
+    at a time (kernel S runs the same sequence; slack 1 and 0 give the raw
+    test 0.05 * (t_i + t_j) exactly). The divisor is a device tensor:
+    PyTorch's CUDA division by a CPU scalar multiplies by the reciprocal,
+    which is not the rounded quotient."""
     dvec = torch.full((1, 1), float(d), dtype=torch.float32,
                       device=approx.device)
     q = approx / dvec
     t = thr_i[:, None] + thr_j[None, :]
     t = t * 0.05
-    t = t * float(SLACK_REL)
-    t = t - float(SLACK_ABS)
+    t = t * float(slack_rel)
+    t = t - float(slack_abs)
     return q > t
 
 
@@ -140,11 +142,13 @@ def _check_thr(thr: torch.Tensor, n: int, name: str) -> None:
 
 def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
                  tile_r: int, tile_c: int, d: int, append: bool,
-                 mask_self: bool, cap: int = 0, diag_offset: int = 0):
+                 mask_self: bool, cap: int = 0, diag_offset: int = 0,
+                 slack_rel: float = SLACK_REL, slack_abs: float = SLACK_ABS):
     """Launch kernel S over the tiles ``coords`` ((K, 2) row/column tile
     indices in units of tile_r / tile_c) -> (counts (K,) int32,
     rc (cap, 2) int32 or None, total (1,) int32 or None), on the device.
-    mask_self drops row == column + diag_offset (operand-local indices)."""
+    mask_self drops row == column + diag_offset (operand-local indices);
+    slack_rel / slack_abs widen the retention test (:func:`retention_mask`)."""
     dev = planes_i.device
     _check_planes(planes_i, "planes_i")
     _check_planes(planes_j, "planes_j")
@@ -176,15 +180,15 @@ def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
     coords_dev = torch.from_numpy(coords).to(dev)
     w = plane_weights(limbs_from_planes(P))
     lib = _build.library()
-    err = lib.mvs_sweep(
-        planes_i.data_ptr(), planes_j.data_ptr(), thr_i.data_ptr(),
-        thr_j.data_ptr(), P, d, d_pad, ni * d_pad, nj * d_pad,
-        coords_dev.data_ptr(), K, tile_r, tile_c,
-        w.ctypes.data_as(ctypes.c_void_p), float(SLACK_REL),
-        float(SLACK_ABS), int(mask_self), int(diag_offset), int(append),
-        counts.data_ptr(), rc.data_ptr() if append else None,
-        total.data_ptr() if append else None, int(cap),
-        _build.launch_stream(dev))
+    with _build.launch_stream(dev) as stream:
+        err = lib.mvs_sweep(
+            planes_i.data_ptr(), planes_j.data_ptr(), thr_i.data_ptr(),
+            thr_j.data_ptr(), P, d, d_pad, ni * d_pad, nj * d_pad,
+            coords_dev.data_ptr(), K, tile_r, tile_c,
+            w.ctypes.data_as(ctypes.c_void_p), float(slack_rel),
+            float(slack_abs), int(mask_self), int(diag_offset), int(append),
+            counts.data_ptr(), rc.data_ptr() if append else None,
+            total.data_ptr() if append else None, int(cap), stream)
     _build.check(err, "sweep kernel")
     _build.count_launch("sweep")
     return counts, rc, total
@@ -196,7 +200,8 @@ def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
 
 def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
                         cap: int, mask_self: bool, d: int,
-                        diag_offset: int = 0):
+                        diag_offset: int = 0, slack_rel: float = SLACK_REL,
+                        slack_abs: float = SLACK_ABS):
     """Plain PyTorch version of :func:`sweep_extract` (survivors in tile
     order, row-major within a tile)."""
     dev = planes_i.device
@@ -208,7 +213,7 @@ def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
         rows = slice(r * tile, (r + 1) * tile)
         cols = slice(c * tile, (c + 1) * tile)
         m = retention_mask(approx_dot_f32(planes_i[:, rows], planes_j[:, cols]),
-                           thr_i[rows], thr_j[cols], d)
+                           thr_i[rows], thr_j[cols], d, slack_rel, slack_abs)
         if mask_self:
             m &= (r * tile + ar)[:, None] != \
                 (c * tile + diag_offset + ar)[None, :]
@@ -225,7 +230,8 @@ def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
 
 
 def sweep_extract(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
-                  cap: int, mask_self: bool, d: int, diag_offset: int = 0):
+                  cap: int, mask_self: bool, d: int, diag_offset: int = 0,
+                  slack_rel: float = SLACK_REL, slack_abs: float = SLACK_ABS):
     """Survivors of the tiles ``coords`` ((K, 2) row/column tile indices of
     edge ``tile`` into planes_i / planes_j) -> (rc (cap, 2) int32 survivor
     (row, column) pairs, operand-local, counts (K,) int32 per-tile survivor
@@ -236,14 +242,19 @@ def sweep_extract(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
     mask_self drops the self-pairs: row == column + diag_offset, where
     diag_offset is planes_j's first global row minus planes_i's (0 when the
     two share one row numbering). The CUDA order of survivors is
-    unspecified (atomics); the plain version's is tile order, row-major."""
+    unspecified (atomics); the plain version's is tile order, row-major.
+    slack_rel / slack_abs: the retention test's widening (the engine's by
+    default; 1 and 0 for the raw test)."""
     if planes_i.device.type == "cpu":
         return sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords,
-                                   tile, cap, mask_self, d, diag_offset)
+                                   tile, cap, mask_self, d, diag_offset,
+                                   slack_rel, slack_abs)
     counts, rc, total = launch_sweep(planes_i, thr_i, planes_j, thr_j,
                                      coords, tile, tile, d, append=True,
                                      mask_self=mask_self, cap=cap,
-                                     diag_offset=diag_offset)
+                                     diag_offset=diag_offset,
+                                     slack_rel=slack_rel,
+                                     slack_abs=slack_abs)
     return rc, counts, total
 
 
@@ -288,11 +299,11 @@ def scan_scores(q_planes: torch.Tensor, db_planes: torch.Tensor,
     scores = torch.empty((B, R), dtype=torch.float32, device=q_planes.device)
     w = plane_weights(limbs_from_planes(P))
     lib = _build.library()
-    err = lib.mvs_scan(
-        q_planes.data_ptr(), db_planes.data_ptr(), P, d_pad, B * d_pad,
-        R * d_pad, B, R, inv_n.data_ptr(), int(max(0, min(valid, R))),
-        w.ctypes.data_as(ctypes.c_void_p), scores.data_ptr(), R,
-        _build.launch_stream(q_planes.device))
+    with _build.launch_stream(q_planes.device) as stream:
+        err = lib.mvs_scan(
+            q_planes.data_ptr(), db_planes.data_ptr(), P, d_pad, B * d_pad,
+            R * d_pad, B, R, inv_n.data_ptr(), int(max(0, min(valid, R))),
+            w.ctypes.data_as(ctypes.c_void_p), scores.data_ptr(), R, stream)
     _build.check(err, "scan kernel")
     _build.count_launch("scan")
     return scores
@@ -384,10 +395,11 @@ def pair_partials(planes: torch.Tensor, rc: torch.Tensor, L: int,
     if n == 0:
         return out
     lib = _build.library()
-    err = lib.mvs_partials(planes.data_ptr(), ni * d_pad, planes_j.data_ptr(),
-                           nj * d_pad, L, d_pad, ni, nj, rc.data_ptr(), n,
-                           out.data_ptr(), flag.data_ptr(),
-                           _build.launch_stream(planes.device))
+    with _build.launch_stream(planes.device) as stream:
+        err = lib.mvs_partials(planes.data_ptr(), ni * d_pad,
+                               planes_j.data_ptr(), nj * d_pad, L, d_pad, ni,
+                               nj, rc.data_ptr(), n, out.data_ptr(),
+                               flag.data_ptr(), stream)
     _build.check(err, "partials kernel")
     _build.count_launch("partials")
     return out

@@ -105,10 +105,11 @@ def _project_cuda(hashes: torch.Tensor, offsets: torch.Tensor,
     if B == 0 or d == 0:
         return out
     lib = _build.library()
-    rc = lib.mvs_project(hashes.data_ptr(), offsets.data_ptr(),
-                         item_off.data_ptr(), B,
-                         B + hashes.numel() // chunk, chunk, d,
-                         out.data_ptr(), _build.launch_stream(hashes.device))
+    with _build.launch_stream(hashes.device) as stream:
+        rc = lib.mvs_project(hashes.data_ptr(), offsets.data_ptr(),
+                             item_off.data_ptr(), B,
+                             B + hashes.numel() // chunk, chunk, d,
+                             out.data_ptr(), stream)
     _build.check(rc, "projection kernel")
     _build.count_launch("projection")
     return out

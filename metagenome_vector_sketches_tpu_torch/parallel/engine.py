@@ -1,0 +1,158 @@
+"""Mesh-sharded device calls of the pairwise engine (JAX
+``parallel/engine.py``).
+
+One shard's tile grid is data-parallel over a :class:`~.mesh.Mesh`: the
+Karatsuba planes and thresholds are replicated to every slot, the tile
+coordinates of a round are split into one contiguous block per slot, and
+every slot runs the single-device kernels on its own block: kernel S
+(APPEND epilogue) and then kernel X on its survivors. Every slot is
+launched before any is synchronised; each slot reruns its own block at its
+exact capacity when its survivors overflow the buffer (kernel S counts past
+its cap); the slots' (rc, partials) come to the host in slot order, in the
+single-device layout, so matrix.compute's exact host finalize and the
+shard writer do not depend on the slot count. A 1-slot mesh is the
+single-device engine.
+
+Not ported: the two-phase engine's programs (JAX ``_counts_fn``,
+``_mask_fn``, ``_compact_fn``, ``_compact_words_fn`` and the
+``sweep_counts``, ``sweep_mask_bits``, ``sweep_compact``,
+``sweep_compact_words`` methods, which only that engine calls: JAX
+``compute.py:582, 811, 973, 1070, 1259``), because the port does not run
+that engine (ROADMAP A-list: deliberately not ported). The fused engine's
+``compact_cands_combined`` / ``split_combined`` have no counterpart
+either: kernel S's APPEND epilogue compacts in the sweep itself, and each
+slot's rows reach the host already split.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import pairwise as pw
+from .mesh import Mesh, replicated
+
+
+class MeshSweepOps:
+    """The engine's device calls over ``mesh`` (JAX ``MeshSweepOps``)."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.n_devices = mesh.size
+
+    # -- staging ------------------------------------------------------------
+    def replicate(self, *tensors):
+        """Each tensor on every slot's device -> one tuple of per-slot
+        tensors per argument (the tensor itself where a slot shares its
+        device)."""
+        out = tuple(replicated(self.mesh, t) for t in tensors)
+        return out if len(out) > 1 else out[0]
+
+    # -- helpers ------------------------------------------------------------
+    def _pad(self, coords: np.ndarray) -> tuple[list, int]:
+        """-> (per-slot contiguous blocks of coords, len(coords)): the
+        blocks of JAX ``_pad`` (ceil(t / n) tiles each, the last ones
+        shorter); its pad tiles are not launched, kernel S takes any
+        count."""
+        coords = np.asarray(coords, dtype=np.int32).reshape(-1, 2)
+        t = coords.shape[0]
+        k_loc = -(-t // self.n_devices)
+        return [coords[s * k_loc:(s + 1) * k_loc]
+                for s in range(self.n_devices)], t
+
+    # -- the engine's device calls ------------------------------------------
+    def sweep_extract_fused(self, planes, thr, bcoords, tile: int, cap: int,
+                            d: int, max_pairs: int, planes_j=None, thr_j=None,
+                            diag_offset: int = 0):
+        """Kernel S (APPEND, self-pairs masked) on every slot's block of
+        ``bcoords``, then each slot whose survivors overflow ``cap`` rerun
+        at its exact count. planes/thr (planes_j/thr_j: the column operand,
+        default the same) are per-slot replicas (:meth:`replicate`).
+
+        -> None when a slot of more than one tile found more than
+        ``max_pairs`` survivors (the caller halves its round), else (a list
+        of per-slot (rc (cap_s, 2) int32, n_s) on the slots' devices, None
+        for an empty block; the (K,) int32 per-tile survivor counts of
+        bcoords on the host), after each slot's stream finished its
+        sweep."""
+        planes_j = planes if planes_j is None else planes_j
+        thr_j = thr if thr_j is None else thr_j
+        blocks, _ = self._pad(bcoords)
+        m = self.mesh
+        live = [s for s in range(m.size) if len(blocks[s])]
+
+        def launch(s, c):
+            with m.slot(s):
+                return pw.sweep_extract(planes[s], thr[s], planes_j[s],
+                                        thr_j[s], blocks[s], tile, c, True,
+                                        d, diag_offset)
+
+        runs = {s: launch(s, cap) for s in live}
+        totals, counts = {}, []
+        for s in live:
+            with m.slot(s):
+                totals[s] = int(runs[s][2].item())
+                counts.append(runs[s][1].cpu().numpy())
+        if any(totals[s] > cap and totals[s] > max_pairs
+               and len(blocks[s]) > 1 for s in live):
+            return None
+        over = [s for s in live if totals[s] > cap]
+        reruns = {s: launch(s, totals[s]) for s in over}
+        for s in over:
+            with m.slot(s):
+                got = int(reruns[s][2].item())
+            if got != totals[s]:
+                raise RuntimeError(f"sweep rerun on slot {s} found {got} "
+                                   f"survivors, the first run {totals[s]}")
+            runs[s] = reruns[s]
+        return ([(runs[s][0], totals[s]) if s in runs else None
+                 for s in range(m.size)],
+                np.concatenate(counts) if counts
+                else np.zeros(0, dtype=np.int32))
+
+    def pair_partials(self, planes, swept, L: int, planes_j=None) -> list:
+        """Kernel X on every slot's survivors (``swept``: the per-slot list
+        of :meth:`sweep_extract_fused`), all slots launched first, then one
+        device->host copy per slot, in slot order -> per slot a host (n_s,
+        2 + P) int32 array: operand-local row, column, then the limb-pair
+        partials (None for an empty slot)."""
+        planes_j = planes if planes_j is None else planes_j
+        m = self.mesh
+        pending = []
+        for s, run in enumerate(swept):
+            if run is None:
+                pending.append(None)
+                continue
+            rc, n = run
+            with m.slot(s):
+                flag = pw.range_flag(m.devices[s])
+                parts = pw.pair_partials(planes[s], rc[:n], L, planes_j[s],
+                                         flag)
+                pending.append((torch.cat([rc[:n], parts], dim=1), flag))
+        out = []
+        for s, p in enumerate(pending):
+            if p is None:
+                out.append(None)
+                continue
+            with m.slot(s):
+                host = p[0].cpu().numpy()
+                pw.check_range_flag(p[1])
+            out.append(host)
+        return out
+
+    def block_total_max(self, per_tile_counts) -> int:
+        """Max over slots of the summed counts in that slot's contiguous
+        tile block (:meth:`_pad`'s blocks): the per-slot capacity basis.
+        Sizing from the global total would give every slot the whole
+        round's buffer."""
+        c = np.asarray(per_tile_counts, dtype=np.int64)
+        n = self.n_devices
+        k_pad = ((len(c) + n - 1) // n) * n
+        padded = np.zeros(k_pad, dtype=np.int64)
+        padded[:len(c)] = c
+        return int(padded.reshape(n, -1).sum(axis=1).max())
+
+    def max_tiles_scale(self) -> int:
+        """A round may hold n_devices times a single launch's tiles: kernel
+        S's 32-bit counts and the survivor buffer are both per slot."""
+        return self.n_devices

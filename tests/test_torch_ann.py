@@ -277,10 +277,19 @@ def test_jaccard_mesh_devices_zero_equals_jax(tmp_path, ref_toy_dir, capsys,
     assert out["port", "0"] == out["port", "1"] == out["jax", "0"]
 
 
-def test_jaccard_cli_refuses_mesh_and_missing_cuda(tmp_path, capsys):
-    rc = t_jaccard.main(["search", str(tmp_path), "q.txt", "--mesh_devices",
-                         "8", "--device", "cpu"])
-    assert rc == 2 and "not yet ported" in capsys.readouterr().err
+def test_jaccard_cli_refuses_mesh_and_missing_cuda(tmp_path, ref_toy_dir):
+    """More --mesh_devices than local devices raise ValueError in both
+    tools (the port's CPU has one device, the JAX tests' mesh eight)."""
+    with open(ref_toy_dir / "all_hashes_toy.txt") as f, \
+            open(tmp_path / "q.txt", "w") as g:
+        g.writelines(f.readlines()[:2])
+    db = str(ref_toy_dir / "toy_db_256")
+    for main, n, have, dev in ((t_jaccard.main, 8, 1, ["--device", "cpu"]),
+                               (j_jaccard.main, 9, 8, [])):
+        with pytest.raises(ValueError,
+                           match=f"need {n} local devices, have {have}"):
+            main(["search", db, str(tmp_path / "q.txt"), "--mesh_devices",
+                  str(n), *dev])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             t_jaccard.main(["index", str(tmp_path)])

@@ -201,13 +201,23 @@ def test_tools_refuse_to_run_without_cuda(tmp_path, ref_toy_dir):
 
 
 @pytest.mark.parametrize("flags", [["--mesh_devices", "4"]])
-def test_pairwise_comp_refuses_unported_engines(tmp_path, flags, capsys):
-    rc = t_pairwise.main(["--db", str(tmp_path), "--max_memory_gb", "1",
-                          "--num_threads", "1", "--output_folder",
-                          str(tmp_path / "m"), "--num_shards", "1",
-                          "--shard_idx", "0", "--device", "cpu", *flags])
-    assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_pairwise_comp_refuses_unported_engines(tmp_path, ref_toy_dir,
+                                                flags):
+    """--mesh_devices above the local device count raises ValueError in
+    both tools, before any shard is written (the port's CPU has one
+    device, the JAX tests' mesh eight)."""
+    n = int(flags[1])
+    for main, extra, want, have in (
+            (t_pairwise.main, ["--device", "cpu"], n, 1),
+            (j_pairwise.main, [], 8 * n, 8)):
+        args = ["--db", str(ref_toy_dir / "toy_db_256"), "--max_memory_gb",
+                "1", "--num_threads", "1", "--output_folder",
+                str(tmp_path / "m"), "--num_shards", "1", "--shard_idx", "0",
+                "--mesh_devices", str(want), *extra]
+        with pytest.raises(ValueError,
+                           match=f"need {want} local devices, have {have}"):
+            main(args)
+    assert not (tmp_path / "m").exists()
 
 
 @pytest.mark.parametrize("flags", [["--finalize", "device"],

@@ -582,3 +582,219 @@ def test_residency_cache_hit_on_cuda(cuda, tmp_path):
     for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
         assert filecmp.cmp(tmp_path / "hit" / "shard_1" / f,
                            tmp_path / "fresh" / "shard_1" / f, shallow=False)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer: slots of one card, and a second card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda1():
+    """The second card; skips on a host with fewer than two."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: torch.cuda.device_count() < 2")
+    return torch.device("cuda", 1)
+
+
+def _same_shard_files(a, b, shards=(0,)):
+    import filecmp
+    for s in shards:
+        for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+            assert filecmp.cmp(a / f"shard_{s}" / f, b / f"shard_{s}" / f,
+                               shallow=False), (s, f)
+
+
+def _mesh_shards(tmp_path, devices, budget):
+    """Shards 0 and 1 of 2 of a P = 3 db over a mesh of ``devices`` and on
+    the first device alone (resident, or streaming with budget 0)."""
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh
+    V, _, _, _ = _state("cpu", N=1500, d=200, max_abs=3000)
+    V[1000:1010] = V[5]
+    db = DbFolder.write(str(tmp_path / "db"), [f"S{i}" for i in range(1500)],
+                        V, 200)
+    mesh = Mesh(devices)
+    kw = dict(tile_rows=128, verbose=False, device_budget_bytes=budget)
+    mc.clear_device_cache()
+    _build.reset_launch_counts()
+    for s in range(2):
+        mc.compute_pairwise_shard(db.path, str(tmp_path / "mesh"), 2, s,
+                                  mesh=mesh, device=devices[0], **kw)
+    launches = _build.launch_counts()
+    assert launches["sweep"] > 0 and launches["partials"] > 0
+    mc.clear_device_cache()
+    for s in range(2):
+        mc.compute_pairwise_shard(db.path, str(tmp_path / "single"), 2, s,
+                                  device=devices[0], **kw)
+    mc.clear_device_cache()
+    _same_shard_files(tmp_path / "mesh", tmp_path / "single", (0, 1))
+
+
+@pytest.mark.parametrize("budget", [None, 0])
+def test_mesh_two_slots_of_one_card_equal_single(cuda, tmp_path, budget):
+    """Two slots of cuda:0, each on its own stream: resident and streaming
+    shards byte-equal to the single-device ones."""
+    _mesh_shards(tmp_path, [torch.device("cuda", 0)] * 2, budget)
+
+
+def test_distributed_on_two_slots_of_one_card(cuda, tmp_path):
+    """The distributed int8 index (from a built index and straight from a
+    db folder), the f32 top-k and the pipeline step over two slots of
+    cuda:0: equal to the single-device index and to the CPU mesh."""
+    from metagenome_vector_sketches_tpu_torch.ann.distributed import (
+        DistributedIntExactIndex)
+    from metagenome_vector_sketches_tpu_torch.ann.flat_index import (
+        FlatIPIndex, normalize_l2)
+    from metagenome_vector_sketches_tpu_torch.ann.int_index import (
+        IntExactIndex)
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh
+    from metagenome_vector_sketches_tpu_torch.parallel.pairwise import (
+        distributed_topk)
+    from metagenome_vector_sketches_tpu_torch.parallel.pipeline import (
+        make_pipeline_step)
+    mesh = Mesh([torch.device("cuda", 0)] * 2)
+    rng = np.random.default_rng(71)
+    V = rng.integers(-3000, 3001, size=(1100, 200)).astype(np.int32)
+    V[700] = V[3]
+    Q = rng.integers(-3000, 3001, size=(37, 200)).astype(np.int32)
+    Q[0] = V[3]
+    db = DbFolder.write(str(tmp_path / "db"), [f"S{i}" for i in range(1100)],
+                        V, 200)
+    single = IntExactIndex(V, chunk_rows=300, device=cuda)
+    Ds, Is = single.search(Q, 40)
+    for dist in (DistributedIntExactIndex.from_index(single, mesh=mesh),
+                 DistributedIntExactIndex.from_dbfolder(db.path, mesh=mesh,
+                                                        chunk_rows=256)):
+        D, I = dist.search(Q, 40)
+        assert np.array_equal(I, Is) and np.array_equal(D, Ds)
+    assert Is[0, :2].tolist() == [3, 700]
+    Vf = normalize_l2(V.astype(np.float32))
+    Qf = normalize_l2(Q.astype(np.float32))
+    Df, If = FlatIPIndex(Vf, device=cuda).search(Qf, 10)
+    D, I = distributed_topk(mesh, torch.from_numpy(Qf).to(cuda),
+                            torch.from_numpy(Vf).to(cuda), 10)
+    scores = Qf.astype(np.float64) @ Vf.astype(np.float64).T
+    for b in range(len(Q)):
+        got, want = set(I[b].tolist()), set(If[b].tolist())
+        if got != want:
+            np.testing.assert_allclose(np.sort(scores[b][list(got)]),
+                                       np.sort(scores[b][list(want)]),
+                                       rtol=1e-6)
+    np.testing.assert_allclose(np.sort(D.cpu().numpy(), axis=1),
+                               np.sort(Df, axis=1), rtol=0, atol=1e-6)
+    hi = rng.integers(0, 1 << 32, size=(64, 300), dtype=np.uint64)
+    lo = rng.integers(0, 1 << 32, size=(64, 300), dtype=np.uint64)
+    hi[1], lo[1] = hi[0], lo[0]
+    counts = rng.integers(1, 301, size=64).astype(np.int32)
+    counts[1] = counts[0]
+    args = (hi.astype(np.uint32), lo.astype(np.uint32), counts)
+    s_g, _, _ = make_pipeline_step(mesh, 256, 2, 5)(*args)
+    s_c, _, _ = make_pipeline_step(Mesh(["cpu"] * 2), 256, 2, 5)(*args)
+    assert torch.equal(s_g.cpu(), s_c) and bool((s_c[:2] >= 2).all())
+
+
+def test_slot_results_are_handed_off_before_a_gather(cuda, monkeypatch):
+    """A slot's results reach the current stream only after the slot's
+    stream has made them. Each check runs twice: a warm-up on other values
+    loads every kernel (a kernel's first launch loads its module, which
+    waits for the whole device) and leaves stale values in the blocks the
+    allocator hands out next. Then slot 1 (first through
+    Mesh.gather_slots), or every slot of the pipeline step (after kernel
+    P), sleeps on its stream before it writes, so a gather that did not
+    wait for the slots would read stale values. The step's survivors and
+    top-k must equal the CPU mesh's."""
+    from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh
+    from metagenome_vector_sketches_tpu_torch.parallel.pipeline import (
+        make_pipeline_step)
+    dev = torch.device("cuda", 0)
+    mesh = Mesh([dev] * 2)
+    n = 1 << 22
+
+    def gathered(base, cycles):
+        parts = []
+        for s in range(2):
+            with mesh.slot(s):
+                if s == 1:
+                    torch.cuda._sleep(cycles)
+                parts.append(torch.arange(n, dtype=torch.int32, device=dev)
+                             * 3 + base + s)
+        return mesh.gather_slots(parts)
+
+    gathered(0, 1)
+    torch.cuda.synchronize()
+    want = torch.cat([torch.arange(n, dtype=torch.int32) * 3 + 10 + s
+                      for s in range(2)])
+    assert torch.equal(gathered(10, 200_000_000).cpu(), want)
+
+    def batch(seed):
+        rng = np.random.default_rng(seed)
+        hi = rng.integers(0, 1 << 32, size=(64, 300), dtype=np.uint64)
+        lo = rng.integers(0, 1 << 32, size=(64, 300), dtype=np.uint64)
+        return (hi.astype(np.uint32), lo.astype(np.uint32),
+                rng.integers(1, 301, size=64).astype(np.int32))
+
+    args = batch(72)
+    s_c, i_c, d_c = make_pipeline_step(Mesh(["cpu"] * 2), 256, 2, 5)(*args)
+    step = make_pipeline_step(mesh, 256, 2, 5)
+    step(*batch(73))
+    torch.cuda.synchronize()
+    project = pj.project_batch
+
+    def delayed(*a, **kw):
+        vecs = project(*a, **kw)
+        torch.cuda._sleep(100_000_000)
+        return vecs.clone()                  # written after the sleep
+
+    monkeypatch.setattr(pj, "project_batch", delayed)
+    s_g, i_g, d_g = step(*args)
+    assert torch.equal(s_g.cpu(), s_c)
+    assert torch.equal(i_g[:, 0].cpu(), torch.arange(64, dtype=torch.int32))
+    np.testing.assert_allclose(d_g.cpu().numpy(), d_c.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+def test_each_kernel_launches_on_the_second_card(cuda1, tmp_path):
+    """Kernels P, S (COUNT, APPEND, SCORE), X and G launched on cuda:1 with
+    cuda:0 current for PyTorch: every output lies on cuda:1 and equals the
+    plain version; the current device is left as it was. Then a mesh over
+    cuda:0 and cuda:1 writes the single-device shards."""
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    torch.cuda.set_device(0)
+    _build.reset_launch_counts()
+    _project_both(cuda1, [0, 1, 31, 1000, 7], 2048)
+    _, L, planes, thr = _state(cuda1, max_abs=3000)
+    assert torch.equal(pp.sweep_counts(planes, thr, 200, block=128),
+                       pp.sweep_counts_plain(planes, thr, 200, block=128))
+    coords = np.array([(r, c) for r in range(4) for c in range(r, 4)])
+    got = pw.sweep_extract(planes, thr, planes, thr, coords, 128, 1 << 16,
+                           True, 200)
+    want = pw.sweep_extract_plain(planes, thr, planes, thr, coords, 128,
+                                  1 << 16, True, 200)
+    n = int(want[2].item())
+    assert got[0].device == cuda1 and torch.equal(got[2], want[2])
+    assert _survivors(got[0], n) == _survivors(want[0], n)
+    rc = torch.randint(0, 512, (3000, 2), dtype=torch.int32, device=cuda1)
+    flag = pw.range_flag(cuda1)
+    parts = pw.pair_partials(planes, rc, L, flag=flag)
+    pw.check_range_flag(flag)
+    assert parts.device == cuda1
+    assert torch.equal(parts, pw.pair_partials_plain(planes, rc, L))
+    _, qp, db, inv = _scan_state(cuda1, 1000, 200, 3000, 37, seed=5)
+    assert torch.equal(pw.scan_scores(qp, db, inv, 1000),
+                       pw.scan_scores_plain(qp, db, inv, 1000))
+    A = _padded_incidence(cuda1, 300, 1000, 0.05, 3)
+    C = torch.zeros((A.shape[0],) * 2, dtype=torch.int32, device=cuda1)
+    W = torch.zeros_like(C)
+    mh.gram_accumulate(C, A)
+    mh.gram_accumulate_plain(W, A)
+    assert torch.equal(mh.mirror_upper(C), W)
+    torch.cuda.synchronize(cuda1)
+    assert torch.cuda.current_device() == 0
+    assert all(v > 0 for v in _build.launch_counts().values())
+    _mesh_shards(tmp_path, [torch.device("cuda", 0), cuda1], None)

@@ -129,7 +129,9 @@ def test_plain_scan_equals_jax_int_scan_pool(pool):
     jdots = np.einsum("p,pbk->bk", pm.plane_weights_int(ref.L), jp)
     _, ti, tp = tii._int_scan_pool(tii.query_planes(Q, port.L, "cpu"), 5,
                                    port._stack, port._inv_n, n, R, pool,
-                                   port.L, pw.range_flag("cpu"))
+                                   port.L, pw.range_flag("cpu"),
+                                   *tii.chunk_layout(port._stack.shape[0], R,
+                                                     n))
     ti, tp = ti.numpy(), tp.numpy()
     assert ti.shape == ji.shape == (5, min(pool, n))
     tdots = pm.combine_plane_partials(tp.reshape(-1, tp.shape[2]).T,

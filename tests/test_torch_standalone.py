@@ -38,7 +38,9 @@ def test_port_alone_walkthrough(tmp_path):
     """A fresh interpreter imports every module of the port and drives the
     CPU walkthrough through its command-line tools: sketch -> pairwise_comp
     -> query_pc_mat (and the pybind drop-in) -> jaccard index / search ->
-    pairwise_comp --strategy 1. Neither jax nor any module of the JAX package gets loaded."""
+    pairwise_comp --strategy 1, then the multi-device layer (parallel/,
+    ann/distributed.py) on a 2-slot CPU mesh. Neither jax nor any module of
+    the JAX package gets loaded."""
     t = str(tmp_path)
     code = f"""
 import importlib, os, pkgutil, sys
@@ -84,6 +86,29 @@ assert pairwise_comp.main(base_args + ["--output_folder", p("mh"),
                                        p("h.txt")]) == 0
 for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
     assert os.path.getsize(p("mh", "shard_0", f)) > 0
+# the multi-device layer on a 2-slot CPU mesh: shard, indexes, top-k,
+# pipeline step, multi-process helpers
+from {PKG}.ann.distributed import DistributedIntExactIndex
+from {PKG}.matrix.compute import compute_pairwise_shard
+from {PKG}.parallel import multihost
+from {PKG}.parallel.mesh import Mesh
+from {PKG}.parallel.pairwise import distributed_topk
+from {PKG}.parallel.pipeline import make_pipeline_step
+mesh = Mesh(["cpu", "cpu"])
+compute_pairwise_shard(p("db"), p("mm"), mesh=mesh, verbose=False,
+                       device="cpu")
+assert open(p("mm", "shard_0", "matrix.bin"), "rb").read() == \\
+    open(p("m", "shard_0", "matrix.bin"), "rb").read()
+idx = DistributedIntExactIndex.from_dbfolder(p("db"), mesh=mesh)
+V = np.fromfile(p("db", "vectors.bin"), dtype=np.int32).reshape(48, 128)
+assert idx.search(V[:2], 3)[1][:, 0].tolist() == [0, 1]
+D, I = distributed_topk(mesh, np.eye(2, 8, dtype=np.float32),
+                        np.eye(8, dtype=np.float32), 1)
+assert I[:, 0].tolist() == [0, 1]
+hi = rng.integers(0, 2**32, size=(4, 8), dtype=np.uint64).astype(np.uint32)
+surv, _, _ = make_pipeline_step(mesh, 2048, 1, 2)(hi, hi, np.full(4, 8))
+assert surv.tolist() == [1, 1, 1, 1]
+assert multihost.host_shards(3) == [0, 1, 2]
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "metagenome_vector_sketches_tpu"))
 assert not loaded, loaded
