@@ -13,7 +13,11 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    nonzero diagonal offset, partials X, incidence Gram G at ragged n and
    u), and S's TMA/wgmma core at the edges of its contract (d_pad 64, 192,
    2048; P = 1, 3, 6, 10; 128-row and 128 x 256 tiles; diag_offset +-128;
-   SCORE at B = 1 and 256 with a ragged valid count; G at n = 128, 384);
+   SCORE at B = 1 and 256 with a ragged valid count; G at n = 128, 384),
+   and the selection K bit-equal (keys, lanes, merged keys, positions) at
+   kc = 1, R/128, R/128 + 1, R and past its shared-memory sort, with valid
+   < R, all -inf rows, ties straddling 128-lane blocks, B = 1 and 256, an
+   empty and a full running pool, and on its key entry;
 2. main: the main path at N accessions x d = 2048 — synthetic hash sets
    with planted groups -> sketch (P) -> one pairwise shard (S, X) ->
    top-k queries of planted rows; planted recall must be 1.0, an exact
@@ -36,12 +40,14 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
 4. ann: ANN serving at the JAX package's ANN-at-scale size
    (benchmarks/ann_scale.py): N = 1,048,576 x d = 2048 int32 sketch-like
    vectors made on the card with planted groups of 4, the int8-plane
-   engine (scan S + X) and the f32 engine built from device chunks; planted
-   recall 1.0 for both, the int8 engine's (D, I) equal to a float64 brute
-   force on the card, the f32 engine within 1e-5 of it, one adaptive
-   search per engine, the scan and two-operand partials kernels against
-   their plain versions (S SCORE's TOP/s, bound and yardstick), and the
-   search / adaptive walls;
+   engine (scan S + selection K + X) and the f32 engine built from device
+   chunks (float32 product + K); planted recall 1.0 for both, the int8
+   engine's (D, I) equal to a float64 brute force on the card, the f32
+   engine within 1e-5 of it, one adaptive search per engine, the scan,
+   selection and two-operand partials kernels against their plain versions
+   (S SCORE's TOP/s, bound and yardstick; K's wrapper and kernel-alone ms
+   beside its bound, torch.topk over the packed keys and rank_keys), the
+   search / adaptive walls and both engines' search stages;
 5. stream: the beyond-memory streaming engine on phase 2's db with the
    device budget at half its planes' bytes (8 row groups x 8 windows at
    N = 65,536): its shard must be byte-equal to phase 2's resident shard;
@@ -107,9 +113,11 @@ REPLACES = {
     "partials": "metagenome_vector_sketches_tpu/ops/pairwise.py:888",
     "scan": "metagenome_vector_sketches_tpu/ann/int_index.py:124",
     "gram": "metagenome_vector_sketches_tpu/ops/minhash.py:47",
+    "select": "metagenome_vector_sketches_tpu/ann/int_index.py:155",
 }
 SOURCES = {"projection": "projection.cu", "sweep": "sweep.cu",
-           "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu"}
+           "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu",
+           "select": "select.cu"}
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
 # the card's published rates (H100 SXM, dense, at 700 W): int8 tensor cores,
 # the rate outside the tensor cores (float32; kernel X's integer work is
@@ -123,7 +131,7 @@ HBM_RATE = 3.35e12
 SPLITMIX_SASS = 22
 # the kernels each counted path must launch
 MAIN_KERNELS = ("projection", "sweep", "partials")
-ANN_KERNELS = ("scan", "partials")
+ANN_KERNELS = ("scan", "partials", "select")
 STREAM_KERNELS = ("sweep", "partials")
 MINHASH_KERNELS = ("gram",)
 
@@ -350,6 +358,93 @@ def _core_cases(errs):
         "diag_offset +-128), SCORE (B 1/256, 555 of 640 valid): exact")
 
 
+def _select_err(got, want, what):
+    """Fails unless kernel K's outputs equal the plain version's bit for
+    bit -> the largest difference (0): of the lanes / positions, and of
+    the scores the keys decode to."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and torch.equal(g, w),
+              f"kernel K differs from plain ({what})")
+        if g.numel():     # keys (outputs 0, 2) by their decoded scores
+            d = (sel.key_scores(g) - sel.key_scores(w)).nan_to_num(0.0) \
+                if i % 2 == 0 else (g - w)
+            err = max(err, float(d.abs().max()))
+    return err
+
+
+def _select_scores(B, R, valid, seed, all_inf_row=False):
+    """(B, R) float32 scores on the card with large exact-tie classes (+0.0
+    and -0.0 among them) and runs of the row maximum across 128-lane
+    blocks; -inf past valid."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = torch.randint(-6, 7, (B, R), generator=g, device="cuda") \
+        .to(torch.float32) / 4
+    S[:, 1::9] = -0.0
+    for a, b in ((120, 136), (255, 258), (1023, 1026)):
+        S[:, a:min(b, R)] = 2.0
+    S[:, valid:] = float("-inf")
+    if all_inf_row:
+        S[0] = float("-inf")
+    return S
+
+
+def _select_cases(errs):
+    """Kernel K against its plain version, bit for bit: the chunk entry at
+    kc = 1, R/128 (every lane), R/128 + 1 and R on 2,048 lanes, and kc =
+    2,500 of 5,000 lanes (the sort in global scratch); valid < R, fewer
+    valid lanes than kc, an all -inf row; B = 1 and 256; an empty running
+    pool and a full one (W0 = pool); rows of a wider tensor; then the key
+    entry at W = 228 (a merge's width), 7,000 and 9,000 (k = 2,100)."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    n = 0
+    for B in (1, 256):
+        for R, kc in ((2048, 1), (2048, 16), (2048, 17), (2048, 2048),
+                      (5000, 2500)):
+            for valid, full in ((R, False), (1500, True), (5, True),
+                                (R, True)):
+                pool = max(kc, 7)
+                S = _select_scores(B, R, valid, seed=B + kc + valid,
+                                   all_inf_row=valid == R and full)
+                if full:   # the pool a previous chunk's merge leaves
+                    prev = _select_scores(B, 3 * pool + 1, 3 * pool + 1,
+                                          seed=kc + 1)
+                    best = sel.select_keys_plain(sel.rank_keys(
+                        prev, torch.arange(3 * pool + 1, device="cuda")),
+                        pool)[0].contiguous()
+                else:
+                    best = torch.empty((B, 0), dtype=torch.int64,
+                                       device="cuda")
+                args = (S, 7000, valid, 90000, kc, best, pool)
+                errs["select"] = max(errs["select"], _select_err(
+                    sel.select_chunk(*args), sel.select_chunk_plain(*args),
+                    f"B={B} R={R} kc={kc} valid={valid} W0={best.shape[1]}"))
+                n += 1
+    wide = _select_scores(300, 2200, 2200, seed=3)
+    best = sel.select_keys_plain(sel.rank_keys(
+        _select_scores(256, 500, 500, seed=4),
+        torch.arange(500, device="cuda")), 114)[0].contiguous()
+    for S in (wide[:256], wide[:256, 100:2148]):
+        args = (S, 0, 2000, 2 ** 32 - 1, 114, best, 114)
+        errs["select"] = max(errs["select"], _select_err(
+            sel.select_chunk(*args), sel.select_chunk_plain(*args),
+            "rows of a wider tensor"))
+    for B, W, k in ((256, 228, 114), (37, 7000, 50), (2, 9000, 2100)):
+        S = _select_scores(B, W, W, seed=W)
+        keys = sel.rank_keys(S, torch.randint(0, 40, (B, W), device="cuda"))
+        errs["select"] = max(errs["select"], _select_err(
+            sel.select_keys(keys, k), sel.select_keys_plain(keys, k),
+            f"keys B={B} W={W} k={k}"))
+    torch.cuda.synchronize()
+    say(f"[kernels] K: {n} chunk cases (kc 1/16/17/2048 of 2048 lanes, "
+        "2500 of 5000; valid < R, valid < kc, an all -inf row; B 1/256; W0 "
+        "0/pool), 2 strided, 3 key cases: exact")
+
+
 def phase_kernels(errs):
     import torch
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
@@ -465,6 +560,7 @@ def phase_kernels(errs):
             f"{-N // 4}), X {len(ch)} pairs exact")
 
     _core_cases(errs)
+    _select_cases(errs)
 
     # G: ragged n and u (zero padded), two chunks accumulated
     for n, u in ((1, 1), (130, 100), (1000, 5000), (2000, 16384), (128, 64),
@@ -1317,6 +1413,7 @@ def _brute_force(chunks, Q, k):
 def phase_ann(N, errs, timings):
     import torch
     from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ann import flat_index as fi
     from metagenome_vector_sketches_tpu_torch.ann import int_index as ii
     from metagenome_vector_sketches_tpu_torch.ann import search as asearch
     from metagenome_vector_sketches_tpu_torch.ann.flat_index import (
@@ -1364,6 +1461,7 @@ def phase_ann(N, errs, timings):
     t0 = time.perf_counter()
     Df, If = flat.search(Qn, ANN_K)
     t_f32 = time.perf_counter() - t0
+    f32_stages = dict(fi.LAST_SEARCH_STAGES)
     walls = {}
     adaptive = {}
     for name, idx, qi in (("int8", index, V_q), ("f32", flat, None)):
@@ -1380,6 +1478,7 @@ def phase_ann(N, errs, timings):
         f"int8 {walls['int8'] * 1e3:.1f} ms, f32 {walls['f32'] * 1e3:.1f} "
         f"ms; launches {launches}")
     say(f"[ann] int8 search stages {json.dumps(int_stages)}")
+    say(f"[ann] f32 search stages {json.dumps(f32_stages)}")
     for name in ("int8", "f32"):
         say(f"[ann] adaptive {name} stages {json.dumps(adaptive[name][1])}")
 
@@ -1458,9 +1557,78 @@ def phase_ann(N, errs, timings):
         f"alone (profiler) {alone_str(x_alone)}, plain {t_x['plain_ms']:.4f} "
         f"ms, bound {t_x['bound_ms']:.4f} ms ({t_x['bound_by']}) "
         f"({len(rc)} pooled pairs); exact")
+    _time_select(index, qp, N, valid, errs, timings)
     say(f"[ann] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         " GiB")
     return launches
+
+
+def _time_select(index, qp, N, valid, errs, timings):
+    """Kernel K at the int8 search's shape: chunk 0's (B, 262,144) scores
+    merged into the pool chunk 1 leaves (kc = W0 = pool_for(k) = 114),
+    bit-equal to its plain version; its wrapper ms (CUDA events), the
+    kernel alone (profiler, both of its kernels and each), the plain
+    version, the bound (the scores read once, the pool read and the
+    outputs written once, at HBM_RATE) and torch.topk over the packed keys
+    (rank_keys timed on its own). Also the f32 engine's shape (kc = W0 =
+    50)."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    pool = index.pool_for(ANN_K)
+    kc = min(pool, ANN_CHUNK)
+    c1 = min(1, index._stack.shape[0] - 1)
+    v1 = min(ANN_CHUNK, N - c1 * ANN_CHUNK)
+    sc0 = pw.scan_scores(qp, index._stack[0], index._inv_n[0], valid)[:ANN_B]
+    sc1 = pw.scan_scores(qp, index._stack[c1], index._inv_n[c1], v1)[:ANN_B]
+    empty = torch.empty((ANN_B, 0), dtype=torch.int64, device="cuda")
+    cases = {}
+    for name, k in (("int8", kc), ("f32", ANN_K)):
+        best = sel.select_chunk(sc1, c1 * ANN_CHUNK, v1, N, k, empty,
+                                k)[2]
+        args = (sc0, 0, valid, N, k, best, k)
+        errs["select"] = max(errs["select"], _select_err(
+            sel.select_chunk(*args), sel.select_chunk_plain(*args),
+            f"phase 4's {name} shape"))
+        cases[name] = args
+    args = cases["int8"]
+    B, R = sc0.shape
+    wm = min(pool, kc + args[5].shape[1])
+    nbytes = 4 * B * R + 8 * B * args[5].shape[1] + 16 * B * (kc + wm)
+    lane = torch.arange(R, device="cuda")
+    keys = sel.rank_keys(sc0, torch.where(lane < valid, lane, N))
+    rank_ms = cuda_ms(lambda: sel.rank_keys(
+        sc0, torch.where(lane < valid, lane, N)))
+    library = cuda_ms(lambda: torch.topk(keys, kc, dim=1))
+    del keys
+    timings["select"] = t = timed(
+        cuda_ms(lambda: sel.select_chunk(*args)),
+        cuda_ms(lambda: sel.select_chunk_plain(*args), reps=1), 0,
+        INT8_PEAK, nbytes, library)
+    fn = lambda: sel.select_chunk(*args)           # noqa: E731
+    alone = kernel_ms(fn, "select_")
+    parts = {k: kernel_ms(fn, k) for k in ("select_block_max",
+                                            "select_rows")}
+    f32_ms = cuda_ms(lambda: sel.select_chunk(*cases["f32"]))
+    # kc = R, an adaptive deep level's shape: every lane a candidate, the
+    # sort in global scratch
+    deep = (sc0, 0, valid, N, R, empty, R)
+    errs["select"] = max(errs["select"], _select_err(
+        sel.select_chunk(*deep), sel.select_chunk_plain(*deep), "kc = R"))
+    deep_ms = cuda_ms(lambda: sel.select_chunk(*deep), reps=3)
+    deep_plain = cuda_ms(lambda: sel.select_chunk_plain(*deep), reps=1)
+    say(f"[ann] select (K) at kc = R = {R} (an adaptive deep level): "
+        f"wrapper {deep_ms:.3f} ms, plain {deep_plain:.3f} ms; bit-equal")
+    say(f"[ann] select (K): wrapper {t['ms']:.4f} ms, kernel alone "
+        f"(profiler) {alone_str(alone)} (block maxima "
+        f"{alone_str(parts['select_block_max'])}, rows "
+        f"{alone_str(parts['select_rows'])}), plain {t['plain_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: the {B} x {R} "
+        f"scores read once); {100 * t['bound_ms'] / t['ms']:.1f}% of the "
+        f"bound; bit-equal (kc = W0 = {kc})")
+    say(f"[ann] select yardsticks, not kernels of the port: torch.topk over "
+        f"the packed keys {library:.4f} ms, rank_keys {rank_ms:.4f} ms; K at "
+        f"the f32 shape (kc = W0 = {ANN_K}) {f32_ms:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1647,7 +1815,7 @@ def phase_minhash(work, errs, timings):
 # phase 8: the multi-device layer on two slots of the one card
 # ---------------------------------------------------------------------------
 
-MESH_KERNELS = ("projection", "sweep", "partials", "scan")
+MESH_KERNELS = ("projection", "sweep", "partials", "scan", "select")
 PIPE_B = 4096           # phase 2's first sets: its planted groups of 4
 
 

@@ -39,8 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launch counters: "sweep" counts kernel S in its COUNT/APPEND epilogues,
 # "scan" in its SCORE epilogue (the int8 ANN engine), "gram" kernel G (the
-# MinHash incidence Gram)
-KERNELS = ("projection", "sweep", "partials", "scan", "gram")
+# MinHash incidence Gram), "select" kernel K (the ANN top-k selection)
+KERNELS = ("projection", "sweep", "partials", "scan", "gram", "select")
 _launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -68,6 +68,10 @@ _SIGNATURES = {
                      _P],
     # a, n, ld, c, ldc, stream
     "mvs_gram": [_P, _I, _I, _P, _LL, _P],
+    # scores, keys, ld, rows, width, base, valid, none, kc, bm, scratch_key,
+    # scratch_lane, out_key, out_lane, best, w0, wm, m_key, m_pos, stream
+    "mvs_select": [_P, _P, _LL, _I, _I, _LL, _LL, _LL, _I, _P, _P, _P, _P,
+                   _P, _P, _I, _I, _P, _P, _P],
 }
 
 

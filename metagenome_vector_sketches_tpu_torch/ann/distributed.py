@@ -27,7 +27,7 @@ from ..parallel.pairwise import decode_keys, distributed_topk
 from .flat_index import FlatIPIndex
 from .int_index import (IntExactIndex, _dbfolder_staging, _int_scan_pool,
                         _inv_norms, chunk_layout)
-from .select import rank_keys
+from .select import rank_keys, select_keys
 
 
 def _mesh_for(mesh, device) -> Mesh:
@@ -362,7 +362,7 @@ class DistributedIntExactIndex(IntExactIndex):
         """The ``width`` best keys of each row, padded with no-row keys
         (-inf, index ``none``), and their partials (zeros on the pad)."""
         B, W = keys.shape
-        top, pos = torch.topk(keys, min(width, W), dim=1)
+        top, pos = select_keys(keys, width)             # kernel K
         p = torch.gather(parts, 1, pos[:, :, None].expand(-1, -1,
                                                           parts.shape[2]))
         pad = width - top.shape[1]

@@ -3,8 +3,9 @@
 Port of ``metagenome_vector_sketches_tpu/ann/flat_index.py`` (the FAISS
 IndexFlatIP of the reference's jaccard.py). Search streams the database
 chunk by chunk: a float32 matrix product of the queries with the chunk,
-the chunk's top-k and a running merge (``ann.select``: exact, lowest index
-first among equal scores, as ``jax.lax.top_k``). The products are plain
+then kernel K (``ann.select``): the chunk's top-k and its merge into the
+running top-k (exact, lowest index first among equal scores, as
+``jax.lax.top_k``). The products are plain
 ``torch.matmul`` in true float32: TF32 is switched off for the call
 (:func:`fp32_matmul`), because TF32 scores are ~1e-3 off and break FAISS
 parity.
@@ -23,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import os
 import struct
+import time
 
 import numpy as np
 import torch
@@ -30,10 +32,17 @@ import torch
 from .._device import resolve_device
 from . import faissio
 from ..io.dbfolder import DbFolder
-from .select import key_index, key_scores, merge_topk, rank_keys
+from .select import (key_index, key_scores, rank_keys, select_chunk,
+                     select_keys)
 
 MAGIC = b"MVSFLATIP\x00"
 VERSION = 1
+
+# per-stage wall split of the LAST FlatIPIndex.search() call: dispatch_ms
+# (enqueue of the chunk products and selections), device_d2h_ms (the
+# device->host copy of (D, I), which waits for them), finalize_ms (host
+# padding)
+LAST_SEARCH_STAGES: dict = {}
 
 
 def normalize_l2(x: np.ndarray) -> np.ndarray:
@@ -85,12 +94,15 @@ def _scan_topk(queries: torch.Tensor, chunks, n_total: int, k: int,
     best = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
     for base, chunk in chunks:
         x = _bf16(chunk) if precision == "bf16" else chunk.float()
+        rows = x.shape[0]
         scores = q @ x.T                                # (B, rows)
-        idx = base + torch.arange(x.shape[0], device=q.device)
-        scores = scores.masked_fill(idx[None, :] >= n_total, float("-inf"))
-        keys, _ = torch.topk(rank_keys(scores, idx), min(kk, x.shape[0]),
-                             dim=1)
-        best, _ = merge_topk(best, keys, kk)
+        if base + rows > n_total:       # rows past n_total score -inf
+            lane = torch.arange(rows, device=q.device)
+            scores = scores.masked_fill(lane[None, :] >= n_total - base,
+                                        float("-inf"))
+        # kernel K: every lane keeps its index base + lane
+        _, _, best, _ = select_chunk(scores, base, rows, 0, min(kk, rows),
+                                     best, kk)
     return key_scores(best), key_index(best)
 
 
@@ -105,8 +117,7 @@ def _rescore_exact(queries: torch.Tensor, flat: torch.Tensor,
     scores = scores.masked_fill((cand_i < 0) | (cand_i >= n_total),
                                 float("-inf"))
     pos = torch.arange(cand_i.shape[1], device=cand_i.device)
-    keys, _ = torch.topk(rank_keys(scores, pos),
-                         min(k, cand_i.shape[1]), dim=1)
+    keys, _ = select_keys(rank_keys(scores, pos), k)
     return key_scores(keys), torch.gather(cand_i, 1, key_index(keys))
 
 
@@ -217,13 +228,21 @@ class FlatIPIndex:
             B = q.shape[0]
             return np.zeros((B, k), np.float32), np.full((B, k), -1,
                                                          np.int32)
+        LAST_SEARCH_STAGES.clear()
+        t0 = time.perf_counter()
         best_d, best_i = self.search_device(q.to(self.device), k)
+        LAST_SEARCH_STAGES["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
         D = best_d.cpu().numpy().copy()
         I = best_i.cpu().numpy().astype(np.int32)
+        LAST_SEARCH_STAGES["device_d2h_ms"] = \
+            (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
         D[I < 0] = 0.0
         if k_eff < k:
             D = np.pad(D, ((0, 0), (0, k - k_eff)))
             I = np.pad(I, ((0, 0), (0, k - k_eff)), constant_values=-1)
+        LAST_SEARCH_STAGES["finalize_ms"] = (time.perf_counter() - t0) * 1e3
         return D, I
 
     # -- persistence ---------------------------------------------------------

@@ -10,9 +10,9 @@ on the CPU R_pad = R. A query batch is scanned chunk by chunk:
 1. kernel S, SCORE epilogue (``ops.pairwise.scan_scores``): the plane-order
    float32 combine of the exact plane products times 1/|v|, -inf on lanes
    past the chunk's valid rows;
-2. the chunk's top-``kc`` in torch, merged into the running top-``pool``
-   (``ann.select``: exact, lowest index first among equal scores — the
-   tie order of ``jax.lax.top_k``);
+2. kernel K (``ann.select.select_chunk``): the chunk's top-``kc``, merged
+   into the running top-``pool`` (exact, lowest index first among equal
+   scores — the tie order of ``jax.lax.top_k``);
 3. kernel X (``ops.pairwise.pair_partials`` with two operands) on the
    chunk's selected (query, row) pairs: exact int32 limb-pair partials,
    carried through the merge;
@@ -39,7 +39,7 @@ from .._device import resolve_device
 from ..io.dbfolder import DbFolder
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
-from .select import key_index, key_scores, merge_topk, rank_keys
+from .select import key_index, key_scores, select_chunk
 
 # per-stage wall split of the LAST IntExactIndex.search() call (the keys of
 # the JAX engine's): prep_ms (query planes on the device), dispatch_ms
@@ -123,11 +123,10 @@ def _int_scan_pool(q_planes: torch.Tensor, B: int, stack: torch.Tensor,
     order. Kernel X counts out-of-range pairs into ``flag``
     (``pw.range_flag``), which the caller reads with
     ``pw.check_range_flag`` where it next synchronises."""
-    C, P, R_pad, _ = stack.shape
+    C, P = stack.shape[:2]
     dev = stack.device
     pool_eff = min(pool, C * R)
     kc = min(pool_eff, R)
-    lane = torch.arange(R_pad, device=dev)
     rows = torch.arange(B, dtype=torch.int32, device=dev)[:, None] \
         .expand(B, kc)
     best = torch.empty((B, 0), dtype=torch.int64, device=dev)
@@ -135,13 +134,12 @@ def _int_scan_pool(q_planes: torch.Tensor, B: int, stack: torch.Tensor,
     for c in range(C):
         base, val = int(bases[c]), int(valid[c])
         score = pw.scan_scores(q_planes, stack[c], inv_n[c], val)[:B]
-        # invalid lanes all carry the index n_total (decoded to -1)
-        gidx = torch.where(lane < val, base + lane, n_total)
-        keys, sel = torch.topk(rank_keys(score, gidx), kc, dim=1)
+        # kernel K; invalid lanes all carry the index n_total (decoded to -1)
+        _, sel, best, pos = select_chunk(score, base, val, n_total, kc, best,
+                                         pool_eff)
         rc = torch.stack([rows, sel.to(torch.int32)], dim=2).reshape(-1, 2)
         parts = pw.pair_partials(q_planes, rc, L, stack[c], flag) \
             .reshape(B, kc, P)
-        best, pos = merge_topk(best, keys, pool_eff)
         best_p = torch.gather(torch.cat([best_p, parts], dim=1), 1,
                               pos[:, :, None].expand(-1, -1, P))
     idx = key_index(best)

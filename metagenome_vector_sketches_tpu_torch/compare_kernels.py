@@ -26,6 +26,10 @@ DIR`` also writes each build's ``cuobjdump -sass`` text into DIR.
   pairs plus the 8,192 self-pairs of 4 x 2048 rows, L = 2) and the ANN
   path's (256 queries x 114 pooled rows of a 262,144-row chunk, two
   operands, L = 2).
+- ``select.cu`` builds (``--select``): kernel K at the int8 search's shape
+  (256 x 262,144 scores merged into a pool of 114, kc = 114), the f32
+  search's (kc = 50) and an adaptive deep level's (kc = R: the sort in
+  global scratch), as the wrapper call and as its kernels alone.
 
 P and X are timed as the wrapper call and as the kernel alone (its
 device time in a torch.profiler trace). P's wrapper time is CUDA events
@@ -400,6 +404,45 @@ def compare_sweep(builds, out_dir) -> int:
     return 0
 
 
+def compare_select(builds, out_dir) -> int:
+    from .ann import select as sel
+    libs = {name: _load(name, src, out_dir) for name, src in builds}
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B, R, n = 256, 262144, 1 << 20
+    scores = [torch.randn((B, R), generator=g, device="cuda")
+              for _ in range(2)]
+    empty = torch.empty((B, 0), dtype=torch.int64, device="cuda")
+    shapes = {}
+    for label, kc in (("int8", 114), ("f32", 50), ("kc = R", R)):
+        best = empty if kc == R else \
+            sel.select_chunk_plain(scores[1], R, R, n, kc, empty, kc)[2]
+        args = (scores[0], 0, R - 77, n, kc, best, kc)
+        shapes[label] = (args, sel.select_chunk_plain(*args))
+    for name, lib in libs.items():
+        _build._lib = lib
+        for label, (args, want) in shapes.items():
+            ok = all(torch.equal(a, b) for a, b in
+                     zip(sel.select_chunk(*args), want))
+            print(f"[K:{name}] {label}: {B} x {R} scores, kc = "
+                  f"{args[4]}, W0 = {args[5].shape[1]}: equal to the plain "
+                  f"version: {ok}", flush=True)
+            if not ok:
+                return 3
+
+    def use(lib, fn, alone):
+        _build._lib = lib
+        return kernel_ms(fn, "select_") if alone else _ms(fn)
+
+    cases = {}
+    for label, (args, _) in shapes.items():
+        for alone in (False, True):
+            cases[f"{label} {'kernel alone' if alone else 'wrapper'}"] = \
+                lambda lib, args=args, alone=alone: use(
+                    lib, lambda: sel.select_chunk(*args), alone)
+    _report(_turns(libs, [n for n, _ in builds], cases), "K")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
@@ -409,6 +452,8 @@ def main(argv=None) -> int:
                     metavar="name=projection.cu")
     ap.add_argument("--partials", nargs="+", default=[],
                     metavar="name=partials.cu")
+    ap.add_argument("--select", nargs="+", default=[],
+                    metavar="name=select.cu")
     ap.add_argument("--chunks", default=str(pj.CHUNK),
                     help="kernel P work-item sizes to time, comma-separated "
                          f"(default {pj.CHUNK}; a first-cut build has none)")
@@ -423,7 +468,8 @@ def main(argv=None) -> int:
     chunks = [int(c) for c in args.chunks.split(",")]
     groups = [(compare_sweep, args.sweep),
               (lambda b, o: compare_projection(b, o, chunks), args.projection),
-              (compare_partials, args.partials)]
+              (compare_partials, args.partials),
+              (compare_select, args.select)]
     if not any(b for _, b in groups):
         ap.error("no builds given")
     for _, builds in groups:

@@ -9,7 +9,8 @@ and counts each row's survivors with ``torch.bincount``: the per-row count
 the JAX program takes with a masked sum. The top-k's local stage is a
 plain float32 ``torch.matmul`` with TF32 off (outside any Pallas kernel in
 the JAX package too), then a local top-k, a gather of the k candidates and
-a re-top-k, with the JAX tie order (lowest index first, ``ann.select``).
+a re-top-k, each on kernel K, with the JAX tie order (lowest index first,
+``ann.select``).
 
 A function returns THIS process's rows (the JAX programs return a
 row-sharded global array; with one process that is every row), on the
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from ..ann.flat_index import fp32_matmul
-from ..ann.select import key_index, key_scores, rank_keys
+from ..ann.select import (key_index, key_scores, rank_keys, select_chunk,
+                          select_keys)
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
 from .mesh import Mesh, row_sharding
@@ -152,17 +154,20 @@ def sharded_pairwise_counts(mesh: Mesh, v_limbs, thr, d: int) -> torch.Tensor:
                        float(pm.SLACK_REL), float(pm.SLACK_ABS))
 
 
+def _pad_keys(top: torch.Tensor, k: int) -> torch.Tensor:
+    """top padded with no-row keys (-inf, index none) to k columns."""
+    if top.shape[1] >= k:
+        return top
+    pad = rank_keys(torch.full((top.shape[0], k - top.shape[1]),
+                               float("-inf"), device=top.device),
+                    torch.tensor(_NONE, device=top.device))
+    return torch.cat([top, pad], dim=1)
+
+
 def topk_keys(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """The k best keys of each row (``ann.select`` keys), padded with
-    no-row keys (-inf, index none) to k when a row holds fewer."""
-    kk = min(k, keys.shape[1])
-    top, _ = torch.topk(keys, kk, dim=1)
-    if kk < k:
-        pad = rank_keys(torch.full((keys.shape[0], k - kk), float("-inf"),
-                                   device=keys.device),
-                        torch.tensor(_NONE, device=keys.device))
-        top = torch.cat([top, pad], dim=1)
-    return top
+    """The k best keys of each row (``ann.select`` keys; kernel K), padded
+    with no-row keys (-inf, index none) to k when a row holds fewer."""
+    return _pad_keys(select_keys(keys, k)[0], k)
 
 
 def decode_keys(keys: torch.Tensor):
@@ -203,14 +208,24 @@ def distributed_topk(mesh: Mesh, queries, v_norm, k: int,
                 if id_blocks is not None:
                     ids = id_blocks[s].to(torch.int64)
                     ok = ids >= 0
-                else:
-                    base = (mesh.process_index * mesh.size + s) * rows
-                    ids = base + torch.arange(v.shape[0], device=dev)
-                    ok = ids < (n_valid if n_valid is not None
-                                else torch.iinfo(torch.int64).max)
-                scores = scores.masked_fill(~ok[None, :], float("-inf"))
-                ids = torch.where(ok, ids, _NONE)
-                parts.append(topk_keys(rank_keys(scores, ids), k))
+                    scores = scores.masked_fill(~ok[None, :], float("-inf"))
+                    parts.append(topk_keys(rank_keys(
+                        scores, torch.where(ok, ids, _NONE)), k))
+                    continue
+                # rows base .. base + valid - 1 are real, the rest pad rows
+                base = (mesh.process_index * mesh.size + s) * rows
+                valid = v.shape[0] if n_valid is None \
+                    else max(0, min(n_valid - base, v.shape[0]))
+                if valid < v.shape[0]:
+                    lane = torch.arange(v.shape[0], device=dev)
+                    scores = scores.masked_fill(lane[None, :] >= valid,
+                                                float("-inf"))
+                top = select_chunk(scores, base, valid, _NONE,
+                                   min(k, v.shape[0]),
+                                   torch.empty((scores.shape[0], 0),
+                                               dtype=torch.int64, device=dev),
+                                   k)[0]
+                parts.append(_pad_keys(top, k))
     merged = topk_keys(mesh.all_gather(mesh.gather_slots(parts, dim=1),
                                        dim=1), k)
     return decode_keys(merged)

@@ -376,6 +376,116 @@ def test_flat_index_cuda_matches_cpu(cuda, precision):
                    for r in diff)
 
 
+def _select_scores(dev, B, R, valid, seed, all_inf_row=False):
+    """(B, R) float32 scores with large exact-tie classes (a few values,
+    +0.0 and -0.0 among them) and runs of the row maximum straddling
+    128-lane blocks; -inf past valid (the SCORE epilogue's mask)."""
+    rng = np.random.default_rng(seed)
+    S = (rng.integers(-6, 7, size=(B, R)) / 4).astype(np.float32)
+    S[:, 1::9] = -0.0
+    for a, b in ((120, 136), (255, 258), (1023, 1026)):
+        S[:, a:min(b, R)] = 2.0
+    S[:, valid:] = -np.inf
+    if all_inf_row:
+        S[0] = -np.inf
+    return torch.from_numpy(S).to(dev)
+
+
+def _select_pool(dev, B, W0, seed):
+    """A running pool of W0 keys per row, sorted best first, as the
+    previous chunk's merge leaves it (scores that tie the chunk's)."""
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    rng = np.random.default_rng(seed)
+    s = torch.from_numpy((rng.integers(-6, 9, size=(B, 3 * W0 + 1)) / 4)
+                         .astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 5000, size=(B, 3 * W0 + 1)))
+    return sel.select_keys_plain(sel.rank_keys(s, idx), W0)[0] \
+        .contiguous().to(dev)
+
+
+@pytest.fixture
+def no_plain_select(monkeypatch):
+    """Kernel K's plain versions raise: a CUDA input must never reach
+    them. Yields the real ones, for the comparisons."""
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    real = (sel.select_chunk_plain, sel.select_keys_plain)
+
+    def refusing(plain):
+        def call(*a, **kw):
+            assert not any(isinstance(x, torch.Tensor) and x.is_cuda
+                           for x in a), "a CUDA tensor reached " \
+                f"{plain.__name__}"
+            return plain(*a, **kw)
+        return call
+
+    monkeypatch.setattr(sel, "select_chunk_plain", refusing(real[0]))
+    monkeypatch.setattr(sel, "select_keys_plain", refusing(real[1]))
+    return real
+
+
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("kc", ["1", "nb", "nb+1", "R", "2500"])
+@pytest.mark.parametrize("valid,W0", [(2048, 0), (1500, "pool"),
+                                      (5, "pool"), (2048, "pool")])
+def test_select_chunk_kernel_matches_plain(cuda, no_plain_select, B, kc,
+                                           valid, W0):
+    """Kernel K's chunk entry bit-equal to its plain version (keys, lanes,
+    merged keys, positions) on a 2048-lane chunk (nb = 16 blocks) and a
+    5000-lane one (kc = 2500: the sort in global scratch): kc at 1, nb
+    (every lane), nb + 1 and R; valid < R, a valid count below kc (no-row
+    lanes in the chunk top), all -inf rows; W0 = 0 and the pool."""
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    chunk_plain, _ = no_plain_select
+    R = 5000 if kc == "2500" else 2048
+    kc = {"1": 1, "nb": R // 128, "nb+1": R // 128 + 1, "R": R,
+          "2500": 2500}[kc]
+    pool = max(kc, 7)
+    w0 = pool if W0 == "pool" else 0
+    scores = _select_scores(cuda, B, R, min(valid, R), seed=B + kc,
+                            all_inf_row=valid == 2048 and W0 == "pool")
+    best = _select_pool(cuda, B, w0, seed=kc) if w0 else \
+        torch.empty((B, 0), dtype=torch.int64, device=cuda)
+    _build.reset_launch_counts()
+    got = sel.select_chunk(scores, 7000, valid, 90000, kc, best, pool)
+    assert _build.launch_counts()["select"] == 1
+    want = chunk_plain(scores, 7000, valid, 90000, kc, best, pool)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("keys", "lanes", "merged", "pos")):
+        assert g.device == scores.device and torch.equal(g, w), what
+
+
+def test_select_chunk_kernel_strided_rows(cuda, no_plain_select):
+    """Rows of a wider tensor (the int8 engine's scores[:B] of a padded
+    batch, a column slice): the kernel reads the row stride."""
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    chunk_plain, _ = no_plain_select
+    full = _select_scores(cuda, 300, 2200, 2200, seed=4)
+    best = _select_pool(cuda, 256, 114, seed=5)
+    for scores in (full[:256], full[:256, 100:2148]):
+        got = sel.select_chunk(scores, 0, 2000, 2 ** 32 - 1, 114, best, 114)
+        want = chunk_plain(scores, 0, 2000, 2 ** 32 - 1, 114, best, 114)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("B,W,k", [(1, 1, 5), (256, 228, 114),
+                                   (37, 7000, 50), (3, 3000, 3000),
+                                   (2, 9000, 2100)])
+def test_select_keys_kernel_matches_plain(cuda, no_plain_select, B, W, k):
+    """Kernel K's key entry bit-equal to its plain version, with duplicate
+    keys (their positions then decide)."""
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    _, keys_plain = no_plain_select
+    rng = np.random.default_rng(W)
+    s = torch.from_numpy((rng.integers(-4, 5, size=(B, W)) / 2)
+                         .astype(np.float32))
+    keys = sel.rank_keys(s, torch.from_numpy(
+        rng.integers(0, 40, size=(B, W)))).to(cuda)
+    got = sel.select_keys(keys, k)
+    want = keys_plain(keys, k)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_pairwise_comp_any_tile_on_cuda(cuda, tmp_path):
     """--tile 32 rounds up to kernel S's block on CUDA and writes the same
     shard bytes as --tile 2048."""
@@ -757,11 +867,12 @@ def test_slot_results_are_handed_off_before_a_gather(cuda, monkeypatch):
 
 
 def test_each_kernel_launches_on_the_second_card(cuda1, tmp_path):
-    """Kernels P, S (COUNT, APPEND, SCORE), X and G launched on cuda:1 with
-    cuda:0 current for PyTorch: every output lies on cuda:1 and equals the
-    plain version; the current device is left as it was. Then a mesh over
-    cuda:0 and cuda:1 writes the single-device shards."""
+    """Kernels P, S (COUNT, APPEND, SCORE), X, G and K launched on cuda:1
+    with cuda:0 current for PyTorch: every output lies on cuda:1 and equals
+    the plain version; the current device is left as it was. Then a mesh
+    over cuda:0 and cuda:1 writes the single-device shards."""
     from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
     from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
     from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
@@ -794,6 +905,15 @@ def test_each_kernel_launches_on_the_second_card(cuda1, tmp_path):
     mh.gram_accumulate(C, A)
     mh.gram_accumulate_plain(W, A)
     assert torch.equal(mh.mirror_upper(C), W)
+    scores = _select_scores(cuda1, 37, 2048, 2000, seed=6)
+    best = _select_pool(cuda1, 37, 16, seed=7)
+    got = sel.select_chunk(scores, 0, 2000, 2048, 16, best, 16)
+    want = sel.select_chunk_plain(scores, 0, 2000, 2048, 16, best, 16)
+    assert all(g.device == cuda1 and torch.equal(g, w)
+               for g, w in zip(got, want))
+    keys = torch.cat([best, got[0]], dim=1)
+    assert all(torch.equal(g, w) for g, w in zip(
+        sel.select_keys(keys, 20), sel.select_keys_plain(keys, 20)))
     torch.cuda.synchronize(cuda1)
     assert torch.cuda.current_device() == 0
     assert all(v > 0 for v in _build.launch_counts().values())
