@@ -14,10 +14,12 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    u), and S's TMA/wgmma core at the edges of its contract (d_pad 64, 192,
    2048; P = 1, 3, 6, 10; 128-row and 128 x 256 tiles; diag_offset +-128;
    SCORE at B = 1 and 256 with a ragged valid count; G at n = 128, 384),
-   and the selection K bit-equal (keys, lanes, merged keys, positions) at
-   kc = 1, R/128, R/128 + 1, R and past its shared-memory sort, with valid
-   < R, all -inf rows, ties straddling 128-lane blocks, B = 1 and 256, an
-   empty and a full running pool, and on its key entry;
+   and the selection K bit-equal (keys, lanes, merged keys, positions) in
+   each of its regimes (two-stage over one and five tiles a row, one CTA a
+   row, the multi-CTA radix select, the full sort), with valid < R, all
+   -inf rows and rows of one score (the survivor overflow), ties
+   straddling 128-lane blocks, B = 1 and 256, an empty and a full running
+   pool, strided and unaligned rows, and on its key entry;
 2. main: the main path at N accessions x d = 2048 — synthetic hash sets
    with planted groups -> sketch (P) -> one pairwise shard (S, X) ->
    top-k queries of planted rows; planted recall must be 1.0, an exact
@@ -45,9 +47,11 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    engine's (D, I) equal to a float64 brute force on the card, the f32
    engine within 1e-5 of it, one adaptive search per engine, the scan,
    selection and two-operand partials kernels against their plain versions
-   (S SCORE's TOP/s, bound and yardstick; K's wrapper and kernel-alone ms
-   beside its bound, torch.topk over the packed keys and rank_keys), the
-   search / adaptive walls and both engines' search stages;
+   (S SCORE's TOP/s, bound and yardstick; K's wrapper and kernel-alone ms,
+   each of its kernels, beside its bound, torch.topk and torch.sort over
+   the packed keys, at the int8 and f32 searches' shapes, adaptive level 4
+   and kc = R), the search / adaptive walls and both engines' search
+   stages;
 5. stream: the beyond-memory streaming engine on phase 2's db with the
    device budget at half its planes' bytes (8 row groups x 8 windows at
    N = 65,536): its shard must be byte-equal to phase 2's resident shard;
@@ -96,6 +100,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -375,10 +380,11 @@ def _select_err(got, want, what):
     return err
 
 
-def _select_scores(B, R, valid, seed, all_inf_row=False):
+def _select_scores(B, R, valid, seed, all_inf_row=False, equal_row=False):
     """(B, R) float32 scores on the card with large exact-tie classes (+0.0
     and -0.0 among them) and runs of the row maximum across 128-lane
-    blocks; -inf past valid."""
+    blocks; -inf past valid; ``equal_row``: the last row one finite
+    score."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     S = torch.randint(-6, 7, (B, R), generator=g, device="cuda") \
@@ -389,27 +395,36 @@ def _select_scores(B, R, valid, seed, all_inf_row=False):
     S[:, valid:] = float("-inf")
     if all_inf_row:
         S[0] = float("-inf")
+    if equal_row:
+        S[-1] = 0.5
     return S
 
 
 def _select_cases(errs):
-    """Kernel K against its plain version, bit for bit: the chunk entry at
-    kc = 1, R/128 (every lane), R/128 + 1 and R on 2,048 lanes, and kc =
-    2,500 of 5,000 lanes (the sort in global scratch); valid < R, fewer
-    valid lanes than kc, an all -inf row; B = 1 and 256; an empty running
-    pool and a full one (W0 = pool); rows of a wider tensor; then the key
-    entry at W = 228 (a merge's width), 7,000 and 9,000 (k = 2,100)."""
+    """Kernel K against its plain version, bit for bit, in each of its
+    regimes (ann/select.py::regime): the chunk entry at kc = 1 (two-stage),
+    R/128, R/128 + 1 and R (one CTA a row) on 2,048 lanes; kc = 114 of
+    40,000 lanes (two-stage over 5 tiles a row); kc = 2,500 of 5,000 and
+    5,000 of 20,000 (the multi-CTA radix select and the grid-wide sort); kc
+    = R = 20,000 (the full sort); valid < R, fewer valid lanes than kc, an
+    all -inf row and, on the wider chunks, a row of one finite score (both
+    overflow the two-stage row stage's survivors); B = 1 and 256; an empty
+    running pool and a full one (W0 = pool); rows of a wider tensor, one
+    slice not 16-byte aligned; then the key entry at W = 228 (a merge's
+    width), 7,000, 9,000 (k = 2,100 and k = W) and 40,000 (k = 700)."""
     import torch
     from metagenome_vector_sketches_tpu_torch.ann import select as sel
     n = 0
     for B in (1, 256):
         for R, kc in ((2048, 1), (2048, 16), (2048, 17), (2048, 2048),
-                      (5000, 2500)):
+                      (40000, 114), (5000, 2500), (20000, 5000),
+                      (20000, 20000)):
             for valid, full in ((R, False), (1500, True), (5, True),
                                 (R, True)):
                 pool = max(kc, 7)
                 S = _select_scores(B, R, valid, seed=B + kc + valid,
-                                   all_inf_row=valid == R and full)
+                                   all_inf_row=valid == R and full,
+                                   equal_row=R > 5000)
                 if full:   # the pool a previous chunk's merge leaves
                     prev = _select_scores(B, 3 * pool + 1, 3 * pool + 1,
                                           seed=kc + 1)
@@ -428,21 +443,23 @@ def _select_cases(errs):
     best = sel.select_keys_plain(sel.rank_keys(
         _select_scores(256, 500, 500, seed=4),
         torch.arange(500, device="cuda")), 114)[0].contiguous()
-    for S in (wide[:256], wide[:256, 100:2148]):
+    for S in (wide[:256], wide[:256, 100:2148], wide[:256, 101:2149]):
         args = (S, 0, 2000, 2 ** 32 - 1, 114, best, 114)
         errs["select"] = max(errs["select"], _select_err(
             sel.select_chunk(*args), sel.select_chunk_plain(*args),
             "rows of a wider tensor"))
-    for B, W, k in ((256, 228, 114), (37, 7000, 50), (2, 9000, 2100)):
+    for B, W, k in ((256, 228, 114), (37, 7000, 50), (2, 9000, 2100),
+                    (2, 9000, 9000), (5, 40000, 700)):
         S = _select_scores(B, W, W, seed=W)
         keys = sel.rank_keys(S, torch.randint(0, 40, (B, W), device="cuda"))
         errs["select"] = max(errs["select"], _select_err(
             sel.select_keys(keys, k), sel.select_keys_plain(keys, k),
             f"keys B={B} W={W} k={k}"))
     torch.cuda.synchronize()
-    say(f"[kernels] K: {n} chunk cases (kc 1/16/17/2048 of 2048 lanes, "
-        "2500 of 5000; valid < R, valid < kc, an all -inf row; B 1/256; W0 "
-        "0/pool), 2 strided, 3 key cases: exact")
+    say(f"[kernels] K: {n} chunk cases (kc 1/16/17/2048 of 2048 lanes, 114 "
+        "of 40000, 2500 of 5000, 5000 and 20000 of 20000; valid < R, valid < "
+        "kc, an all -inf row, a row of one score; B 1/256; W0 0/pool), 3 "
+        "strided, 5 key cases: exact")
 
 
 def phase_kernels(errs):
@@ -1564,71 +1581,72 @@ def phase_ann(N, errs, timings):
 
 
 def _time_select(index, qp, N, valid, errs, timings):
-    """Kernel K at the int8 search's shape: chunk 0's (B, 262,144) scores
-    merged into the pool chunk 1 leaves (kc = W0 = pool_for(k) = 114),
-    bit-equal to its plain version; its wrapper ms (CUDA events), the
-    kernel alone (profiler, both of its kernels and each), the plain
-    version, the bound (the scores read once, the pool read and the
-    outputs written once, at HBM_RATE) and torch.topk over the packed keys
-    (rank_keys timed on its own). Also the f32 engine's shape (kc = W0 =
-    50)."""
+    """Kernel K at the ANN path's shapes on chunk 0's (B, 262,144) scores,
+    each bit-equal to its plain version: the int8 search's (merged into the
+    pool chunk 1 leaves, kc = W0 = pool_for(k) = 114), the f32 search's (kc
+    = W0 = 50), the adaptive search's level 4 (kc = W0 = pool_for(50 *
+    3^4) = 4,556) and its deepest level (kc = R, W0 = 0). For each: the
+    wrapper ms (CUDA events), the kernel alone (profiler: every kernel of
+    the call summed, and each), the bound (the scores read once, the pool
+    read and the outputs written once, at HBM_RATE) and two yardsticks over
+    the packed keys, not kernels of the port: torch.topk(keys, kc) and the
+    stable torch.sort of the rows (the one PyTorch call that computes K's
+    function at kc = R with W0 = 0). The int8 shape's numbers go into the
+    kernels line (library_ms: torch.topk), with the plain version's ms."""
     import torch
     from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    from metagenome_vector_sketches_tpu_torch.compare_kernels import (
+        kernel_times)
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
-    pool = index.pool_for(ANN_K)
-    kc = min(pool, ANN_CHUNK)
     c1 = min(1, index._stack.shape[0] - 1)
     v1 = min(ANN_CHUNK, N - c1 * ANN_CHUNK)
     sc0 = pw.scan_scores(qp, index._stack[0], index._inv_n[0], valid)[:ANN_B]
     sc1 = pw.scan_scores(qp, index._stack[c1], index._inv_n[c1], v1)[:ANN_B]
-    empty = torch.empty((ANN_B, 0), dtype=torch.int64, device="cuda")
-    cases = {}
-    for name, k in (("int8", kc), ("f32", ANN_K)):
-        best = sel.select_chunk(sc1, c1 * ANN_CHUNK, v1, N, k, empty,
-                                k)[2]
-        args = (sc0, 0, valid, N, k, best, k)
-        errs["select"] = max(errs["select"], _select_err(
-            sel.select_chunk(*args), sel.select_chunk_plain(*args),
-            f"phase 4's {name} shape"))
-        cases[name] = args
-    args = cases["int8"]
     B, R = sc0.shape
-    wm = min(pool, kc + args[5].shape[1])
-    nbytes = 4 * B * R + 8 * B * args[5].shape[1] + 16 * B * (kc + wm)
+    empty = torch.empty((B, 0), dtype=torch.int64, device="cuda")
     lane = torch.arange(R, device="cuda")
     keys = sel.rank_keys(sc0, torch.where(lane < valid, lane, N))
     rank_ms = cuda_ms(lambda: sel.rank_keys(
         sc0, torch.where(lane < valid, lane, N)))
-    library = cuda_ms(lambda: torch.topk(keys, kc, dim=1))
+    sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1, descending=True,
+                                         stable=True), reps=3)
+    shapes = (("int8", index.pool_for(ANN_K)), ("f32", ANN_K),
+              ("level 4", index.pool_for(ANN_K * 3 ** 4)), ("kc = R", R))
+    for name, k in shapes:
+        kc = min(k, R)
+        best = empty if kc == R else sel.select_chunk(
+            sc1, c1 * ANN_CHUNK, v1, N, kc, empty, kc)[2]
+        args = (sc0, 0, valid, N, kc, best, kc)
+        errs["select"] = max(errs["select"], _select_err(
+            sel.select_chunk(*args), sel.select_chunk_plain(*args),
+            f"phase 4's {name} shape"))
+        w0 = best.shape[1]
+        wm = min(kc, w0 + kc)
+        nbytes = 4 * B * R + 8 * B * w0 + 16 * B * (kc + wm)
+        reps = 3 if kc > sel.SMALL_K else 10
+        t = timed(cuda_ms(lambda: sel.select_chunk(*args), reps=reps),
+                  cuda_ms(lambda: sel.select_chunk_plain(*args), reps=1), 0,
+                  INT8_PEAK, nbytes,
+                  cuda_ms(lambda: torch.topk(keys, kc, dim=1), reps=reps))
+        parts = kernel_times(lambda: sel.select_chunk(*args), "select_",
+                             reps=reps)
+        alone = sum(parts.values()) if parts else None
+        each = ", ".join(f"{re.search(r'select_[a-z_]+', k).group(0)} "
+                         f"{ms:.4f}" for k, ms in sorted(parts.items()))
+        say(f"[ann] select (K) {name} (kc = {kc}, W0 = {w0}, regime "
+            f"{sel.regime(kc, R)}): wrapper {t['ms']:.4f} ms, kernel alone "
+            f"(profiler) {alone_str(alone)} ({each or 'not measured'}), "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: the {B} x {R} scores read once, the pool "
+            f"read and the outputs written once); "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound; bit-equal")
+        say(f"[ann] select yardsticks ({name}), not kernels of the port: "
+            f"torch.topk(keys, {kc}) {t['library_ms']:.4f} ms, the stable "
+            f"torch.sort of the packed keys {sort_ms:.4f} ms "
+            f"(K / sort {t['ms'] / sort_ms:.3f}); rank_keys {rank_ms:.4f} ms")
+        if name == "int8":
+            timings["select"] = t
     del keys
-    timings["select"] = t = timed(
-        cuda_ms(lambda: sel.select_chunk(*args)),
-        cuda_ms(lambda: sel.select_chunk_plain(*args), reps=1), 0,
-        INT8_PEAK, nbytes, library)
-    fn = lambda: sel.select_chunk(*args)           # noqa: E731
-    alone = kernel_ms(fn, "select_")
-    parts = {k: kernel_ms(fn, k) for k in ("select_block_max",
-                                            "select_rows")}
-    f32_ms = cuda_ms(lambda: sel.select_chunk(*cases["f32"]))
-    # kc = R, an adaptive deep level's shape: every lane a candidate, the
-    # sort in global scratch
-    deep = (sc0, 0, valid, N, R, empty, R)
-    errs["select"] = max(errs["select"], _select_err(
-        sel.select_chunk(*deep), sel.select_chunk_plain(*deep), "kc = R"))
-    deep_ms = cuda_ms(lambda: sel.select_chunk(*deep), reps=3)
-    deep_plain = cuda_ms(lambda: sel.select_chunk_plain(*deep), reps=1)
-    say(f"[ann] select (K) at kc = R = {R} (an adaptive deep level): "
-        f"wrapper {deep_ms:.3f} ms, plain {deep_plain:.3f} ms; bit-equal")
-    say(f"[ann] select (K): wrapper {t['ms']:.4f} ms, kernel alone "
-        f"(profiler) {alone_str(alone)} (block maxima "
-        f"{alone_str(parts['select_block_max'])}, rows "
-        f"{alone_str(parts['select_rows'])}), plain {t['plain_ms']:.4f} ms, "
-        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: the {B} x {R} "
-        f"scores read once); {100 * t['bound_ms'] / t['ms']:.1f}% of the "
-        f"bound; bit-equal (kc = W0 = {kc})")
-    say(f"[ann] select yardsticks, not kernels of the port: torch.topk over "
-        f"the packed keys {library:.4f} ms, rank_keys {rank_ms:.4f} ms; K at "
-        f"the f32 shape (kc = W0 = {ANN_K}) {f32_ms:.4f} ms")
 
 
 # ---------------------------------------------------------------------------

@@ -51,7 +51,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
-# C signatures of the entry points (all return an int cudaError_t)
+# C signatures of the entry points (an int cudaError_t returned, unless
+# RESTYPES says otherwise)
 _SIGNATURES = {
     # hashes, offsets, item_off, n_sets, max_items, chunk, d, out, stream
     "mvs_project": [_P, _P, _P, _I, _LL, _I, _I, _P, _P],
@@ -68,11 +69,15 @@ _SIGNATURES = {
                      _P],
     # a, n, ld, c, ldc, stream
     "mvs_gram": [_P, _I, _I, _P, _LL, _P],
-    # scores, keys, ld, rows, width, base, valid, none, kc, bm, scratch_key,
-    # scratch_lane, out_key, out_lane, best, w0, wm, m_key, m_pos, stream
-    "mvs_select": [_P, _P, _LL, _I, _I, _LL, _LL, _LL, _I, _P, _P, _P, _P,
-                   _P, _P, _I, _I, _P, _P, _P],
+    # scores, keys, ld, rows, width, base, valid, none, kc, regime, work,
+    # out_key, out_lane, best, w0, wm, m_key, m_pos, stream
+    "mvs_select": [_P, _P, _LL, _I, _I, _LL, _LL, _LL, _I, _I, _P, _P, _P,
+                   _P, _I, _I, _P, _P, _P],
+    # regime, rows, width, kc (returns bytes: a long long)
+    "mvs_select_work_bytes": [_I, _I, _I, _I],
 }
+# entry points that return something else than an int cudaError_t
+RESTYPES = {"mvs_select_work_bytes": ctypes.c_longlong}
 
 
 def reset_launch_counts() -> None:
@@ -161,7 +166,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             lib.mvs_error_string.argtypes = [ctypes.c_int]
             lib.mvs_error_string.restype = ctypes.c_char_p
             lib.mvs_set_device.argtypes = [ctypes.c_int]

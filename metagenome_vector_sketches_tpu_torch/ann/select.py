@@ -38,10 +38,14 @@ from .. import _build
 
 _LOW = (1 << 32) - 1
 _HIGH = 1 << 32
-# kernel K's block of the two-stage selection, and the largest k it sorts
-# in shared memory (csrc/select.cu kBlock, kSmallK)
+# kernel K's block of the two-stage selection, the largest kc of its row
+# stage (csrc/select.cu kBlock, kSmallK), and the widest row its row regime
+# takes
 BLOCK = 128
 SMALL_K = 2048
+ROW_WIDTH = 16384
+# kernel K's regimes, in the order of csrc/select.cu's enum Regime
+REGIMES = ("two_stage", "row", "radix", "full")
 
 
 def _flip(x: torch.Tensor) -> torch.Tensor:
@@ -88,11 +92,24 @@ def select_chunk_plain(scores: torch.Tensor, base: int, valid: int,
 
 
 def _two_stage(kc: int, width: int) -> bool:
-    """Kernel K's choice by shape: the two-stage selection over 128-lane
-    block maxima when it cuts blocks (kc below the row's block count) and
-    its chosen blocks fit the row CTA's shared memory; else every lane of
-    the row is a candidate."""
+    """The two-stage selection over 128-lane block maxima: when it cuts
+    blocks (kc below the row's block count) and its chosen blocks fit the
+    row stage's shared memory."""
     return kc < -(-width // BLOCK) and kc <= SMALL_K
+
+
+def regime(kc: int, width: int) -> str:
+    """Kernel K's regime, chosen by shape (csrc/select.cu's header note):
+    ``two_stage`` (one launch: block maxima, then each row's last CTA
+    selects); ``row`` (one CTA a row over every lane: kc <= SMALL_K on rows
+    of at most ROW_WIDTH lanes that the block maxima would not cut);
+    ``full`` (kc = width: the grid-wide sort of every lane); ``radix`` (any
+    other kc: a multi-CTA radix select, then the grid-wide sort)."""
+    if _two_stage(kc, width):
+        return "two_stage"
+    if kc <= SMALL_K and width <= ROW_WIDTH:
+        return "row"
+    return "full" if kc == width else "radix"
 
 
 def _launch(rows: torch.Tensor, kc: int, base: int = 0, valid: int = 0,
@@ -117,7 +134,6 @@ def _launch(rows: torch.Tensor, kc: int, base: int = 0, valid: int = 0,
     if base + min(max(valid, 0), W) > _HIGH:
         raise ValueError("indices base + lane must stay below 2^32")
     dev = rows.device
-    i64 = dict(dtype=torch.int64, device=dev)
     w0 = wm = 0
     if best is not None:
         if best.dtype != torch.int64 or best.ndim != 2 \
@@ -129,35 +145,27 @@ def _launch(rows: torch.Tensor, kc: int, base: int = 0, valid: int = 0,
         wm = min(pool, w0 + kc)
         if wm < 1:
             raise ValueError(f"pool={pool} keeps no key")
-    out_key = torch.empty((B, kc), **i64)
-    out_lane = torch.empty((B, kc), **i64)
-    m_key = torch.empty((B, wm), **i64)
-    m_pos = torch.empty((B, wm), **i64)
+    # one allocation for each pair of outputs (keys and lanes; merged keys
+    # and positions) and one for the kernel's workspace
+    out = torch.empty((2, B, kc), dtype=torch.int64, device=dev)
+    merged = torch.empty((2, B, wm), dtype=torch.int64, device=dev)
     if B == 0:
-        return out_key, out_lane, m_key, m_pos
-    bm = torch.empty((B, -(-W // BLOCK)), **i64) if _two_stage(kc, W) \
-        else None
-    big = kc > SMALL_K
-    scratch_key = torch.empty((B, 2, kc), **i64) if big else None
-    scratch_lane = torch.empty((B, 2, kc), dtype=torch.int32, device=dev) \
-        if big else None
-    scores = rows if rows.dtype == torch.float32 else None
-    keys = rows if rows.dtype == torch.int64 else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+        return (*out.unbind(0), *merged.unbind(0))
+    code = REGIMES.index(regime(kc, W))
     lib = _build.library()
+    nbytes = lib.mvs_select_work_bytes(code, B, W, kc)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    o, m = out.data_ptr(), merged.data_ptr() if wm else None
     with _build.launch_stream(dev) as stream:
         err = lib.mvs_select(
-            ptr(scores), ptr(keys), rows.stride(0), B, W, base,
-            max(0, min(valid, W)), none, kc, ptr(bm), ptr(scratch_key),
-            ptr(scratch_lane), out_key.data_ptr(), out_lane.data_ptr(),
-            ptr(best), w0, wm, ptr(m_key) if wm else None,
-            ptr(m_pos) if wm else None, stream)
+            rows.data_ptr() if rows.dtype == torch.float32 else None,
+            rows.data_ptr() if rows.dtype == torch.int64 else None,
+            rows.stride(0), B, W, base, max(0, min(valid, W)), none, kc, code,
+            work.data_ptr() if nbytes else None, o, o + 8 * B * kc, best.data_ptr() if w0 else None, w0,
+            wm, m, m + 8 * B * wm if wm else None, stream)
     _build.check(err, "select kernel")
     _build.count_launch("select")
-    return out_key, out_lane, m_key, m_pos
+    return (*out.unbind(0), *merged.unbind(0))
 
 
 def select_keys(keys: torch.Tensor, k: int):

@@ -28,8 +28,12 @@ DIR`` also writes each build's ``cuobjdump -sass`` text into DIR.
   operands, L = 2).
 - ``select.cu`` builds (``--select``): kernel K at the int8 search's shape
   (256 x 262,144 scores merged into a pool of 114, kc = 114), the f32
-  search's (kc = 50) and an adaptive deep level's (kc = R: the sort in
-  global scratch), as the wrapper call and as its kernels alone.
+  search's (kc = 50) and the adaptive search's level 4 (kc = 4,556) and
+  deepest level (kc = R), as the wrapper call, as its kernels alone (each
+  printed) and as the host time of a call at the int8 shape; a build with
+  the first cut's ``mvs_select`` (20 parameters) is called through that
+  interface. Yardsticks printed once: ``torch.sort`` of the packed keys
+  and ``torch.topk`` at each kc.
 
 P and X are timed as the wrapper call and as the kernel alone (its
 device time in a torch.profiler trace). P's wrapper time is CUDA events
@@ -72,7 +76,9 @@ _SASS_DIR = None
 # the first cut's entry points (the earlier csrc/projection.cu and
 # csrc/partials.cu, before work items and the range flag)
 FIRST_CUT = {"mvs_project": [_P, _P, _I, _I, _P, _P],
-             "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P, _P]}
+             "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P, _P],
+             "mvs_select": [_P, _P, _LL, _I, _I, _LL, _LL, _LL, _I, _P, _P,
+                            _P, _P, _P, _P, _I, _I, _P, _P, _P]}
 
 
 def _n_params(src: str, fn: str) -> int:
@@ -111,7 +117,7 @@ def _load(name: str, src: str, out_dir: str) -> ctypes.CDLL:
             first = fn in FIRST_CUT and \
                 _n_params(src, fn) == len(FIRST_CUT[fn])
             getattr(lib, fn).argtypes = FIRST_CUT[fn] if first else argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
             setattr(lib, f"{fn}_first_cut", first)
     if hasattr(lib, "mvs_error_string"):
         lib.mvs_error_string.argtypes = [ctypes.c_int]
@@ -166,11 +172,11 @@ def cold_ms(fn, reps: int = 20) -> float:
     return total / reps
 
 
-def kernel_ms(fn, name: str, reps: int = 10, cold: bool = False):
-    """Mean device time per fn() call of the kernels whose name holds
-    ``name``, from a torch.profiler trace (the kernel alone, without the
-    wrapper's host work or its other launches); ``cold``: the L2 is flushed
-    before each call. None if the trace holds no such device time."""
+def kernel_times(fn, name: str, reps: int = 10, cold: bool = False):
+    """{kernel: mean device ms per fn() call} of the kernels whose name
+    holds ``name``, from a torch.profiler trace (each kernel alone, without
+    the wrapper's host work or its other launches); ``cold``: the L2 is
+    flushed before each call."""
     from torch.profiler import ProfilerActivity, profile
     if cold:
         flush, call = l2_flush(), fn
@@ -183,9 +189,17 @@ def kernel_ms(fn, name: str, reps: int = 10, cold: bool = False):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages() if name in e.key)
-    return us / reps / 1e3 if us else None
+    return {e.key: getattr(e, "self_device_time_total", 0) / reps / 1e3
+            for e in prof.key_averages()
+            if name in e.key and getattr(e, "self_device_time_total", 0)}
+
+
+def kernel_ms(fn, name: str, reps: int = 10, cold: bool = False):
+    """Mean device time per fn() call of the kernels whose name holds
+    ``name`` (:func:`kernel_times` summed); None if the trace holds no such
+    device time."""
+    times = kernel_times(fn, name, reps, cold)
+    return sum(times.values()) if times else None
 
 
 def _check(lib, rc: int, what: str) -> None:
@@ -404,6 +418,56 @@ def compare_sweep(builds, out_dir) -> int:
     return 0
 
 
+def select_first_cut(lib, scores, base, valid, none, kc, best, pool):
+    """Kernel K of ``lib`` through the first cut's interface (``mvs_select``
+    with 20 parameters: a block-maximum kernel and a row kernel, each
+    scratch buffer a tensor of its own) -> select_chunk's outputs."""
+    from .ann import select as sel
+    B, W = scores.shape
+    dev = scores.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    w0 = best.shape[1]
+    wm = min(pool, w0 + kc)
+    out_key, out_lane = (torch.empty((B, kc), **i64) for _ in range(2))
+    m_key, m_pos = (torch.empty((B, wm), **i64) for _ in range(2))
+    nb = -(-W // sel.BLOCK)
+    bm = torch.empty((B, nb), **i64) if kc < nb and kc <= sel.SMALL_K \
+        else None
+    big = kc > sel.SMALL_K
+    sk = torch.empty((B, 2, kc), **i64) if big else None
+    sl = torch.empty((B, 2, kc), dtype=torch.int32, device=dev) if big \
+        else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with _build.launch_stream(dev, lib) as stream:
+        err = lib.mvs_select(
+            scores.data_ptr(), None, scores.stride(0), B, W, base,
+            max(0, min(valid, W)), none, kc, ptr(bm), ptr(sk), ptr(sl),
+            out_key.data_ptr(), out_lane.data_ptr(), best.data_ptr(), w0,
+            wm, ptr(m_key) if wm else None, ptr(m_pos) if wm else None,
+            stream)
+    _check(lib, err, "select kernel")
+    return out_key, out_lane, m_key, m_pos
+
+
+def _select(lib, args):
+    if lib.mvs_select_first_cut:
+        return select_first_cut(lib, *args)
+    from .ann import select as sel
+    _build._lib = lib
+    return sel.select_chunk(*args)
+
+
+# kernel K's shapes at phase 4's size (B x R = 256 x 262,144 scores): the
+# int8 search's pool (pool_for(50) = 114), the f32 search's (k = 50),
+# the adaptive search's level 4 (k = 50 * 3^4: pool_for = 4,556) and its
+# deepest level (kc = R)
+SELECT_SHAPES = (("int8", 114), ("f32", 50), ("level 4", 4556),
+                 ("kc = R", 262144))
+
+
 def compare_select(builds, out_dir) -> int:
     from .ann import select as sel
     libs = {name: _load(name, src, out_dir) for name, src in builds}
@@ -413,32 +477,66 @@ def compare_select(builds, out_dir) -> int:
               for _ in range(2)]
     empty = torch.empty((B, 0), dtype=torch.int64, device="cuda")
     shapes = {}
-    for label, kc in (("int8", 114), ("f32", 50), ("kc = R", R)):
+    for label, kc in SELECT_SHAPES:
         best = empty if kc == R else \
             sel.select_chunk_plain(scores[1], R, R, n, kc, empty, kc)[2]
         args = (scores[0], 0, R - 77, n, kc, best, kc)
         shapes[label] = (args, sel.select_chunk_plain(*args))
     for name, lib in libs.items():
-        _build._lib = lib
         for label, (args, want) in shapes.items():
             ok = all(torch.equal(a, b) for a, b in
-                     zip(sel.select_chunk(*args), want))
+                     zip(_select(lib, args), want))
             print(f"[K:{name}] {label}: {B} x {R} scores, kc = "
                   f"{args[4]}, W0 = {args[5].shape[1]}: equal to the plain "
                   f"version: {ok}", flush=True)
             if not ok:
                 return 3
+    # yardsticks (not kernels of the port): one PyTorch call over the
+    # packed keys that computes K's selection, the stable sort of the whole
+    # row for any kc and torch.topk (unstable among equal keys) for this kc
+    card = torch.cuda.get_device_name(0)
+    lane = torch.arange(R, device="cuda")
+    keys = sel.rank_keys(scores[0], torch.where(lane < R - 77, lane, n))
+    sort_ms = _ms(lambda: torch.sort(keys, dim=1, descending=True,
+                                     stable=True), reps=5)
+    print(f"[K:yardstick] {card}: torch.sort over the packed {B} x {R} "
+          f"keys (stable, descending) {sort_ms:.4f} ms", flush=True)
+    for label, kc in SELECT_SHAPES:
+        top_ms = _ms(lambda: torch.topk(keys, kc, dim=1), reps=5)
+        print(f"[K:yardstick] {card}: {label}: torch.topk(keys, {kc}) "
+              f"{top_ms:.4f} ms", flush=True)
+    del keys
 
-    def use(lib, fn, alone):
-        _build._lib = lib
-        return kernel_ms(fn, "select_") if alone else _ms(fn)
+    def wrapper(lib, args):
+        return _ms(lambda: _select(lib, args),
+                   reps=3 if args[4] > sel.SMALL_K else 20)
 
-    cases = {}
+    def alone(lib, args):
+        times = kernel_times(lambda: _select(lib, args), "select_",
+                             reps=3 if args[4] > sel.SMALL_K else 10)
+        for k, ms in sorted(times.items()):
+            print(f"[K:{lib.name}]   {args[4]}: {k[:90]} {ms:.4f} ms")
+        return sum(times.values()) if times else None
+
+    def enqueue(lib, args, reps=50):
+        # host time of a call (the launch queue stays far from full)
+        _select(lib, args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _select(lib, args)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return ms
+
+    cases = {"int8 host enqueue": lambda lib: enqueue(lib, shapes["int8"][0])}
     for label, (args, _) in shapes.items():
-        for alone in (False, True):
-            cases[f"{label} {'kernel alone' if alone else 'wrapper'}"] = \
-                lambda lib, args=args, alone=alone: use(
-                    lib, lambda: sel.select_chunk(*args), alone)
+        cases[f"{label} wrapper"] = \
+            lambda lib, args=args: wrapper(lib, args)
+        cases[f"{label} kernel alone"] = \
+            lambda lib, args=args: alone(lib, args)
+    for name, lib in libs.items():
+        lib.name = name
     _report(_turns(libs, [n for n, _ in builds], cases), "K")
     return 0
 

@@ -376,10 +376,12 @@ def test_flat_index_cuda_matches_cpu(cuda, precision):
                    for r in diff)
 
 
-def _select_scores(dev, B, R, valid, seed, all_inf_row=False):
+def _select_scores(dev, B, R, valid, seed, all_inf_row=False,
+                   equal_row=False):
     """(B, R) float32 scores with large exact-tie classes (a few values,
     +0.0 and -0.0 among them) and runs of the row maximum straddling
-    128-lane blocks; -inf past valid (the SCORE epilogue's mask)."""
+    128-lane blocks; -inf past valid (the SCORE epilogue's mask);
+    ``equal_row``: the last row one finite score throughout."""
     rng = np.random.default_rng(seed)
     S = (rng.integers(-6, 7, size=(B, R)) / 4).astype(np.float32)
     S[:, 1::9] = -0.0
@@ -388,6 +390,8 @@ def _select_scores(dev, B, R, valid, seed, all_inf_row=False):
     S[:, valid:] = -np.inf
     if all_inf_row:
         S[0] = -np.inf
+    if equal_row:
+        S[-1] = 0.5
     return torch.from_numpy(S).to(dev)
 
 
@@ -423,27 +427,37 @@ def no_plain_select(monkeypatch):
     return real
 
 
+# kernel K's chunk cases: kc label -> (R, kc)
+_SELECT_KC = {"1": (2048, 1), "nb": (2048, 16), "nb+1": (2048, 17),
+              "R": (2048, 2048), "2500": (5000, 2500),
+              "114 of 40000": (40000, 114), "5000 of 20000": (20000, 5000),
+              "R of 20000": (20000, 20000)}
+
+
 @pytest.mark.parametrize("B", [1, 256])
-@pytest.mark.parametrize("kc", ["1", "nb", "nb+1", "R", "2500"])
+@pytest.mark.parametrize("kc", list(_SELECT_KC))
 @pytest.mark.parametrize("valid,W0", [(2048, 0), (1500, "pool"),
                                       (5, "pool"), (2048, "pool")])
 def test_select_chunk_kernel_matches_plain(cuda, no_plain_select, B, kc,
                                            valid, W0):
     """Kernel K's chunk entry bit-equal to its plain version (keys, lanes,
-    merged keys, positions) on a 2048-lane chunk (nb = 16 blocks) and a
-    5000-lane one (kc = 2500: the sort in global scratch): kc at 1, nb
-    (every lane), nb + 1 and R; valid < R, a valid count below kc (no-row
-    lanes in the chunk top), all -inf rows; W0 = 0 and the pool."""
+    merged keys, positions) in each of its regimes: a 2048-lane chunk (nb =
+    16 blocks) at kc 1 (two-stage), nb, nb + 1 and R (one CTA a row); kc =
+    2500 of 5000 and 5000 of 20000 (the multi-CTA radix select and the
+    grid-wide sort); 114 of 40000 (two-stage over 5 tiles a row, the last
+    CTA's row stage); R of 20000 (the full sort). valid < R, a valid count
+    below kc (no-row lanes in the chunk top), all -inf rows and, on the
+    wider chunks, a row of one finite score (the row stage's survivor
+    overflow); W0 = 0 and the pool."""
     from metagenome_vector_sketches_tpu_torch import _build
     from metagenome_vector_sketches_tpu_torch.ann import select as sel
     chunk_plain, _ = no_plain_select
-    R = 5000 if kc == "2500" else 2048
-    kc = {"1": 1, "nb": R // 128, "nb+1": R // 128 + 1, "R": R,
-          "2500": 2500}[kc]
+    R, kc = _SELECT_KC[kc]
     pool = max(kc, 7)
     w0 = pool if W0 == "pool" else 0
     scores = _select_scores(cuda, B, R, min(valid, R), seed=B + kc,
-                            all_inf_row=valid == 2048 and W0 == "pool")
+                            all_inf_row=valid == 2048 and W0 == "pool",
+                            equal_row=R > 5000)
     best = _select_pool(cuda, B, w0, seed=kc) if w0 else \
         torch.empty((B, 0), dtype=torch.int64, device=cuda)
     _build.reset_launch_counts()
@@ -462,7 +476,8 @@ def test_select_chunk_kernel_strided_rows(cuda, no_plain_select):
     chunk_plain, _ = no_plain_select
     full = _select_scores(cuda, 300, 2200, 2200, seed=4)
     best = _select_pool(cuda, 256, 114, seed=5)
-    for scores in (full[:256], full[:256, 100:2148]):
+    # the last slice is not 16-byte aligned: scalar loads
+    for scores in (full[:256], full[:256, 100:2148], full[:256, 101:2149]):
         got = sel.select_chunk(scores, 0, 2000, 2 ** 32 - 1, 114, best, 114)
         want = chunk_plain(scores, 0, 2000, 2 ** 32 - 1, 114, best, 114)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -470,7 +485,8 @@ def test_select_chunk_kernel_strided_rows(cuda, no_plain_select):
 
 @pytest.mark.parametrize("B,W,k", [(1, 1, 5), (256, 228, 114),
                                    (37, 7000, 50), (3, 3000, 3000),
-                                   (2, 9000, 2100)])
+                                   (2, 9000, 2100), (2, 9000, 9000),
+                                   (5, 40000, 700)])
 def test_select_keys_kernel_matches_plain(cuda, no_plain_select, B, W, k):
     """Kernel K's key entry bit-equal to its plain version, with duplicate
     keys (their positions then decide)."""
@@ -484,6 +500,35 @@ def test_select_keys_kernel_matches_plain(cuda, no_plain_select, B, W, k):
     got = sel.select_keys(keys, k)
     want = keys_plain(keys, k)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_select_kernel_on_two_streams_of_one_device(cuda, no_plain_select):
+    """Two launches of kernel K in flight at once on two streams of one
+    card (as the mesh slots launch it), each with its own per-row arrival
+    counters and radix state: both results bit-equal to the plain
+    version, repeated so that the launches overlap."""
+    from metagenome_vector_sketches_tpu_torch.ann import select as sel
+    chunk_plain, _ = no_plain_select
+    cases = []
+    for seed, (R, kc) in enumerate(((40000, 114), (20000, 5000),
+                                    (40000, 50), (9000, 9000))):
+        scores = _select_scores(cuda, 256, R, R - 33, seed=seed,
+                                equal_row=True)
+        best = _select_pool(cuda, 256, kc, seed=seed + 9)
+        cases.append((scores, 11, R - 33, 2 ** 32 - 1, kc, best, kc))
+    wants = [chunk_plain(*c) for c in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    gots = []
+    for _ in range(3):
+        for i, c in enumerate(cases):
+            with torch.cuda.stream(streams[i % 2]):
+                gots.append((i, sel.select_chunk(*c)))
+    torch.cuda.synchronize()
+    for i, got in gots:
+        for g, w, what in zip(got, wants[i], ("keys", "lanes", "merged",
+                                              "pos")):
+            assert torch.equal(g, w), (i, what)
 
 
 def test_pairwise_comp_any_tile_on_cuda(cuda, tmp_path):

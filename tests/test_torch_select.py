@@ -211,6 +211,44 @@ def test_two_stage_choice_by_shape(kc, W, two):
     assert sel._two_stage(kc, W) == two
 
 
+# kernel K's regime at each adaptive level's chunk kc = min(pool_for(50 *
+# 3^level), R) (levels 0-8), for chunks of 262,144 and 65,536 rows
+_LEVEL_REGIMES = {
+    262144: ["two_stage"] * 4 + ["radix"] * 4 + ["full"],
+    65536: ["two_stage"] * 2 + ["radix"] * 5 + ["full"] * 2,
+}
+
+
+@pytest.mark.parametrize("level", range(9))
+@pytest.mark.parametrize("R", sorted(_LEVEL_REGIMES))
+def test_regime_at_each_adaptive_level(R, level):
+    """The adaptive search's chunk kc at every level lands in the regime
+    the kernel's design gives it: two-stage while the kc best 128-lane
+    blocks cut the row and fit the row stage, the multi-CTA radix select
+    past that, the grid-wide sort of every lane at kc = R."""
+    from types import SimpleNamespace
+    idx = SimpleNamespace(pool_margin=64, ntotal=10 ** 7)
+    kc = min(tii.IntExactIndex.pool_for(idx, 50 * 3 ** level), R)
+    assert kc == min(R, [114, 214, 514, 1518, 4556, 13668, 41006, 123018,
+                         369056][level])
+    assert sel.regime(kc, R) == _LEVEL_REGIMES[R][level]
+    assert sel.regime(kc, R) in sel.REGIMES
+
+
+@pytest.mark.parametrize("kc,W,want", [(114, 228, "row"), (50, 100, "row"),
+                                       (2048, 16384, "row"),
+                                       (2048, 16385, "radix"),
+                                       (2049, 9000, "radix"),
+                                       (9000, 9000, "full"),
+                                       (1, 1, "row"), (50, 7000, "two_stage"),
+                                       (2048, 10 ** 6, "two_stage")])
+def test_regime_of_small_and_wide_rows(kc, W, want):
+    """Re-selections of small rows (a merge's width, the f32 rescoring) stay
+    on one CTA a row; wider rows that the block maxima cannot cut go to the
+    multi-CTA radix select; kc = W is the full sort."""
+    assert sel.regime(kc, W) == want
+
+
 @pytest.mark.parametrize("bad", ["kc0", "kc_big", "dtype", "stride",
                                  "base", "best"])
 def test_launch_checks_its_inputs(bad):
