@@ -85,6 +85,18 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    count, top-k equal to a plain float32 top-k up to ties), every timed
    call's result checked; walls beside the single-device ones. Two cards, NCCL between
    them and launches on cuda:1 need a second card (tests/test_torch_gpu.py).
+9. two_phase (after phase 5, on phase 2's db): compute_pairwise_shard
+   with engine="two_phase" (the path of the JAX package's one Pallas
+   kernel: kernel S COUNT over the full rectangle at the engine's 512^2
+   blocks, hot-tile extraction through S APPEND with self-pairs kept,
+   exact finalize) resident with finalize="device" and "host", streaming
+   at phase 5's budget and on a mesh of two slots of cuda:0, each shard
+   byte-equal to phase 2's fused shard; COUNT launches counted apart
+   from APPEND (launch_counts()["sweep_count"]), no reruns; the host
+   finalize after a fused shard of the same db re-uses its staged planes;
+   walls and stages beside that fused shard; COUNT at the engine's blocks
+   against its plain version, its wrapper and kernel-alone ms, bound and
+   torch._int_mm yardstick.
 
 Each path's kernels must be launched in that path's counted run (counts
 set to 0 just before it, read just after). At the end no module of jax or
@@ -1704,6 +1716,166 @@ def phase_stream(N, work):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the two-phase engine (the JAX package's Pallas kernel's path)
+# ---------------------------------------------------------------------------
+
+TWO_PHASE_KERNELS = ("sweep", "sweep_count")
+STAGE_PRINT = ("stage_ms", "sweep_ms", "extract_ms", "finalize_ms",
+               "write_ms", "candidates", "emitted", "pairs_written",
+               "hot_tiles", "reruns")
+
+
+def _count_timing(L, db_path, norms64, max_abs, errs):
+    """Kernel S COUNT at the engine's blocks (512 x 512, P = 3) over the
+    4 x 4 tiles of 2048^2 of phase 2's first 8,192 rows: against its plain
+    version on the card (exact), wrapper and kernel-alone ms, its bound
+    and the torch._int_mm yardstick of its GEMM core."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    tile, nt = 2048, 4
+    V = np.fromfile(os.path.join(db_path, "vectors.bin"), dtype=np.int32,
+                    count=nt * tile * D).reshape(nt * tile, D)
+    P = pm.num_planes(L)
+    planes = torch.zeros((P, nt * tile, pw.pad_dim(D)), dtype=torch.int8,
+                         device="cuda")
+    pw.planes_update(planes, pw.decompose_limbs(torch.from_numpy(V).cuda(),
+                                                L), 0)
+    thr = torch.from_numpy((norms64[:nt * tile] ** 2 + pm.threshold_adjust(
+        L, max_abs, D)).astype(np.float32)).cuda()
+    blocks = pp.engine_blocks(P, tile, "cuda")
+    check(blocks == (512, 512), f"engine blocks {blocks} at P={P}")
+    coords = np.array([(r, c) for r in range(nt) for c in range(nt)],
+                      dtype=np.int32)
+    mi, mj = tile // blocks[0], tile // blocks[1]
+    sub = np.array([(r * mi + a, c * mj + b) for r, c in coords.tolist()
+                    for a in range(mi) for b in range(mj)], dtype=np.int32)
+
+    def kernel():
+        return pp.count_tiles(planes, thr, planes, thr, coords, tile, D,
+                              blocks)
+
+    def plain():
+        return pp.count_tiles_plain(planes, thr, planes, thr, sub, *blocks,
+                                    D).reshape(len(coords), -1).sum(
+                                        dim=1, dtype=torch.int32)
+
+    got, want = kernel(), plain()
+    err = int((got - want).abs().max().item())
+    errs["sweep"] = max(errs["sweep"], err)
+    check(err == 0 and int(want.sum()) > 0,
+          f"COUNT differs from its plain version (max abs err {err})")
+    pairs = len(coords) * tile * tile
+    t = timed(cuda_ms(kernel), cuda_ms(plain, reps=1),
+              2 * P * pairs * planes.shape[2], INT8_PEAK,
+              planes.numel() + 4 * thr.numel() + 8 * len(sub)
+              + 4 * len(sub))
+    alone = kernel_ms(kernel, "gemm_kernel")
+    tiles = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
+             for i in range(nt)]
+    yard = cuda_ms(lambda: [torch._int_mm(tiles[p * nt + r],
+                                          tiles[p * nt + c].t())
+                            for p in range(P) for r, c in coords.tolist()])
+    say(f"[two_phase] COUNT at the engine's blocks {blocks}: {len(coords)} "
+        f"tiles of {tile}^2 ({len(sub)} blocks, P={P}, {int(want.sum())} "
+        f"survivors) equal to its plain version; wrapper {t['ms']:.4f} ms, "
+        f"kernel alone (profiler) {alone_str(alone)}, plain "
+        f"{t['plain_ms']:.4f} ms")
+    rate_line("two_phase", "S COUNT (16 tiles of 2048^2 at 512^2 blocks, "
+              "P=3)", t)
+    say(f"[two_phase] yardstick of the GEMM core alone, not a kernel of the "
+        f"port: {P} x {len(coords)} torch._int_mm 2048^3 {yard:.4f} ms")
+    if alone:
+        say(f"[two_phase] COUNT kernel alone: "
+            f"{100 * t['bound_ms'] / alone:.1f}% of its bound")
+
+
+def phase_two_phase(N, work, errs):
+    """Phase 2's db through engine="two_phase": resident with finalize
+    device (counted) and host, streaming at phase 5's budget and on a mesh
+    of two slots of cuda:0; each shard byte-equal to phase 2's fused
+    shard; walls and stages beside a fused shard staged the same way."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh
+
+    db_path = os.path.join(work, "db")
+    db = DbFolder(db_path)
+    max_abs = db.max_component()
+    L = pm.pick_limbs(max(1, max_abs))
+    tile = 2048
+    npad = (N + tile - 1) // tile * tile
+    budget = pm.num_planes(L) * npad * D // 2
+    cuda0 = torch.device("cuda", 0)
+    runs = [("two_phase device", dict(engine="two_phase", finalize="device")),
+            ("fused", {}),
+            ("two_phase host", dict(engine="two_phase", finalize="host")),
+            ("two_phase streaming", dict(engine="two_phase",
+                                         device_budget_bytes=budget)),
+            ("two_phase 2 slots", dict(engine="two_phase",
+                                       mesh=Mesh([cuda0, cuda0])))]
+    walls, stages, launches = {}, {}, {}
+    total = {k: 0 for k in _build.launch_counts()}
+    mc.clear_device_cache()
+    for name, kw in runs:
+        if name == "fused":
+            mc.clear_device_cache()          # the fused shard stages anew
+        out = os.path.join(work, "two_phase_" + name.replace(" ", "_"))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        mc.compute_pairwise_shard(db_path, out, device="cuda", verbose=False,
+                                  **kw)
+        walls[name] = time.perf_counter() - t0
+        launches[name] = _build.launch_counts()
+        stages[name] = {k: (round(v, 1) if isinstance(v, float) else v)
+                        for k, v in mc.LAST_STAGES.items()
+                        if k in STAGE_PRINT + ("mode", "windows")}
+        if name != "fused":
+            total = {k: total[k] + launches[name][k] for k in total}
+        _same_shards(os.path.join(work, "mat"), out, 1,
+                     f"{name} shard vs phase 2's fused shard")
+        say(f"[two_phase] {name}: wall {walls[name]:.3f} s, stages "
+            f"{json.dumps(stages[name])}, launches {launches[name]}")
+    mc.clear_device_cache()
+    for name, _ in runs:
+        if name == "fused":
+            continue
+        lc, st = launches[name], stages[name]
+        check(st["mode"].startswith("two_phase"), f"{name}: mode {st['mode']}")
+        check(st["reruns"] == 0, f"{name}: {st['reruns']} reruns")
+        check(lc["sweep_count"] > 0 and lc["sweep"] > lc["sweep_count"],
+              f"{name}: kernel S COUNT / APPEND launches {lc}")
+        if name != "two_phase host":
+            check(lc["partials"] > 0, f"{name}: kernel X not launched")
+    check(launches["two_phase host"]["partials"] == 0,
+          "finalize=host launched kernel X")
+    check(stages["two_phase host"]["stage_ms"]
+          < 0.05 * stages["fused"]["stage_ms"],
+          "the two-phase shard after the fused one staged again")
+    check(stages["two_phase device"]["candidates"]
+          == stages["two_phase host"]["candidates"]
+          == stages["two_phase 2 slots"]["candidates"],
+          "the resident two-phase runs' candidates differ")
+    lc = launches["two_phase device"]
+    say(f"[two_phase] every shard byte-equal to phase 2's fused shard; "
+        f"kernel S COUNT launches (sweep_count, inside sweep) on the "
+        f"counted run {lc['sweep_count']}, APPEND "
+        f"{lc['sweep'] - lc['sweep_count']}, X {lc['partials']}; reruns 0")
+    rect = 2 * pm.num_planes(L) * npad * npad * (D + (-D) % 64) / INT8_PEAK
+    say(f"[two_phase] N={N}: COUNT over the full rectangle ({npad // tile}^2 "
+        f"tiles of {tile}^2) bound {rect * 1e3:.1f} ms (operations); "
+        f"sweep_ms {stages['two_phase device']['sweep_ms']} ms; fused "
+        f"sweep_ms {stages['fused']['sweep_ms']} ms over its triangle")
+    _, norms64 = db.names_and_norms()
+    _count_timing(L, db_path, norms64, max_abs, errs)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the MinHash strategy (kernel G)
 # ---------------------------------------------------------------------------
 
@@ -2170,6 +2342,7 @@ def main() -> int:
         phase_kernels(errs)
         paths = [phase_main(args.n, work, timings)]
         paths.append(phase_stream(args.n, work))
+        paths.append(phase_two_phase(args.n, work, errs))
         paths.append(phase_minhash(work, errs, timings))
         phase_cli(work)
         paths.append(phase_tools(args.n, work))

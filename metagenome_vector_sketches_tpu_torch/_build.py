@@ -11,7 +11,8 @@ launch, and :func:`check` raises if it is not 0.
 Nothing here runs at import: the CPU tests import every module.
 
 Launch counts: each kernel wrapper calls :func:`count_launch` right after a
-launch that succeeded, and nowhere else, so a run can show that its main
+launch that succeeded, and nowhere else (``SUB_COUNTS`` split a kernel's
+count by epilogue), so a run can show that its main
 path went through the kernels (:func:`reset_launch_counts`,
 :func:`launch_counts`).
 
@@ -41,7 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # "scan" in its SCORE epilogue (the int8 ANN engine), "gram" kernel G (the
 # MinHash incidence Gram), "select" kernel K (the ANN top-k selection)
 KERNELS = ("projection", "sweep", "partials", "scan", "gram", "select")
-_launches = {k: 0 for k in KERNELS}
+# sub-counts, each also counted under its kernel: "sweep_count" is kernel S
+# in its COUNT epilogue (the two-phase engine's counts sweep)
+SUB_COUNTS = ("sweep_count",)
+_launches = {k: 0 for k in KERNELS + SUB_COUNTS}
 
 _lib = None
 _lock = threading.Lock()
@@ -89,8 +93,10 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, sub: str | None = None) -> None:
     _launches[kernel] += 1
+    if sub is not None:
+        _launches[sub] += 1
 
 
 def _nvcc() -> str:

@@ -1,9 +1,10 @@
 """The pairwise engine: one thresholded all-vs-all matrix shard, on the
 device.
 
-Port of the JAX package's fused engine
+Port of the JAX package's fused and two-phase engines
 (``metagenome_vector_sketches_tpu/matrix/compute.py:140-257, 307-388,
-415-520, 870-933, 1107-1211``) and of its MinHash shard (``:1275-1333``):
+391-520, 788-1105, 1107-1273``) and of its MinHash shard (``:1275-1333``).
+The fused engine:
 
 1. Staging: the int32 vectors go to the device in chunks and are split into
    (P, Npad, d_pad) int8 Karatsuba planes there; thresholds are the
@@ -32,16 +33,33 @@ device and streams windows of column tiles past it (the full rectangle,
 two operands, self-pairs masked through kernel S's diagonal offset); the
 next window is read from the vectors memmap on a worker thread meanwhile.
 
-With ``mesh`` (parallel.mesh.Mesh), both engines run tile-data-parallel
-over its slots (JAX ``compute.py:202-205, 383, 1167-1259``): the planes are
-replicated to every slot and each round of tiles is split into per-slot
-blocks (parallel.engine.MeshSweepOps); the shard is byte-identical to the
-single-device one. Without a mesh the engine runs on a 1-slot mesh of
-``device``. Deliberately not ported: the two-phase engine (ROADMAP A-list
-item 10). ``finalize`` and
-``gate`` change nothing here: the fused engine ignores ``finalize`` in the
-JAX package too, and kernel S's APPEND epilogue already emits nothing for a
-tile without survivors.
+The two-phase engine (``engine="two_phase"``, and every tile whose square
+is not a multiple of 32, as in the JAX package; resident:
+:func:`_compute_device_resident_two_phase`, streaming:
+:func:`_compute_streaming_two_phase`) is the path of the JAX package's one
+Pallas kernel, ``pallas_sweep_counts``:
+
+1. Counts sweep: kernel S COUNT over the FULL rectangle of the shard's row
+   tiles x every column tile, at the engine's sub-blocks
+   (ops.pallas_pairwise.engine_blocks, count_tiles), summed to the tile.
+2. Hot-tile extraction: the tiles with survivors, in chunks whose summed
+   counts fit CANDIDATE_BUDGET_BYTES, through kernel S APPEND with the
+   self-pairs kept, at the capacity the counts give (a slot that finds
+   more is rerun at its exact total). Every unordered pair is found in
+   both orders: nothing is mirrored on the host.
+3. Finalize: the candidates' (row, column) pairs come to the host; those in
+   the shard's rows get exact dots from the vectors memmap
+   (``finalize="host"``, pairwise_math.exact_dots_host) or from kernel X
+   on the staged planes (``"device"``, ops.pairwise.exact_dots_device),
+   then the same exact retention and writer.
+
+With ``mesh`` (parallel.mesh.Mesh), every engine runs tile-data-parallel
+over its slots (JAX ``compute.py:202-205, 383, 811, 1167-1259``): the planes
+are replicated to every slot and each round of tiles is split into
+per-slot blocks (parallel.engine.MeshSweepOps); the shard is
+byte-identical to the single-device one. Without a mesh the engine runs on
+a 1-slot mesh of ``device``. ``gate`` changes nothing here: kernel S's
+APPEND epilogue already emits nothing for a tile without survivors.
 """
 
 from __future__ import annotations
@@ -63,6 +81,7 @@ from .writer import write_shard
 from ..ops import minhash
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
+from ..ops import pallas_pairwise as pp
 
 # per-shard stage timing of the LAST compute_pairwise_shard call (the keys
 # of the JAX engine's LAST_STAGES). sweep_ms is kernel S (synchronised),
@@ -70,8 +89,14 @@ from ..ops import pairwise_math as pm
 # exact combine and filter. The streaming engine adds stage_read_ms (the
 # memmap reads, the windows' on the worker thread), stage_wait_ms (time
 # spent waiting for a prefetched window), row_groups, windows and
-# tiles_swept; compute_minhash_shard replaces them with the MinHash
-# stages (ops.minhash.LAST_STAGES, write_ms, pairs_written).
+# tiles_swept. The two-phase engine's sweep_ms is its counts sweep (plus,
+# streaming, the row tile's staging), its extract_ms the extraction net of
+# the finalize nested in it, whose exact dots finalize_ms includes; it
+# adds hot_tiles (tiles the counts sweep found survivors in, which the
+# extraction sweeps again), reruns (slot blocks whose APPEND total
+# exceeded the capacity their counts gave) and, streaming, windows.
+# compute_minhash_shard replaces them with the MinHash stages
+# (ops.minhash.LAST_STAGES, write_ms, pairs_written).
 LAST_STAGES: dict = {}
 
 # int32 bytes of vectors per host->device staging chunk
@@ -214,24 +239,30 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
     mesh: run mesh-parallel over its slots (devices of ``device``'s type);
     None runs on ``device`` alone.
 
-    finalize ({None, "host", "device"}) and gate are accepted as in the JAX
-    package and change nothing: the fused engine combines exact in-kernel
-    partials either way, and kernel S emits nothing for an empty tile.
-    engine: "fused" only; the two-phase engine is not ported.
+    engine: "fused" (the default) or "two_phase" (a counts sweep, then the
+    hot tiles' extraction and a separate exact finalize); tiles whose
+    square is not a multiple of 32 take the two-phase engine either way,
+    as in the JAX package. finalize ({None, "host", "device"}) is the
+    two-phase engine's exact-dot site: "host" gathers the candidates' rows
+    from the vectors memmap, "device" runs kernel X on the staged planes;
+    None is "device" on CUDA and "host" on the CPU. The fused engine
+    ignores it (it combines exact in-kernel partials), as in the JAX
+    package. gate changes nothing: kernel S emits nothing for an empty
+    tile.
     """
     if finalize not in (None, "host", "device"):
         raise ValueError(f"finalize={finalize!r}: expected None, 'host' or "
                          "'device'")
-    if engine != "fused":
-        raise ValueError(
-            f"engine={engine!r}: the port runs the fused engine only; the "
-            "two-phase engine is deliberately not ported (ROADMAP A-list "
-            "item 10)")
+    if engine not in ("fused", "two_phase"):
+        raise ValueError(f"engine={engine!r}: expected 'fused' or "
+                         "'two_phase'")
     dev = resolve_device(device)
     if mesh is None:
         mesh = Mesh([dev])
     elif mesh.device_type != dev.type:
         raise ValueError(f"mesh {mesh} does not run on device {str(dev)!r}")
+    if finalize is None:
+        finalize = "device" if dev.type == "cuda" else "host"
     ops = MeshSweepOps(mesh)
     dev = mesh.lead
     _reset_stages()
@@ -279,9 +310,11 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
     args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
             exact_filter, max_abs, ops)
     if budget is not None and pm.num_planes(L) * npad * d > budget:
-        rows, cols, vals = _compute_streaming(*args, budget)
+        rows, cols, vals = _compute_streaming(*args, budget, engine,
+                                              finalize)
     else:
-        rows, cols, vals = _compute_device_resident(*args, key)
+        rows, cols, vals = _compute_device_resident(*args, key, engine,
+                                                    finalize)
     if verbose:
         dt = (time.perf_counter() - t0) * 1000
         log(f"Total computation time: {dt:.0f} ms ({len(rows)} surviving pairs)")
@@ -361,11 +394,18 @@ def _stage_database(db, norms_sq, total, tile, L, d, max_abs, ops, key):
 
 
 def _make_finalizer(norms_sq, begin_row, end_row, total, d, exact_filter):
-    """-> (parts, finalize_dots(r, c, dots, count=True)): the exact
-    retention of candidate pairs with exact int64 dots; survivors inside
-    this shard's row range are appended to parts as (rows, cols, dots).
-    count=False marks a host re-emission (a mirror twin) that was not read
-    from the device."""
+    """-> (parts, finalize_dots(r, c, dots, count=True),
+    finalize_globals(r, c, exact_dots)): the exact retention of candidate
+    pairs; survivors inside this shard's row range are appended to parts
+    as (rows, cols, dots).
+
+    finalize_dots takes exact int64 dots (the fused engine's); count=False
+    marks a host re-emission (a mirror twin) that was not read from the
+    device. finalize_globals takes pairs without dots (the two-phase
+    engine's, JAX ``:914-931``): the range filter first, then
+    exact_dots(rows, cols) of the pairs kept (:func:`_exact_dots`), timed
+    under finalize_ms; every pair counts under candidates and emitted, the
+    dropped ones too."""
     parts: list = []
 
     def finalize_dots(r_glob, c_glob, dots, count: bool = True):
@@ -385,7 +425,36 @@ def _make_finalizer(norms_sq, begin_row, end_row, total, d, exact_filter):
                 parts.append((r_glob[keep], c_glob[keep], dots[keep]))
         _acc("finalize_ms", t0)
 
-    return parts, finalize_dots
+    def finalize_globals(r_glob, c_glob, exact_dots):
+        t0 = time.perf_counter()
+        keep_range = ((r_glob >= begin_row) & (r_glob < end_row)
+                      & (c_glob < total))
+        kept_r, kept_c = r_glob[keep_range], c_glob[keep_range]
+        dropped = len(r_glob) - len(kept_r)
+        LAST_STAGES["candidates"] += dropped
+        LAST_STAGES["emitted"] += dropped
+        if len(kept_r) == 0:
+            _acc("finalize_ms", t0)
+            return
+        dots = exact_dots(kept_r, kept_c)
+        _acc("finalize_ms", t0)
+        finalize_dots(kept_r, kept_c, dots)
+
+    return parts, finalize_dots, finalize_globals
+
+
+def _exact_dots(finalize, V, max_abs, L, planes_i, row_base=0,
+                planes_j=None, col_base=0):
+    """-> exact_dots(rows, cols): exact int64 dots of candidate pairs given
+    by global rows and columns (JAX ``exact_dots``, ``:905-912``). "host"
+    gathers them from the vectors memmap V (pairwise_math.exact_dots_host);
+    "device" runs kernel X on the staged planes (planes_i holds the global
+    rows row_base.., planes_j, planes_i when None, col_base..;
+    ops.pairwise.exact_dots_device)."""
+    if finalize == "host":
+        return lambda r, c: pm.exact_dots_host(V, r, c, max_abs)
+    return lambda r, c: pw.exact_dots_device(planes_i, L, r - row_base,
+                                             c - col_base, planes_j)
 
 
 def _combine(host, L):
@@ -411,7 +480,21 @@ def _self_pairs(ops, planes, lo, hi, row_base, L, finalize_dots):
 
 
 def _compute_device_resident(db, norms_sq, total, begin_row, end_row, tile,
-                             L, d, exact_filter, max_abs, ops, key):
+                             L, d, exact_filter, max_abs, ops, key, engine,
+                             finalize):
+    """The resident engines' router (JAX ``:391-401``): fused when asked
+    for and tile^2 % 32 == 0 (the JAX fused engine packs 32-bit mask words;
+    a CUDA tile, a multiple of 128, always qualifies), else two-phase."""
+    args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
+            exact_filter, max_abs, ops, key)
+    if engine == "fused" and tile * tile % 32 == 0:
+        return _compute_device_resident_fused(*args)
+    return _compute_device_resident_two_phase(*args, finalize)
+
+
+def _compute_device_resident_fused(db, norms_sq, total, begin_row, end_row,
+                                   tile, L, d, exact_filter, max_abs, ops,
+                                   key):
     ts = time.perf_counter()
     planes, thr = _stage_database(db, norms_sq, total, tile, L, d, max_abs,
                                   ops, key)
@@ -431,8 +514,8 @@ def _compute_device_resident(db, norms_sq, total, begin_row, end_row, tile,
                        if c >= r or not rt0 <= c < rt1],
                       dtype=np.int32).reshape(-1, 2)
 
-    parts, finalize_dots = _make_finalizer(norms_sq, begin_row, end_row,
-                                           total, d, exact_filter)
+    parts, finalize_dots, _ = _make_finalizer(norms_sq, begin_row, end_row,
+                                              total, d, exact_filter)
 
     def fin_dots(r_glob, c_glob, dots):
         finalize_dots(r_glob, c_glob, dots)
@@ -449,7 +532,33 @@ def _compute_device_resident(db, norms_sq, total, begin_row, end_row, tile,
 
 
 def _compute_streaming(db, norms_sq, total, begin_row, end_row, tile, L, d,
-                       exact_filter, max_abs, ops, budget):
+                       exact_filter, max_abs, ops, budget, engine, finalize):
+    """The streaming engines' router (JAX ``:1098-1104``), as
+    :func:`_compute_device_resident`'s."""
+    args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
+            exact_filter, max_abs, ops, budget)
+    if engine == "fused" and tile * tile % 32 == 0:
+        return _compute_streaming_fused(*args)
+    return _compute_streaming_two_phase(*args, finalize)
+
+
+def _stage_block(block, thr_all, start, n_rows, L, max_abs, db, ops):
+    """(n, d) int32 host rows, global rows start.. -> per-slot replicas of
+    their (P, n_rows, d_pad) int8 planes and (n_rows,) float32 thresholds
+    (1e30 on the pad rows past the block): the streaming engines' stager,
+    on the lead device."""
+    dev = ops.mesh.lead
+    planes = torch.zeros((pm.num_planes(L), n_rows,
+                          pw.pad_dim(block.shape[1])), dtype=torch.int8,
+                         device=dev)
+    _upload_rows(planes, block, 0, L, max_abs, db, dev)
+    thr = np.full(n_rows, np.float32(1e30), dtype=np.float32)
+    thr[:len(block)] = thr_all[start:start + len(block)]
+    return ops.replicate(planes, torch.from_numpy(thr).to(dev))
+
+
+def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
+                             L, d, exact_filter, max_abs, ops, budget):
     """The beyond-memory engine (JAX ``_compute_streaming_fused``, with its
     schedule): a ROW GROUP of the shard's row tiles is staged once and a
     WINDOW of column tiles at a time streams past it; kernel S sweeps every
@@ -465,25 +574,16 @@ def _compute_streaming(db, norms_sq, total, begin_row, end_row, tile, L, d,
     replicated to the slots (JAX ``compute.py:1167-1259``)."""
     LAST_STAGES.update(mode="fused-streaming", stage_wait_ms=0.0,
                        stage_read_ms=0.0)
-    dev = ops.mesh.lead
     V = _vectors(db, total, d)
     thr_all = _thresholds(norms_sq, L, max_abs, d)
-    P, d_pad = pm.num_planes(L), pw.pad_dim(d)
-    parts, finalize_dots = _make_finalizer(norms_sq, begin_row, end_row,
-                                           total, d, exact_filter)
+    P = pm.num_planes(L)
+    parts, finalize_dots, _ = _make_finalizer(norms_sq, begin_row, end_row,
+                                              total, d, exact_filter)
 
     def read(start, end):
         t0 = time.perf_counter()
         block = np.array(V[start:end], dtype=np.int32)
         return block, (time.perf_counter() - t0) * 1e3
-
-    def upload(block, start, n_rows):
-        planes = torch.zeros((P, n_rows, d_pad), dtype=torch.int8,
-                             device=dev)
-        _upload_rows(planes, block, 0, L, max_abs, db, dev)
-        thr = np.full(n_rows, np.float32(1e30), dtype=np.float32)
-        thr[:len(block)] = thr_all[start:start + len(block)]
-        return ops.replicate(planes, torch.from_numpy(thr).to(dev))
 
     bytes_per_tile = P * tile * d
     share = max(budget // 4, 2 * bytes_per_tile)
@@ -508,7 +608,9 @@ def _compute_streaming(db, norms_sq, total, begin_row, end_row, tile, L, d,
                 planes_r = thr_r = None       # free the last group first
                 block, read_ms = read(rg, rg_end)
                 LAST_STAGES["stage_read_ms"] += read_ms
-                planes_r, thr_r = upload(block, rg, n_r * tile)
+                planes_r, thr_r = _stage_block(block, thr_all, rg,
+                                               n_r * tile, L, max_abs, db,
+                                               ops)
                 _acc("stage_ms", ts)
                 _self_pairs(ops, planes_r, 0, rg_end - rg, rg, L,
                             finalize_dots)
@@ -521,7 +623,8 @@ def _compute_streaming(db, norms_sq, total, begin_row, end_row, tile, L, d,
                 if si + 1 < len(schedule) else None
             n_w = (we - ws + tile - 1) // tile
             planes_w = thr_w = None           # free the last window first
-            planes_w, thr_w = upload(block, ws, n_w * tile)
+            planes_w, thr_w = _stage_block(block, thr_all, ws, n_w * tile,
+                                           L, max_abs, db, ops)
             del block
             _acc("stage_ms", ts)
             coords = np.array([(ri, wj) for ri in range(n_r)
@@ -576,6 +679,153 @@ def _sweep(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
                 r, c, dots = _combine(host, L)
                 fin_dots(r + row_base, c + col_base, dots)
         s = e
+
+
+def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
+                                       end_row, tile, L, d, exact_filter,
+                                       max_abs, ops, key, finalize):
+    """The two-phase engine on the resident planes (JAX ``:788-867``): the
+    residency slot's planes (shared with the fused engine: a fused and a
+    two-phase shard of one db stage once), the counts sweep over the FULL
+    rectangle of the shard's row tiles x every column tile (kernel S COUNT
+    at the engine's sub-blocks), then :func:`_extract_tiles` with the
+    finalize's exact dots. extract_ms is net of the finalize nested in
+    it."""
+    ts = time.perf_counter()
+    planes, thr = _stage_database(db, norms_sq, total, tile, L, d, max_abs,
+                                  ops, key)
+    _sync(ops.mesh.lead)
+    _acc("stage_ms", ts)
+    LAST_STAGES.update(mode="two_phase", reruns=0, hot_tiles=0)
+
+    nt = planes[0].shape[1] // tile
+    rt0, rt1 = begin_row // tile, (end_row - 1) // tile + 1
+    coords = np.array([(r, c) for r in range(rt0, rt1) for c in range(nt)],
+                      dtype=np.int32).reshape(-1, 2)
+    tsw = time.perf_counter()
+    counts = ops.sweep_counts(planes, thr, coords, tile, d,
+                              pp.engine_blocks(planes[0].shape[0], tile,
+                                               ops.mesh.lead))
+    _acc("sweep_ms", tsw)
+
+    exact = _exact_dots(finalize, _vectors(db, total, d), max_abs, L,
+                        planes[0])
+    parts, _, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
+                                                 total, d, exact_filter)
+    te = time.perf_counter()
+    fin0 = LAST_STAGES["finalize_ms"]
+    _extract_tiles(ops, planes, thr, planes, thr, tile, L, d, coords, counts,
+                   0, 0, lambda r, c: finalize_globals(r, c, exact))
+    _acc("extract_ms", te)
+    LAST_STAGES["extract_ms"] -= LAST_STAGES["finalize_ms"] - fin0
+    return _concat(parts)
+
+
+def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
+                                 tile, L, d, exact_filter, max_abs, ops,
+                                 budget, finalize):
+    """The two-phase engine beyond the device budget (JAX ``:1214-1273``):
+    windows of column tiles on the outer loop, each staged once per shard
+    (a third of the budget, JAX's rule), and one row tile of the shard at a
+    time on the inner loop (staged under sweep_ms, as in JAX). Kernel S
+    takes the row tile and the window as its two operands, not
+    concatenated: the survivors come back operand-local and the row tile's
+    and the window's first global rows place them, self-pairs included
+    (they are kept, so no diagonal offset masks anything). Then the
+    resident engine's extraction and finalize ("device": kernel X on the
+    two operands)."""
+    LAST_STAGES.update(mode="two_phase-streaming", reruns=0, hot_tiles=0)
+    V = _vectors(db, total, d)
+    thr_all = _thresholds(norms_sq, L, max_abs, d)
+    P = pm.num_planes(L)
+    bytes_per_tile = P * tile * d
+    window_tiles = max(1, int(max(budget // 3, 2 * bytes_per_tile)
+                              // bytes_per_tile) - 1)
+    blocks = pp.engine_blocks(P, tile, ops.mesh.lead)
+    parts, _, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
+                                                 total, d, exact_filter)
+    windows = range(0, total, window_tiles * tile)
+    LAST_STAGES["windows"] = len(windows)
+    for ws in windows:
+        we = min(ws + window_tiles * tile, total)
+        n_w = (we - ws + tile - 1) // tile
+        ts = time.perf_counter()
+        planes_w, thr_w = _stage_block(np.array(V[ws:we], dtype=np.int32),
+                                       thr_all, ws, n_w * tile, L, max_abs,
+                                       db, ops)
+        _acc("stage_ms", ts)
+        coords = np.array([(0, j) for j in range(n_w)], dtype=np.int32)
+        for bi in range(begin_row, end_row, tile):
+            tsw = time.perf_counter()
+            planes_r = thr_r = None           # free the last row tile first
+            planes_r, thr_r = _stage_block(
+                np.array(V[bi:min(bi + tile, end_row)], dtype=np.int32),
+                thr_all, bi, tile, L, max_abs, db, ops)
+            counts = ops.sweep_counts(planes_r, thr_r, coords, tile, d,
+                                      blocks, planes_w, thr_w)
+            _acc("sweep_ms", tsw)
+            exact = _exact_dots(finalize, V, max_abs, L, planes_r[0], bi,
+                                planes_w[0], ws)
+            te = time.perf_counter()
+            fin0 = LAST_STAGES["finalize_ms"]
+            _extract_tiles(ops, planes_r, thr_r, planes_w, thr_w, tile, L, d,
+                           coords, counts, bi, ws,
+                           lambda r, c: finalize_globals(r, c, exact))
+            _acc("extract_ms", te)
+            LAST_STAGES["extract_ms"] -= LAST_STAGES["finalize_ms"] - fin0
+        planes_w = thr_w = None               # free the last window first
+    return _concat(parts)
+
+
+def _extract_tiles(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
+                   counts, row_base, col_base, finalize):
+    """The two-phase engine's hot-tile extraction (JAX ``:936-1078``): the
+    tiles ``coords`` with counts > 0, in consecutive chunks whose summed
+    counts fit CANDIDATE_BUDGET_BYTES (checked before any launch; one tile
+    at least), each chunk one round of kernel S APPEND with the self-pairs
+    kept on every slot, at the capacity its counts give. The survivors'
+    operand-local (row, column) pairs come to the host and, placed by
+    row_base and col_base (the global rows of planes_i's and planes_j's
+    first rows), go to finalize(rows, cols).
+
+    The counts are advisory, as in JAX (``:995-1000``): a slot whose
+    APPEND total exceeds its capacity is rerun at the exact total
+    (LAST_STAGES reruns), a chunk whose APPEND counts differ from its COUNT
+    is logged, and a slot of several tiles that would break the budget
+    halves the chunk. On the card both epilogues are one kernel with one
+    float32 op order, so neither happens."""
+    per_pair = (2 + pm.num_planes(L)) * 4         # rc + partials bytes
+    limit = CANDIDATE_BUDGET_BYTES // per_pair
+    hot = np.flatnonzero(counts > 0)
+    LAST_STAGES["hot_tiles"] += len(hot)
+    s, take = 0, len(hot)
+    while s < len(hot):
+        csum = np.cumsum(counts[hot[s:s + take]])
+        e = s + max(1, int(np.searchsorted(csum, limit, side="right")))
+        ks = hot[s:e]
+        want = counts[ks]
+        cap = ops.block_total_max(want)
+        res = ops.sweep_extract_fused(planes_i, thr_i, coords[ks], tile, cap,
+                                      d, limit, planes_j, thr_j,
+                                      mask_self=False)
+        if res is None:
+            take = max(1, (e - s) // 2)
+            continue
+        swept, got = res
+        del res
+        LAST_STAGES["reruns"] += sum(run is not None and run[1] > cap
+                                     for run in swept)
+        if not np.array_equal(got, want):
+            log(f"two-phase extraction: {int((got != want).sum())} of "
+                f"{len(ks)} tiles found {int(got.sum())} survivors where "
+                f"the counts sweep found {int(want.sum())}")
+        hosts = ops.host_pairs(swept)
+        del swept                # the candidate buffers, before the finalize
+        for rc in hosts:
+            if rc is not None:
+                finalize(rc[:, 0].astype(np.int64) + row_base,
+                         rc[:, 1].astype(np.int64) + col_base)
+        s, take = e, len(hot)
 
 
 def compute_minhash_shard(hashes_file: str, output_folder: str,

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from .pairwise_math import (SLACK_ABS, SLACK_REL, limbs_from_planes,
-                            num_planes, plane_weights)
+from .pairwise_math import (SLACK_ABS, SLACK_REL, combine_plane_partials,
+                            limbs_from_planes, num_planes, plane_weights)
 
 D_ALIGN = 64          # d_pad granularity (kernel S's K step)
 SWEEP_BLOCK = 128     # kernel S's row block: CUDA tiles are multiples of it
@@ -190,7 +190,7 @@ def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
             counts.data_ptr(), rc.data_ptr() if append else None,
             total.data_ptr() if append else None, int(cap), stream)
     _build.check(err, "sweep kernel")
-    _build.count_launch("sweep")
+    _build.count_launch("sweep", None if append else "sweep_count")
     return counts, rc, total
 
 
@@ -403,3 +403,22 @@ def pair_partials(planes: torch.Tensor, rc: torch.Tensor, L: int,
     _build.check(err, "partials kernel")
     _build.count_launch("partials")
     return out
+
+
+def exact_dots_device(planes: torch.Tensor, L: int, rows: np.ndarray,
+                      cols: np.ndarray,
+                      planes_j: torch.Tensor | None = None) -> np.ndarray:
+    """Exact int64 dots of candidate pairs from the staged int8 planes
+    (JAX ``exact_dots_device``, ops/pairwise.py:930): kernel X's limb-pair
+    partials of (rows[k], cols[k]) (a row of planes, a row of planes_j —
+    planes itself when None), one device->host copy of 4 * L(L+1)/2 bytes
+    a pair, then the host's exact combine. One launch for any number of
+    pairs (the caller bounds it)."""
+    dev = planes.device
+    rc = torch.from_numpy(np.stack([rows, cols], axis=1)
+                          .astype(np.int32)).to(dev)
+    flag = range_flag(dev) if dev.type == "cuda" else None
+    parts = pair_partials(planes, rc, L, planes_j, flag).cpu().numpy()
+    if flag is not None:
+        check_range_flag(flag)
+    return combine_plane_partials(parts.T, L)

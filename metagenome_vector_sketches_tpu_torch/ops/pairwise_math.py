@@ -1,7 +1,9 @@
 """Framework-neutral (numpy-only) half of the pairwise math.
 
 A copy of the numpy functions of ``metagenome_vector_sketches_tpu.ops.
-pairwise``, which cannot be imported here because that module imports JAX.
+pairwise`` (the overflow guard of ``exact_dots_host`` raises ValueError
+where the original asserts), which cannot be imported here because that
+module imports JAX.
 ``tests/test_torch_math.py`` holds every function equal to its twin.
 
 Balanced base-128 limbs: v = sum_k limb_k * 2^(7k) with every limb in
@@ -165,6 +167,30 @@ def combine_plane_partials(partials: np.ndarray, L: int) -> np.ndarray:
     w = [1 << (14 * a) for a in range(L)]
     w += [1 << (7 * (a + b)) for a in range(L) for b in range(a + 1, L)]
     return np.asarray(w, dtype=np.int64) @ partials
+
+
+def exact_dots_host(V: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                    max_abs: int, chunk: int | None = None) -> np.ndarray:
+    """Exact int64 dot products of V[rows] . V[cols] on host.
+
+    float64 accumulation is exact while every partial sum stays an integer
+    below 2^53 (d * max_abs^2 — true for any real sketch db, components are
+    bounded by hash-set sizes); int64 accumulation covers the rest. Chunked
+    so the two gathered float64 copies stay near 256 MB regardless of d."""
+    d = V.shape[1]
+    if chunk is None:
+        chunk = max(1024, (256 << 20) // (16 * d))
+    f64_ok = d * (max_abs ** 2) < (1 << 53)
+    if not (f64_ok or d * (max_abs ** 2) < (1 << 62)):
+        raise ValueError("dot would overflow int64")
+    out = np.empty(len(rows), dtype=np.int64)
+    dt = np.float64 if f64_ok else np.int64
+    for s in range(0, len(rows), chunk):
+        e = min(s + chunk, len(rows))
+        gi = V[rows[s:e]].astype(dt)
+        gj = V[cols[s:e]].astype(dt)
+        out[s:e] = np.einsum("kd,kd->k", gi, gj).astype(np.int64)
+    return out
 
 
 def exact_filter_int32(dots: np.ndarray, thr: np.ndarray, d: int) -> np.ndarray:

@@ -13,15 +13,14 @@ single-device layout, so matrix.compute's exact host finalize and the
 shard writer do not depend on the slot count. A 1-slot mesh is the
 single-device engine.
 
-Not ported: the two-phase engine's programs (JAX ``_counts_fn``,
-``_mask_fn``, ``_compact_fn``, ``_compact_words_fn`` and the
-``sweep_counts``, ``sweep_mask_bits``, ``sweep_compact``,
-``sweep_compact_words`` methods, which only that engine calls: JAX
-``compute.py:582, 811, 973, 1070, 1259``), because the port does not run
-that engine (ROADMAP A-list: deliberately not ported). The fused engine's
-``compact_cands_combined`` / ``split_combined`` have no counterpart
-either: kernel S's APPEND epilogue compacts in the sweep itself, and each
-slot's rows reach the host already split.
+The two-phase engine's counts sweep is :meth:`MeshSweepOps.sweep_counts`
+(kernel S COUNT on every slot's block of tiles, JAX ``_counts_fn``); its
+hot-tile extraction is :meth:`MeshSweepOps.sweep_extract_fused` with
+``mask_self=False``: kernel S's APPEND epilogue compacts the survivors in
+the sweep itself, so JAX ``_mask_fn``, ``_compact_fn`` and
+``_compact_words_fn`` (bitmaps, index and word compaction) have no
+counterpart, nor have the fused engine's ``compact_cands_combined`` /
+``split_combined``: each slot's rows reach the host already split.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops import pairwise as pw
+from ..ops import pallas_pairwise as pp
 from .mesh import Mesh, replicated
 
 
@@ -61,13 +61,41 @@ class MeshSweepOps:
                 for s in range(self.n_devices)], t
 
     # -- the engine's device calls ------------------------------------------
+    def sweep_counts(self, planes, thr, coords, tile: int, d: int, blocks,
+                     planes_j=None, thr_j=None) -> np.ndarray:
+        """Kernel S COUNT (:func:`~..ops.pallas_pairwise.count_tiles` at the
+        sub-blocks ``blocks``) on every slot's block of ``coords``, every
+        slot launched before any is read -> the (T,) int64 per-tile
+        survivor counts on the host, in coordinate order (JAX
+        ``MeshSweepOps.sweep_counts``). planes/thr (planes_j/thr_j: the
+        column operand, default the same) are per-slot replicas."""
+        planes_j = planes if planes_j is None else planes_j
+        thr_j = thr if thr_j is None else thr_j
+        blocks_of, t = self._pad(coords)
+        m = self.mesh
+        runs = []
+        for s in range(m.size):
+            if len(blocks_of[s]):
+                with m.slot(s):
+                    runs.append((s, pp.count_tiles(planes[s], thr[s],
+                                                   planes_j[s], thr_j[s],
+                                                   blocks_of[s], tile, d,
+                                                   blocks)))
+        out = []
+        for s, counts in runs:
+            with m.slot(s):
+                out.append(counts.cpu().numpy().astype(np.int64))
+        return np.concatenate(out) if out else np.zeros(t, dtype=np.int64)
+
     def sweep_extract_fused(self, planes, thr, bcoords, tile: int, cap: int,
                             d: int, max_pairs: int, planes_j=None, thr_j=None,
-                            diag_offset: int = 0):
-        """Kernel S (APPEND, self-pairs masked) on every slot's block of
-        ``bcoords``, then each slot whose survivors overflow ``cap`` rerun
-        at its exact count. planes/thr (planes_j/thr_j: the column operand,
-        default the same) are per-slot replicas (:meth:`replicate`).
+                            diag_offset: int = 0, mask_self: bool = True):
+        """Kernel S (APPEND; self-pairs masked unless ``mask_self`` is
+        False, as the two-phase engine's extraction keeps them) on every
+        slot's block of ``bcoords``, then each slot whose survivors overflow
+        ``cap`` rerun at its exact count. planes/thr (planes_j/thr_j: the
+        column operand, default the same) are per-slot replicas
+        (:meth:`replicate`).
 
         -> None when a slot of more than one tile found more than
         ``max_pairs`` survivors (the caller halves its round), else (a list
@@ -84,8 +112,8 @@ class MeshSweepOps:
         def launch(s, c):
             with m.slot(s):
                 return pw.sweep_extract(planes[s], thr[s], planes_j[s],
-                                        thr_j[s], blocks[s], tile, c, True,
-                                        d, diag_offset)
+                                        thr_j[s], blocks[s], tile, c,
+                                        mask_self, d, diag_offset)
 
         runs = {s: launch(s, cap) for s in live}
         totals, counts = {}, []
@@ -138,6 +166,20 @@ class MeshSweepOps:
                 host = p[0].cpu().numpy()
                 pw.check_range_flag(p[1])
             out.append(host)
+        return out
+
+    def host_pairs(self, swept) -> list:
+        """One device->host copy of every slot's survivor pairs
+        (``swept``: the per-slot list of :meth:`sweep_extract_fused`), in
+        slot order -> per slot a host (n_s, 2) int32 array of operand-local
+        (row, column) pairs (None for an empty slot)."""
+        out = []
+        for s, run in enumerate(swept):
+            if run is None:
+                out.append(None)
+                continue
+            with self.mesh.slot(s):
+                out.append(run[0][:run[1]].cpu().numpy())
         return out
 
     def block_total_max(self, per_tile_counts) -> int:

@@ -645,6 +645,82 @@ def test_streaming_cuda_shard_equals_resident(cuda, tmp_path):
                            shallow=False)
 
 
+@pytest.mark.parametrize("bj", [512, 256, 128])
+@pytest.mark.parametrize("bi", [512, 256, 128])
+@pytest.mark.parametrize("max_abs", [3000, 30000])
+def test_count_tiles_kernel_matches_plain(cuda, max_abs, bi, bj):
+    """The two-phase engine's COUNT (count_tiles: kernel S over the tiles'
+    sub-blocks, summed to the tile) equals its plain version, one and two
+    operands, P = 3 and 6."""
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    _, _, planes, thr = _state(cuda, N=1024, d=200, max_abs=max_abs)
+    coords = np.array([(r, c) for r in range(2) for c in range(2)])
+    got = pp.count_tiles(planes, thr, planes, thr, coords, 512, 200,
+                         (bi, bj))
+    want = pp.count_tiles(planes.cpu(), thr.cpu(), planes.cpu(), thr.cpu(),
+                          coords, 512, 200, (bi, bj))
+    assert int(want.sum()) > 0 and torch.equal(got.cpu(), want)
+    # the row tile rows 512.. against a window of rows 256..
+    pi, ti = planes[:, 512:].contiguous(), thr[512:].contiguous()
+    pj, tj = planes[:, 256:768].contiguous(), thr[256:768].contiguous()
+    got = pp.count_tiles(pi, ti, pj, tj, [(0, 0)], 512, 200, (bi, bj))
+    want = pp.count_tiles(pi.cpu(), ti.cpu(), pj.cpu(), tj.cpu(), [(0, 0)],
+                          512, 200, (bi, bj))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["host", "device", "streaming", "2 slots",
+                                  "tile 384", "tile 256", "int16"])
+def test_two_phase_cuda_shard_equals_fused(cuda, tmp_path, case):
+    """engine="two_phase" on the card (COUNT sweep, APPEND extraction with
+    self-pairs kept, host or device finalize) writes the fused shard's
+    bytes: finalize host and device, streaming, two slots of cuda:0,
+    tiles whose COUNT runs at 128- and 256-row blocks, and an int16 db at
+    P = 6 with (512, 128) blocks. COUNT is launched and nothing reruns."""
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh
+    int16 = case == "int16"
+    tile = {"tile 384": 384, "tile 256": 256}.get(case, 512)
+    V, _, _, _ = _state("cpu", N=2500, d=200,
+                        max_abs=30000 if int16 else 3000)
+    V[2000:2010] = V[5]
+    db = DbFolder.write(str(tmp_path / "db"), [f"S{i}" for i in range(2500)],
+                        V, 200, use_int16=int16)
+    P = pm.num_planes(pm.pick_limbs(int(np.abs(V).max())))
+    want_blocks = {"tile 384": (128, 128), "tile 256": (256, 256),
+                   "int16": (512, 128)}.get(case, (512, 512))
+    assert P == (6 if int16 else 3)
+    assert pp.engine_blocks(P, tile, cuda) == want_blocks
+    kw = dict(engine="two_phase", finalize="host" if case == "host"
+              else None)
+    if case == "streaming":
+        kw["device_budget_bytes"] = 0
+    if case == "2 slots":
+        kw["mesh"] = Mesh([torch.device("cuda", 0)] * 2)
+    mc.clear_device_cache()
+    for s in range(2):
+        mc.compute_pairwise_shard(db.path, str(tmp_path / "fused"), 2, s,
+                                  tile_rows=tile, verbose=False, device=cuda)
+    for s in range(2):
+        _build.reset_launch_counts()
+        mc.compute_pairwise_shard(db.path, str(tmp_path / "two"), 2, s,
+                                  tile_rows=tile, verbose=False, device=cuda,
+                                  **kw)
+        launches = _build.launch_counts()
+        assert mc.LAST_STAGES["mode"] == (
+            "two_phase-streaming" if case == "streaming" else "two_phase")
+        assert mc.LAST_STAGES["reruns"] == 0
+        assert launches["sweep_count"] > 0
+        assert launches["sweep"] > launches["sweep_count"]
+        assert (launches["partials"] > 0) == (case != "host")
+    mc.clear_device_cache()
+    _same_shard_files(tmp_path / "fused", tmp_path / "two", (0, 1))
+
+
 def test_minhash_cli_cuda_equals_cpu(cuda, tmp_path):
     import filecmp
     import pathlib

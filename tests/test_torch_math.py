@@ -93,3 +93,25 @@ def test_combine_plane_partials_and_exact_filters(L):
                                   ref.exact_filter_int32(dots, thr, d))
     np.testing.assert_array_equal(pm.exact_filter_int16(dots, thr, d),
                                   ref.exact_filter_int16(dots, thr, d))
+
+
+@pytest.mark.parametrize("max_abs,d", [(3000, 100), (1 << 23, 256)])
+def test_exact_dots_host(max_abs, d):
+    """The float64 branch and, at d * max_abs^2 >= 2^53, the int64 one; a
+    chunk smaller than the pairs."""
+    rng = np.random.default_rng(max_abs)
+    V = rng.integers(-max_abs, max_abs + 1, size=(40, d)).astype(np.int32)
+    V[0, :2] = [max_abs, -max_abs]
+    rows = rng.integers(0, 40, size=3000)
+    cols = rng.integers(0, 40, size=3000)
+    rows[:2], cols[:2] = 0, 0
+    want = ref.exact_dots_host(V, rows, cols, max_abs)
+    np.testing.assert_array_equal(pm.exact_dots_host(V, rows, cols, max_abs),
+                                  want)
+    np.testing.assert_array_equal(
+        pm.exact_dots_host(V, rows, cols, max_abs, chunk=1024), want)
+    np.testing.assert_array_equal(
+        want, np.einsum("kd,kd->k", V[rows].astype(object),
+                        V[cols].astype(object)).astype(np.int64))
+    with pytest.raises(ValueError, match="overflow"):
+        pm.exact_dots_host(V, rows, cols, 1 << 31)

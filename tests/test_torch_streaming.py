@@ -142,15 +142,17 @@ def test_budget_rule_is_the_jax_rule(tmp_path):
 
 def test_engine_and_finalize_arguments(tmp_path):
     db = _db(tmp_path / "db", 1, "int32", n=40, d=64)
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="engine"):
         tmc.compute_pairwise_shard(db.path, str(tmp_path / "m"),
-                                   engine="two_phase", device="cpu")
+                                   engine="three_phase", device="cpu")
     with pytest.raises(ValueError, match="finalize"):
         tmc.compute_pairwise_shard(db.path, str(tmp_path / "m"),
                                    finalize="gpu", device="cpu")
     for i, kw in enumerate(({}, dict(finalize="host"),
                             dict(finalize="device"),
-                            dict(gate=True, tile_cols=7))):
+                            dict(gate=True, tile_cols=7),
+                            dict(engine="two_phase"),
+                            dict(engine="two_phase", finalize="device"))):
         out = tmp_path / f"run{i}"
         tmc.compute_pairwise_shard(db.path, str(out), tile_rows=16,
                                    verbose=False, device="cpu", **kw)
