@@ -9,11 +9,13 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
 
 1. kernels: each kernel against its plain PyTorch version on the card,
-   with exact equality (projection P, sweep S in both epilogues and with a
-   nonzero diagonal offset, partials X, incidence Gram G at ragged n and
-   u), and S's TMA/wgmma core at the edges of its contract (d_pad 64, 192,
-   2048; P = 1, 3, 6, 10; 128-row and 128 x 256 tiles; diag_offset +-128;
-   SCORE at B = 1 and 256 with a ragged valid count; G at n = 128, 384),
+   with exact equality (projection P, the counts sweep COUNT over row
+   ranges, rectangular tiles and a tile list on two operands, sweep S
+   with a nonzero diagonal offset, partials X, incidence Gram G at ragged
+   n and u), and the TMA/wgmma cores of S and COUNT at the edges of their
+   contracts (d_pad 64, 192, 2048; P = 1, 3, 6, 10; 128-row and 128 x 256
+   tiles; diag_offset +-128; SCORE at B = 1 and 256 with a ragged valid
+   count; G at n = 128, 384),
    and the selection K bit-equal (keys, lanes, merged keys, positions) in
    each of its regimes (two-stage over one and five tiles a row, one CTA a
    row, the multi-CTA radix select, the full sort), with valid < R, all
@@ -87,15 +89,15 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    them and launches on cuda:1 need a second card (tests/test_torch_gpu.py).
 9. two_phase (after phase 5, on phase 2's db): compute_pairwise_shard
    with engine="two_phase" (the path of the JAX package's one Pallas
-   kernel: kernel S COUNT over the full rectangle at the engine's 512^2
-   blocks, hot-tile extraction through S APPEND with self-pairs kept,
-   exact finalize) resident with finalize="device" and "host", streaming
-   at phase 5's budget and on a mesh of two slots of cuda:0, each shard
-   byte-equal to phase 2's fused shard; COUNT launches counted apart
-   from APPEND (launch_counts()["sweep_count"]), no reruns; the host
+   kernel: kernel COUNT over the full rectangle, hot-tile extraction
+   through S APPEND with self-pairs kept, exact finalize) resident with
+   finalize="device" and "host", streaming at phase 5's budget and on a
+   mesh of two slots of cuda:0, each shard byte-equal to phase 2's fused
+   shard; COUNT and APPEND launched in every run, no reruns; the host
    finalize after a fused shard of the same db re-uses its staged planes;
-   walls and stages beside that fused shard; COUNT at the engine's blocks
-   against its plain version, its wrapper and kernel-alone ms, bound and
+   walls and stages beside that fused shard; COUNT on 16 tiles of 2048^2
+   at P = 3 (phase 2's rows) and P = 6 (an int16-like db) against its
+   plain version, its wrapper, kernel-alone and host ms a call, bound and
    torch._int_mm yardstick.
 
 Each path's kernels must be launched in that path's counted run (counts
@@ -126,15 +128,16 @@ D = 2048
 PKG = "metagenome_vector_sketches_tpu_torch"
 REPLACES = {
     "projection": "metagenome_vector_sketches_tpu/ops/projection.py:107",
-    "sweep": "metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55",
+    "sweep": "metagenome_vector_sketches_tpu/ops/pairwise.py:635",
     "partials": "metagenome_vector_sketches_tpu/ops/pairwise.py:888",
     "scan": "metagenome_vector_sketches_tpu/ann/int_index.py:124",
     "gram": "metagenome_vector_sketches_tpu/ops/minhash.py:47",
     "select": "metagenome_vector_sketches_tpu/ann/int_index.py:155",
+    "count": "metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55",
 }
 SOURCES = {"projection": "projection.cu", "sweep": "sweep.cu",
            "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu",
-           "select": "select.cu"}
+           "select": "select.cu", "count": "count.cu"}
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
 # the card's published rates (H100 SXM, dense, at 700 W): int8 tensor cores,
 # the rate outside the tensor cores (float32; kernel X's integer work is
@@ -297,12 +300,12 @@ def _gram_err(chunks):
 
 
 def _core_cases(errs):
-    """Kernel S's TMA/wgmma core at the edges of its contract, each against
-    the plain version exactly: d_pad 64, 192 (an odd number of 64-byte K
-    steps) and 2048; P = 1, 3, 6, 10; COUNT on 128 x 128, 128 x 256 and 256
-    x 128 tiles; APPEND on one 128-row tile, the 128-tile triangle and 128 x
-    256 tiles; the self mask at diag_offset +-128; SCORE at B = 1 and 256
-    on 640 rows with 555 valid."""
+    """The TMA/wgmma cores of S and COUNT at the edges of their contracts,
+    each against the plain version exactly: d_pad 64, 192 (an odd number of
+    64-byte K steps) and 2048; P = 1, 3, 6, 10; COUNT on 128 x 128, 128 x
+    256 and 256 x 128 tiles; APPEND on one 128-row tile, the 128-tile
+    triangle and 128 x 256 tiles; the self mask at diag_offset +-128; SCORE
+    at B = 1 and 256 on 640 rows with 555 valid."""
     import torch
     from metagenome_vector_sketches_tpu_torch.ann import int_index as ii
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
@@ -324,8 +327,8 @@ def _core_cases(errs):
                 err = int((pp.sweep_counts(planes, thr, d, 0, None, *blk).long()
                            - pp.sweep_counts_plain(planes, thr, d, 0, None,
                                                    *blk).long()).abs().max())
-                check(err == 0, f"S COUNT differs ({what}, blocks {blk})")
-                errs["sweep"] = max(errs["sweep"], err)
+                check(err == 0, f"COUNT differs ({what}, blocks {blk})")
+                errs["count"] = max(errs["count"], err)
             for coords in ([(0, 0)], [(r, c) for r in range(4)
                                       for c in range(r, 4)]):
                 same(pw.sweep_extract(planes, thr, planes, thr, coords, 128,
@@ -335,8 +338,8 @@ def _core_cases(errs):
                      f"{what}, {len(coords)} tiles of 128")
             wide = np.array([(r, c) for r in range(4) for c in range(2)])
             counts, rc, total = pw.launch_sweep(
-                planes, thr, planes, thr, wide, 128, 256, d, append=True,
-                mask_self=True, cap=cap)
+                planes, thr, planes, thr, wide, 128, 256, d, mask_self=True,
+                cap=cap)
             want = pw.sweep_extract_plain(
                 planes, thr, planes, thr,
                 [(r, 2 * c + h) for r, c in wide.tolist() for h in range(2)],
@@ -370,9 +373,10 @@ def _core_cases(errs):
                 check(torch.equal(got, pw.scan_scores_plain(qp, db, inv,
                                                             555)),
                       f"S SCORE differs (d={d} P={db.shape[0]} B={B})")
-    say("[kernels] S core: d_pad 64/192/2048 x P 1/3/6/10, COUNT (128^2, "
-        "128x256, 256x128 tiles), APPEND (1 tile, triangle, 128x256 tiles, "
-        "diag_offset +-128), SCORE (B 1/256, 555 of 640 valid): exact")
+    say("[kernels] S and COUNT cores: d_pad 64/192/2048 x P 1/3/6/10, "
+        "COUNT (128^2, 128x256, 256x128 tiles), APPEND (1 tile, triangle, "
+        "128x256 tiles, diag_offset +-128), SCORE (B 1/256, 555 of 640 "
+        "valid): exact")
 
 
 def _select_err(got, want, what):
@@ -512,9 +516,19 @@ def phase_kernels(errs):
                 p = pp.sweep_counts_plain(planes, thr, d, r0, r1, block,
                                           block_j)
                 err = int((k.long() - p.long()).abs().max())
-                check(err == 0, f"S COUNT differs (N={N} d={d} P={P} "
+                check(err == 0, f"COUNT differs (N={N} d={d} P={P} "
                                 f"blocks {block}/{block_j} rows {r0}:{r1})")
-                errs["sweep"] = max(errs["sweep"], err)
+                errs["count"] = max(errs["count"], err)
+        # COUNT over a tile list on two operands (the streaming engine's
+        # row tile and window), every tile twice
+        pi, ti = planes[:, 256:512].contiguous(), thr[256:512].contiguous()
+        pj, tj = planes[:, 512:].contiguous(), thr[512:].contiguous()
+        win = [(0, j) for j in range((N - 512) // 256)] * 2
+        k = pp.count_tiles(pi, ti, pj, tj, pp.TileList(win, "cuda"), 256, d)
+        p = pp.count_tiles_plain(pi, ti, pj, tj, win, 256, d)
+        err = int((k.long() - p.long()).abs().max())
+        check(err == 0, f"COUNT differs on two operands (N={N} d={d})")
+        errs["count"] = max(errs["count"], err)
         # APPEND over the triangle grid at tile 256, self-pairs masked
         tile = 256
         nt = N // tile
@@ -1719,18 +1733,23 @@ def phase_stream(N, work):
 # phase 9: the two-phase engine (the JAX package's Pallas kernel's path)
 # ---------------------------------------------------------------------------
 
-TWO_PHASE_KERNELS = ("sweep", "sweep_count")
+TWO_PHASE_KERNELS = ("count", "sweep")
 STAGE_PRINT = ("stage_ms", "sweep_ms", "extract_ms", "finalize_ms",
                "write_ms", "candidates", "emitted", "pairs_written",
                "hot_tiles", "reruns")
 
 
-def _count_timing(L, db_path, norms64, max_abs, errs):
-    """Kernel S COUNT at the engine's blocks (512 x 512, P = 3) over the
-    4 x 4 tiles of 2048^2 of phase 2's first 8,192 rows: against its plain
-    version on the card (exact), wrapper and kernel-alone ms, its bound
-    and the torch._int_mm yardstick of its GEMM core."""
+def _count_timing(L, db_path, norms64, max_abs, errs, timings):
+    """Kernel COUNT over the 4 x 4 tiles of 2048^2 of phase 2's first 8,192
+    rows (P = 3) and of an int16-like db of that shape (P = 6,
+    compare_kernels.count_state), the tile list on the card: against its
+    plain version on the card (exact), wrapper, kernel-alone and host ms a
+    call, its bound and the torch._int_mm yardstick of its GEMM core (no
+    single PyTorch call counts survivors: library_ms is null). The P = 3
+    numbers are COUNT's entry of the kernels line."""
     import torch
+    from metagenome_vector_sketches_tpu_torch.compare_kernels import (
+        count_state, host_ms)
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
     from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
     from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
@@ -1738,60 +1757,62 @@ def _count_timing(L, db_path, norms64, max_abs, errs):
     V = np.fromfile(os.path.join(db_path, "vectors.bin"), dtype=np.int32,
                     count=nt * tile * D).reshape(nt * tile, D)
     P = pm.num_planes(L)
+    check(P == 3, f"phase 2's db has P = {P}, not 3")
     planes = torch.zeros((P, nt * tile, pw.pad_dim(D)), dtype=torch.int8,
                          device="cuda")
     pw.planes_update(planes, pw.decompose_limbs(torch.from_numpy(V).cuda(),
                                                 L), 0)
     thr = torch.from_numpy((norms64[:nt * tile] ** 2 + pm.threshold_adjust(
         L, max_abs, D)).astype(np.float32)).cuda()
-    blocks = pp.engine_blocks(P, tile, "cuda")
-    check(blocks == (512, 512), f"engine blocks {blocks} at P={P}")
     coords = np.array([(r, c) for r in range(nt) for c in range(nt)],
                       dtype=np.int32)
-    mi, mj = tile // blocks[0], tile // blocks[1]
-    sub = np.array([(r * mi + a, c * mj + b) for r, c in coords.tolist()
-                    for a in range(mi) for b in range(mj)], dtype=np.int32)
+    tiles = pp.TileList(coords, "cuda")
+    shapes = {3: (planes, thr),
+              6: count_state(6, torch.Generator(device="cuda").manual_seed(3),
+                             nt, tile, D)}
+    for P, (planes, thr) in shapes.items():
+        def kernel():
+            return pp.count_tiles(planes, thr, planes, thr, tiles, tile, D)
 
-    def kernel():
-        return pp.count_tiles(planes, thr, planes, thr, coords, tile, D,
-                              blocks)
+        def plain():
+            return pp.count_tiles_plain(planes, thr, planes, thr, coords,
+                                        tile, D)
 
-    def plain():
-        return pp.count_tiles_plain(planes, thr, planes, thr, sub, *blocks,
-                                    D).reshape(len(coords), -1).sum(
-                                        dim=1, dtype=torch.int32)
+        got, want = kernel(), plain()
+        err = int((got - want).abs().max().item())
+        errs["count"] = max(errs["count"], err)
+        check(err == 0 and int(want.sum()) > 0,
+              f"COUNT differs from its plain version at P={P} (max abs err "
+              f"{err})")
+        pairs = len(coords) * tile * tile
+        t = timed(cuda_ms(kernel), cuda_ms(plain, reps=1),
+                  2 * P * pairs * planes.shape[2], INT8_PEAK,
+                  planes.numel() + 4 * thr.numel() + 12 * len(coords))
+        alone = kernel_ms(kernel, "count_kernel")
+        host = host_ms(kernel)
+        blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
+                  for i in range(nt)]
+        yard = cuda_ms(lambda: [torch._int_mm(blocks[p * nt + r],
+                                              blocks[p * nt + c].t())
+                                for p in range(P)
+                                for r, c in coords.tolist()])
+        say(f"[two_phase] COUNT P={P}: {len(coords)} tiles of {tile}^2 "
+            f"({int(want.sum())} survivors) equal to its plain version; "
+            f"wrapper {t['ms']:.4f} ms, kernel alone (profiler) "
+            f"{alone_str(alone)}, host {host * 1e3:.1f} us a call, plain "
+            f"{t['plain_ms']:.4f} ms")
+        rate_line("two_phase", f"COUNT (16 tiles of 2048^2, P={P})", t)
+        say(f"[two_phase] yardstick of the GEMM core alone, not a kernel of "
+            f"the port: {P} x {len(coords)} torch._int_mm 2048^3 "
+            f"{yard:.4f} ms")
+        if alone:
+            say(f"[two_phase] COUNT P={P} kernel alone: "
+                f"{100 * t['bound_ms'] / alone:.1f}% of its bound")
+        if P == 3:
+            timings["count"] = t
 
-    got, want = kernel(), plain()
-    err = int((got - want).abs().max().item())
-    errs["sweep"] = max(errs["sweep"], err)
-    check(err == 0 and int(want.sum()) > 0,
-          f"COUNT differs from its plain version (max abs err {err})")
-    pairs = len(coords) * tile * tile
-    t = timed(cuda_ms(kernel), cuda_ms(plain, reps=1),
-              2 * P * pairs * planes.shape[2], INT8_PEAK,
-              planes.numel() + 4 * thr.numel() + 8 * len(sub)
-              + 4 * len(sub))
-    alone = kernel_ms(kernel, "gemm_kernel")
-    tiles = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
-             for i in range(nt)]
-    yard = cuda_ms(lambda: [torch._int_mm(tiles[p * nt + r],
-                                          tiles[p * nt + c].t())
-                            for p in range(P) for r, c in coords.tolist()])
-    say(f"[two_phase] COUNT at the engine's blocks {blocks}: {len(coords)} "
-        f"tiles of {tile}^2 ({len(sub)} blocks, P={P}, {int(want.sum())} "
-        f"survivors) equal to its plain version; wrapper {t['ms']:.4f} ms, "
-        f"kernel alone (profiler) {alone_str(alone)}, plain "
-        f"{t['plain_ms']:.4f} ms")
-    rate_line("two_phase", "S COUNT (16 tiles of 2048^2 at 512^2 blocks, "
-              "P=3)", t)
-    say(f"[two_phase] yardstick of the GEMM core alone, not a kernel of the "
-        f"port: {P} x {len(coords)} torch._int_mm 2048^3 {yard:.4f} ms")
-    if alone:
-        say(f"[two_phase] COUNT kernel alone: "
-            f"{100 * t['bound_ms'] / alone:.1f}% of its bound")
 
-
-def phase_two_phase(N, work, errs):
+def phase_two_phase(N, work, errs, timings):
     """Phase 2's db through engine="two_phase": resident with finalize
     device (counted) and host, streaming at phase 5's budget and on a mesh
     of two slots of cuda:0; each shard byte-equal to phase 2's fused
@@ -1847,8 +1868,8 @@ def phase_two_phase(N, work, errs):
         lc, st = launches[name], stages[name]
         check(st["mode"].startswith("two_phase"), f"{name}: mode {st['mode']}")
         check(st["reruns"] == 0, f"{name}: {st['reruns']} reruns")
-        check(lc["sweep_count"] > 0 and lc["sweep"] > lc["sweep_count"],
-              f"{name}: kernel S COUNT / APPEND launches {lc}")
+        for k in TWO_PHASE_KERNELS:
+            check(lc[k] > 0, f"{name}: kernel {k} was not launched ({lc})")
         if name != "two_phase host":
             check(lc["partials"] > 0, f"{name}: kernel X not launched")
     check(launches["two_phase host"]["partials"] == 0,
@@ -1862,16 +1883,15 @@ def phase_two_phase(N, work, errs):
           "the resident two-phase runs' candidates differ")
     lc = launches["two_phase device"]
     say(f"[two_phase] every shard byte-equal to phase 2's fused shard; "
-        f"kernel S COUNT launches (sweep_count, inside sweep) on the "
-        f"counted run {lc['sweep_count']}, APPEND "
-        f"{lc['sweep'] - lc['sweep_count']}, X {lc['partials']}; reruns 0")
+        f"kernel COUNT launches on the counted run {lc['count']}, S APPEND "
+        f"{lc['sweep']}, X {lc['partials']}; reruns 0")
     rect = 2 * pm.num_planes(L) * npad * npad * (D + (-D) % 64) / INT8_PEAK
     say(f"[two_phase] N={N}: COUNT over the full rectangle ({npad // tile}^2 "
         f"tiles of {tile}^2) bound {rect * 1e3:.1f} ms (operations); "
         f"sweep_ms {stages['two_phase device']['sweep_ms']} ms; fused "
         f"sweep_ms {stages['fused']['sweep_ms']} ms over its triangle")
     _, norms64 = db.names_and_norms()
-    _count_timing(L, db_path, norms64, max_abs, errs)
+    _count_timing(L, db_path, norms64, max_abs, errs, timings)
     return total
 
 
@@ -2342,7 +2362,7 @@ def main() -> int:
         phase_kernels(errs)
         paths = [phase_main(args.n, work, timings)]
         paths.append(phase_stream(args.n, work))
-        paths.append(phase_two_phase(args.n, work, errs))
+        paths.append(phase_two_phase(args.n, work, errs, timings))
         paths.append(phase_minhash(work, errs, timings))
         phase_cli(work)
         paths.append(phase_tools(args.n, work))

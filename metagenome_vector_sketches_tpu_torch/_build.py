@@ -11,8 +11,7 @@ launch, and :func:`check` raises if it is not 0.
 Nothing here runs at import: the CPU tests import every module.
 
 Launch counts: each kernel wrapper calls :func:`count_launch` right after a
-launch that succeeded, and nowhere else (``SUB_COUNTS`` split a kernel's
-count by epilogue), so a run can show that its main
+launch that succeeded, and nowhere else, so a run can show that its main
 path went through the kernels (:func:`reset_launch_counts`,
 :func:`launch_counts`).
 
@@ -38,14 +37,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-# launch counters: "sweep" counts kernel S in its COUNT/APPEND epilogues,
-# "scan" in its SCORE epilogue (the int8 ANN engine), "gram" kernel G (the
-# MinHash incidence Gram), "select" kernel K (the ANN top-k selection)
-KERNELS = ("projection", "sweep", "partials", "scan", "gram", "select")
-# sub-counts, each also counted under its kernel: "sweep_count" is kernel S
-# in its COUNT epilogue (the two-phase engine's counts sweep)
-SUB_COUNTS = ("sweep_count",)
-_launches = {k: 0 for k in KERNELS + SUB_COUNTS}
+# launch counters: "sweep" counts kernel S in its APPEND epilogue, "scan" in
+# its SCORE epilogue (the int8 ANN engine), "gram" kernel G (the MinHash
+# incidence Gram), "select" kernel K (the ANN top-k selection), "count"
+# kernel COUNT (the two-phase engine's counts sweep)
+KERNELS = ("projection", "sweep", "partials", "scan", "gram", "select",
+           "count")
+_launches = {k: 0 for k in KERNELS}
 
 _lib = None
 _lock = threading.Lock()
@@ -62,9 +60,14 @@ _SIGNATURES = {
     "mvs_project": [_P, _P, _P, _I, _LL, _I, _I, _P, _P],
     # planes_i, planes_j, thr_i, thr_j, P, d, d_pad, stride_i, stride_j,
     # coords, n_tiles, tile_r, tile_c, weights(host), slack_rel, slack_abs,
-    # mask_self, diag_offset, append, counts, rc, total, cap, stream
+    # mask_self, diag_offset, counts, rc, total, cap, stream
     "mvs_sweep": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P,
-                  _F, _F, _I, _LL, _I, _P, _P, _P, _LL, _P],
+                  _F, _F, _I, _LL, _P, _P, _P, _LL, _P],
+    # planes_i, planes_j, thr_i, thr_j, P, d, d_pad, rows_i, rows_j, coords,
+    # n_tiles, row_t0, n_col_tiles, tile_r, tile_c, weights(host),
+    # slack_rel, slack_abs, counts, stream
+    "mvs_count": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _I,
+                  _I, _P, _F, _F, _P, _P],
     # q_planes, db_planes, P, d_pad, stride_q, stride_db, rows, cols,
     # inv_n, valid, weights(host), scores, ld, stream
     "mvs_scan": [_P, _P, _I, _I, _LL, _LL, _I, _I, _P, _I, _P, _P, _LL, _P],
@@ -93,10 +96,8 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
-def count_launch(kernel: str, sub: str | None = None) -> None:
+def count_launch(kernel: str) -> None:
     _launches[kernel] += 1
-    if sub is not None:
-        _launches[sub] += 1
 
 
 def _nvcc() -> str:

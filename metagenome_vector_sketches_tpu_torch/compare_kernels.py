@@ -8,15 +8,32 @@ each checked against the plain PyTorch versions first.
                      new=metagenome_vector_sketches_tpu_torch/csrc/projection.cu \\
         --partials old=build/parent/partials.cu \\
                    new=metagenome_vector_sketches_tpu_torch/csrc/partials.cu
+    python -m metagenome_vector_sketches_tpu_torch.compare_kernels \\
+        --count old=build/parent/sweep.cu \\
+                new=metagenome_vector_sketches_tpu_torch/csrc/count.cu
 
 Each source is compiled on its own (nvcc, sm_90a, the port's flags,
 ``-Xptxas -v``) and swapped in as the port's kernel library; ``--sass
 DIR`` also writes each build's ``cuobjdump -sass`` text into DIR.
 
 - ``sweep.cu`` builds (positional): kernels S and G at the shapes
-  ``chip_smoke.py`` uses: S APPEND and COUNT on 10 tiles of 2048^2 at
-  P = 3, S SCORE on 256 x 262,144 at P = 3, G on one 8,192 x 16,384
-  incidence chunk.
+  ``chip_smoke.py`` uses: S APPEND on 10 tiles of 2048^2 at P = 3, S
+  SCORE on 256 x 262,144 at P = 3, G on one 8,192 x 16,384 incidence
+  chunk. A build whose ``mvs_sweep`` still takes the COUNT epilogue's
+  ``append`` flag (24 parameters: the sweep.cu before kernel COUNT) is
+  called with append = 1.
+- ``--count`` builds: the two-phase engine's counts sweep on 16 tiles of
+  2048^2 (a 4 x 4 grid of 8,192 rows), d = 2048, at P = 3 and at P = 6
+  (an int16-like db, L = 3), as the wrapper call over a tile list already
+  on the card, as the kernel alone and as the host time of a call. A
+  ``count.cu`` build runs kernel COUNT (``mvs_count``); a build of the
+  sweep.cu before it runs kernel S's COUNT epilogue (``mvs_sweep``,
+  append = 0) the way that parent's ``count_tiles`` called it: every tile
+  expanded on the host into the JAX engine's sub-blocks
+  (``engine_blocks``), the coordinates copied to the card, one launch, the
+  sub-block counts summed to the tile by a second op. Printed once: the
+  plain version, the bound and the ``torch._int_mm`` yardstick of the
+  GEMM core.
 - ``projection.cu`` builds: kernel P at the main path's batch (32,768 sets
   x 256 hashes, d = 2048) and at a skewed batch (the toy fixture's real
   set sizes, 3 to 80,772 hashes, drawn from a seed to fill one
@@ -68,6 +85,7 @@ from .bench_data import BASE_HASHES, csr_hashes, skewed_set_sizes
 from .ops import minhash as mh
 from .ops import pairwise as pw
 from .ops import pairwise_math as pm
+from .ops import pallas_pairwise as pp
 from .ops import projection as pj
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -79,6 +97,25 @@ FIRST_CUT = {"mvs_project": [_P, _P, _I, _I, _P, _P],
              "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P, _P],
              "mvs_select": [_P, _P, _LL, _I, _I, _LL, _LL, _LL, _I, _P, _P,
                             _P, _P, _P, _P, _I, _I, _P, _P, _P]}
+# mvs_sweep of the sweep.cu before kernel COUNT: an append flag (0: the
+# COUNT epilogue) after diag_offset
+_F = ctypes.c_float
+WITH_COUNT = [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P, _F,
+              _F, _I, _LL, _I, _P, _P, _P, _LL, _P]
+
+
+class _WithCount:
+    """A build of the sweep.cu before kernel COUNT (``raw``): its mvs_sweep
+    is called through the current interface with append = 1 (APPEND)."""
+
+    def __init__(self, raw):
+        self.raw = raw
+
+    def __getattr__(self, name):
+        return getattr(self.raw, name)
+
+    def mvs_sweep(self, *args):
+        return self.raw.mvs_sweep(*args[:18], 1, *args[18:])
 
 
 def _n_params(src: str, fn: str) -> int:
@@ -99,7 +136,7 @@ def _load(name: str, src: str, out_dir: str) -> ctypes.CDLL:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for ln in r.stderr.splitlines():
         if any(k in ln for k in ("error", "warning", "Used", "spill",
-                                 "Compiling")):
+                                 "Compiling", "Performance")):
             print(f"[{name}]   {ln.strip()}")
     if r.returncode:
         raise RuntimeError(f"{src} does not build")
@@ -112,11 +149,14 @@ def _load(name: str, src: str, out_dir: str) -> ctypes.CDLL:
             f.write(dump)
         print(f"[{name}] SASS in {path}")
     lib = ctypes.CDLL(out)
+    with_count = hasattr(lib, "mvs_sweep") and \
+        _n_params(src, "mvs_sweep") == len(WITH_COUNT)
     for fn, argtypes in _build._SIGNATURES.items():
         if hasattr(lib, fn):
             first = fn in FIRST_CUT and \
                 _n_params(src, fn) == len(FIRST_CUT[fn])
-            getattr(lib, fn).argtypes = FIRST_CUT[fn] if first else argtypes
+            getattr(lib, fn).argtypes = FIRST_CUT[fn] if first else \
+                WITH_COUNT if fn == "mvs_sweep" and with_count else argtypes
             getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
             setattr(lib, f"{fn}_first_cut", first)
     if hasattr(lib, "mvs_error_string"):
@@ -124,7 +164,7 @@ def _load(name: str, src: str, out_dir: str) -> ctypes.CDLL:
         lib.mvs_error_string.restype = ctypes.c_char_p
     lib.mvs_set_device.argtypes = [ctypes.c_int]    # common.cuh's
     lib.mvs_set_device.restype = ctypes.c_int
-    return lib
+    return _WithCount(lib) if with_count else lib
 
 
 def _ms(fn, reps: int = 20) -> float:
@@ -408,13 +448,129 @@ def compare_sweep(builds, out_dir) -> int:
     cases = {
         "S": lambda lib: use(lib, lambda: pw.sweep_extract(
             planes, thr, planes, thr, coords, tile, cap, True, D)),
-        "COUNT": lambda lib: use(lib, lambda: pw.launch_sweep(
-            planes, thr, planes, thr, coords, tile, tile, D, False, False)),
         "SCORE": lambda lib: use(lib, lambda: pw.scan_scores(
             qp, db, inv, R - 77)),
         "G": lambda lib: use(lib, lambda: mh.gram_accumulate(C, A)),
     }
     _report(_turns(libs, [n for n, _ in builds], cases), "S/G")
+    return 0
+
+
+def count_parent(lib, planes, thr, coords, tile: int, d: int):
+    """Kernel S COUNT of a build of the sweep.cu before kernel COUNT
+    (``lib``: its _WithCount), called as that parent's count_tiles called
+    it: the tiles expanded on the host into the JAX engine's sub-blocks,
+    the coordinates copied to the card, one launch with append = 0, the
+    sub-block counts summed to the tile."""
+    P, n, d_pad = planes.shape
+    bi, bj = pp.engine_blocks(P, tile, planes.device)
+    mi, mj = tile // bi, tile // bj
+    coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
+    rows = coords[:, 0, None, None] * mi + np.arange(mi)[None, :, None]
+    cols = coords[:, 1, None, None] * mj + np.arange(mj)[None, None, :]
+    sub = np.stack(np.broadcast_arrays(rows, cols), axis=-1).reshape(-1, 2)
+    sub_dev = torch.from_numpy(sub.astype(np.int32)).to(planes.device)
+    counts = torch.zeros(len(sub), dtype=torch.int32, device=planes.device)
+    w = pm.plane_weights(pm.limbs_from_planes(P))
+    with _build.launch_stream(planes.device, lib) as stream:
+        err = lib.raw.mvs_sweep(
+            planes.data_ptr(), planes.data_ptr(), thr.data_ptr(),
+            thr.data_ptr(), P, d, d_pad, n * d_pad, n * d_pad,
+            sub_dev.data_ptr(), len(sub), bi, bj,
+            w.ctypes.data_as(ctypes.c_void_p), float(pm.SLACK_REL),
+            float(pm.SLACK_ABS), 0, 0, 0, counts.data_ptr(), None, None, 0,
+            stream)
+    _check(lib, err, "sweep kernel (COUNT)")
+    return counts.reshape(len(coords), mi * mj).sum(dim=1, dtype=torch.int32)
+
+
+def _count_call(lib, planes, thr, tiles, tile, d):
+    """The counts sweep of one build: kernel COUNT over the TileList
+    ``tiles`` (a count.cu build), or the parent's COUNT epilogue."""
+    if isinstance(lib, _WithCount):
+        return count_parent(lib, planes, thr, tiles.host, tile, d)
+    _build._lib = lib
+    return pp.count_tiles(planes, thr, planes, thr, tiles, tile, d)
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Median host time of one fn() call, each started on an idle device:
+    the wrapper's own work up to its launch, the kernel left to run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
+def count_state(P: int, g, nt: int = 4, tile: int = 2048, d: int = 2048):
+    """(planes, thr) of nt x tile rows at d on the card: P = 3 (L = 2,
+    |v| <= 600) or P = 6 (L = 3, an int16-like db, |v| <= 30,000), normal
+    random vectors with rows 1-4 copies of row 0."""
+    m = {3: 600, 6: 30000}[P]
+    L = pm.pick_limbs(m)
+    V = (torch.randn((nt * tile, d), generator=g, device="cuda") * m / 4) \
+        .round_().clamp_(-m, m).to(torch.int32)
+    V[1:5] = V[0]
+    planes = torch.zeros((P, nt * tile, pw.pad_dim(d)), dtype=torch.int8,
+                         device="cuda")
+    pw.planes_update(planes, pw.decompose_limbs(V, L), 0)
+    thr = ((V.double() ** 2).sum(1) / d + pm.threshold_adjust(L, m, d)) \
+        .float().contiguous()
+    return planes, thr
+
+
+def compare_count(builds, out_dir) -> int:
+    libs = {name: _load(name, src, out_dir) for name, src in builds}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    D, tile, nt = 2048, 2048, 4
+    card = torch.cuda.get_device_name(0)
+    tiles = pp.TileList([(r, c) for r in range(nt) for c in range(nt)],
+                        "cuda")
+    shapes = {}
+    for P in (3, 6):
+        planes, thr = count_state(P, g, nt, tile, D)
+        t0 = time.perf_counter()
+        want = pp.count_tiles_plain(planes, thr, planes, thr, tiles.host,
+                                    tile, D)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
+                  for i in range(nt)]
+        yard = _ms(lambda: [torch._int_mm(blocks[p * nt + r],
+                                          blocks[p * nt + c].t())
+                            for p in range(P) for r, c in
+                            tiles.host.tolist()], reps=5)
+        bound = 2 * P * len(tiles) * tile * tile * D / 1979e12 * 1e3
+        print(f"[COUNT] {card}: P={P}: {len(tiles)} tiles of {tile}^2, "
+              f"d={D}, {int(want.sum())} survivors; bound {bound:.4f} ms "
+              f"(operations at 1,979 TOP/s); plain {plain:.1f} ms; "
+              f"yardstick, not a kernel of the port: {P} x {len(tiles)} "
+              f"torch._int_mm {tile}^3 {yard:.4f} ms", flush=True)
+        shapes[P] = (planes, thr, want)
+    for name, lib in libs.items():
+        for P, (planes, thr, want) in shapes.items():
+            ok = torch.equal(_count_call(lib, planes, thr, tiles, tile, D),
+                             want)
+            print(f"[COUNT:{name}] P={P}: equal to the plain version: {ok}",
+                  flush=True)
+            if not ok:
+                return 3
+    cases = {}
+    for P, (planes, thr, _) in shapes.items():
+        def run(lib, planes=planes, thr=thr):
+            return lambda: _count_call(lib, planes, thr, tiles, tile, D)
+        cases[f"P={P} wrapper"] = lambda lib, run=run: _ms(run(lib))
+        cases[f"P={P} kernel alone"] = lambda lib, run=run: kernel_ms(
+            run(lib), "gemm_kernel" if isinstance(lib, _WithCount)
+            else "count_kernel")
+        cases[f"P={P} host of a call"] = lambda lib, run=run: host_ms(
+            run(lib))
+    _report(_turns(libs, [n for n, _ in builds], cases), "COUNT")
     return 0
 
 
@@ -552,6 +708,8 @@ def main(argv=None) -> int:
                     metavar="name=partials.cu")
     ap.add_argument("--select", nargs="+", default=[],
                     metavar="name=select.cu")
+    ap.add_argument("--count", nargs="+", default=[],
+                    metavar="name=count.cu|sweep.cu")
     ap.add_argument("--chunks", default=str(pj.CHUNK),
                     help="kernel P work-item sizes to time, comma-separated "
                          f"(default {pj.CHUNK}; a first-cut build has none)")
@@ -567,7 +725,8 @@ def main(argv=None) -> int:
     groups = [(compare_sweep, args.sweep),
               (lambda b, o: compare_projection(b, o, chunks), args.projection),
               (compare_partials, args.partials),
-              (compare_select, args.select)]
+              (compare_select, args.select),
+              (compare_count, args.count)]
     if not any(b for _, b in groups):
         ap.error("no builds given")
     for _, builds in groups:

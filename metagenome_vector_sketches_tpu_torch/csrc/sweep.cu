@@ -2,14 +2,14 @@
 // wgmma) with the thresholded sweep's, the ANN scan's and the MinHash
 // Gram's epilogues.
 //
-// Kernel S replaces: metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55
-// pallas_sweep_counts (the repo's one Pallas kernel, body _make_kernel at
-// :27) in its COUNT epilogue, the sweep + survivor compaction of the XLA
-// program ops/pairwise.py:635 sweep_extract_fused_ij in its APPEND epilogue,
-// and the plane GEMMs + combine + x 1/|v| of the XLA program
-// ann/int_index.py:124 _int_scan_pool in its SCORE epilogue (entry
-// mvs_scan). Kernel G (entry mvs_gram) replaces the XLA program
-// metagenome_vector_sketches_tpu/ops/minhash.py:47 _chunk_gram.
+// Kernel S replaces: the sweep + survivor compaction of the XLA program
+// metagenome_vector_sketches_tpu/ops/pairwise.py:635 sweep_extract_fused_ij
+// in its APPEND epilogue (entry mvs_sweep), and the plane GEMMs + combine +
+// x 1/|v| of the XLA program ann/int_index.py:124 _int_scan_pool in its
+// SCORE epilogue (entry mvs_scan). Kernel G (entry mvs_gram) replaces the
+// XLA program metagenome_vector_sketches_tpu/ops/minhash.py:47 _chunk_gram.
+// The survivor counts alone (the repo's one Pallas kernel,
+// ops/pallas_pairwise.py:55 pallas_sweep_counts) are kernel COUNT, count.cu.
 //
 // Math of S, per (row, column) pair: P int8 x int8 -> int32 plane products
 // (exact), combined in float32 in plane order,
@@ -76,8 +76,8 @@
 // of a consumer warpgroup owns rows 16w + g and 16w + g + 8 (g = lane / 4)
 // of the warpgroup's 64; accumulator 4j + e is column 8j + 2(lane % 4) +
 // (e & 1) of row +8 * (e >> 1).
-//   COUNT  — survivors per tile, one atomicAdd per warp.
-//   APPEND — per-tile counts as well, plus every survivor's global (r, c)
+//   APPEND — per-tile survivor counts (one atomicAdd per warp), plus every
+//            survivor's global (r, c)
 //            int32 written into a flat buffer of capacity `cap`: one
 //            __ballot_sync per element slot, __popc for the in-warp rank and
 //            ONE atomicAdd per warp on the running total, in warps that
@@ -97,6 +97,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -110,12 +111,8 @@ constexpr int kAcc = kBN / 2;               // int32 accumulators a thread
 constexpr int kATile = kBM * kBK;           // 8 KB
 constexpr int kBTile = kBN * kBK;           // 16 KB
 constexpr int kStageBytes = kATile + kBTile;
-constexpr int kMaxPlanes = 16;
-// an mbarrier wait that outlasts this (about 20 s) is a fault: trap, so the
-// launch fails instead of hanging the card
-constexpr long long kWatchdogCycles = 1LL << 35;
 
-enum Epilogue { kCount = 0, kAppend = 1, kScore = 2, kGram = 3 };
+enum Epilogue { kAppend = 1, kScore = 2, kGram = 3 };
 
 template <int kMode>
 struct Layout {
@@ -130,11 +127,7 @@ struct Layout {
   static constexpr int kBytes = kBarOffset + 2 * kStages * 8 + 1024;
 };
 
-struct Weights {
-  float w[kMaxPlanes];
-};
-
-// The operands of one launch: COUNT/APPEND read thr_*, coords, counts, rc,
+// The operands of one launch: APPEND reads thr_*, coords, counts, rc,
 // total, cap; SCORE reads inv_n, valid, scores, ld (its grid covers one
 // tile_r x tile_c block); GRAM reads c, ldc, n_blocks.
 struct Args {
@@ -160,65 +153,6 @@ struct Args {
   long long ldc;
   int n_blocks;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// arrive on the barrier at the same offset in CTA `cta` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}" ::"r"(
-          bar),
-      "r"(cta)
-      : "memory");
-}
-
-// every thread of both CTAs of the cluster (the start: all converged)
-__device__ __forceinline__ void cluster_sync_aligned() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// the same, for threads that may have diverged (the end)
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > kWatchdogCycles) __trap();
-  }
-}
 
 // one 64-byte x 128-row box of plane `plane` at (k bytes, row) -> smem dst
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -255,14 +189,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(8 * kBK / 16) << 32) |
          (static_cast<uint64_t>(2) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_wait_all() {
@@ -418,7 +344,7 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
   if (!live) return;
   // accumulators in chunks of 32 (8 column groups of 8): G issues a
   // chunk's loads of c together, ahead of its stores, so their latencies
-  // overlap; COUNT/APPEND keep one pass bit per accumulator in a word
+  // overlap; APPEND keeps one pass bit per accumulator in a word
   constexpr int kChunk = 32;
   static_assert(kAcc == 4 * kChunk, "four chunks of accumulators");
   if (kMode == kGram) {
@@ -468,7 +394,7 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
     return;
   }
 
-  // COUNT / APPEND: first every element's retention test (bit e of word c
+  // APPEND: first every element's retention test (bit e of word c
   // for accumulator 32 c + e), then the compaction, only in warps that
   // hold a survivor
   const float ti[2] = {table[kBN + rbase], table[kBN + rbase + 8]};
@@ -498,8 +424,7 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
   }
   // The compaction loop stays rolled: unrolled 128 times, its code made
   // the whole APPEND kernel ~20% slower (measured on the H100, PERF.md).
-  if (kMode == kAppend &&
-      __any_sync(kFullMask, bits[0] | bits[1] | bits[2] | bits[3])) {
+  if (__any_sync(kFullMask, bits[0] | bits[1] | bits[2] | bits[3])) {
 #pragma unroll
     for (int c = 0; c < kAcc / kChunk; ++c) {
 #pragma unroll 1
@@ -616,28 +541,6 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, reached through the runtime (the
-// library links nvcc's static runtime, not libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // The map of (P, rows, d_pad) int8 planes, plane stride `stride` bytes, in
 // boxes of 64 bytes x 128 rows with the 64-byte swizzle; rows past `rows`
 // read as zeros. Returns a cudaError_t.
@@ -671,21 +574,14 @@ int launch(const CUtensorMap& map_i, const CUtensorMap& map_j,
   return mvs_launch_status();
 }
 
-Weights load_weights(const void* weights_host, int P) {
-  Weights w;
-  for (int p = 0; p < kMaxPlanes; ++p)
-    w.w[p] = p < P ? static_cast<const float*>(weights_host)[p] : 0.f;
-  return w;
-}
-
 }  // namespace
 
 // planes_*: (P, N*, d_pad) int8 with plane strides stride_* (N* = stride_*
 // / d_pad rows); thr_*: float32 squared-norm thresholds; coords: (n_tiles,
 // 2) int32 tile indices (units of tile_r rows / tile_c columns);
-// weights_host: P float32 on the HOST. counts: (n_tiles,) int32, zeroed by
-// the caller. APPEND also takes rc: (cap, 2) int32 and total: one uint32,
-// zeroed by the caller. mask_self drops the pairs whose row index equals
+// weights_host: P float32 on the HOST. counts: (n_tiles,) int32, rc: (cap,
+// 2) int32 and total: one uint32, counts and total zeroed by the caller.
+// mask_self drops the pairs whose row index equals
 // column index + diag_offset: 0 when both operands share one row numbering,
 // the column operand's first global row minus the row operand's when they
 // are two windows of one database.
@@ -695,9 +591,8 @@ MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
                          const void* coords, int n_tiles, int tile_r,
                          int tile_c, const void* weights_host,
                          float slack_rel, float slack_abs, int mask_self,
-                         long long diag_offset, int append, void* counts,
-                         void* rc, void* total,
-                         long long cap, void* stream) {
+                         long long diag_offset, void* counts, void* rc,
+                         void* total, long long cap, void* stream) {
   if (P < 1 || P > kMaxPlanes || tile_r <= 0 || tile_c <= 0 ||
       tile_r % kBM || tile_c % kBox || d_pad <= 0 || d_pad % kBK ||
       n_tiles < 0 || stride_i < d_pad || stride_j < d_pad ||
@@ -730,9 +625,7 @@ MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
   a.total = (unsigned*)total;
   a.cap = cap;
   const Weights w = load_weights(weights_host, P);
-  auto s = (cudaStream_t)stream;
-  return append ? launch<kAppend>(mi, mj, a, w, grid, s)
-                : launch<kCount>(mi, mj, a, w, grid, s);
+  return launch<kAppend>(mi, mj, a, w, grid, (cudaStream_t)stream);
 }
 
 // The SCORE epilogue. q_planes: (P, rows, d_pad) int8 query planes (plane

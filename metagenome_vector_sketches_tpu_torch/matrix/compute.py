@@ -39,9 +39,9 @@ is not a multiple of 32, as in the JAX package; resident:
 :func:`_compute_streaming_two_phase`) is the path of the JAX package's one
 Pallas kernel, ``pallas_sweep_counts``:
 
-1. Counts sweep: kernel S COUNT over the FULL rectangle of the shard's row
-   tiles x every column tile, at the engine's sub-blocks
-   (ops.pallas_pairwise.engine_blocks, count_tiles), summed to the tile.
+1. Counts sweep: kernel COUNT over the FULL rectangle of the shard's row
+   tiles x every column tile (ops.pallas_pairwise.count_tiles; the tile
+   list goes to the card once, each tile's survivors are summed there).
 2. Hot-tile extraction: the tiles with survivors, in chunks whose summed
    counts fit CANDIDATE_BUDGET_BYTES, through kernel S APPEND with the
    self-pairs kept, at the capacity the counts give (a slot that finds
@@ -81,7 +81,6 @@ from .writer import write_shard
 from ..ops import minhash
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
-from ..ops import pallas_pairwise as pp
 
 # per-shard stage timing of the LAST compute_pairwise_shard call (the keys
 # of the JAX engine's LAST_STAGES). sweep_ms is kernel S (synchronised),
@@ -687,10 +686,9 @@ def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
     """The two-phase engine on the resident planes (JAX ``:788-867``): the
     residency slot's planes (shared with the fused engine: a fused and a
     two-phase shard of one db stage once), the counts sweep over the FULL
-    rectangle of the shard's row tiles x every column tile (kernel S COUNT
-    at the engine's sub-blocks), then :func:`_extract_tiles` with the
-    finalize's exact dots. extract_ms is net of the finalize nested in
-    it."""
+    rectangle of the shard's row tiles x every column tile (kernel COUNT),
+    then :func:`_extract_tiles` with the finalize's exact dots. extract_ms
+    is net of the finalize nested in it."""
     ts = time.perf_counter()
     planes, thr = _stage_database(db, norms_sq, total, tile, L, d, max_abs,
                                   ops, key)
@@ -703,9 +701,7 @@ def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
     coords = np.array([(r, c) for r in range(rt0, rt1) for c in range(nt)],
                       dtype=np.int32).reshape(-1, 2)
     tsw = time.perf_counter()
-    counts = ops.sweep_counts(planes, thr, coords, tile, d,
-                              pp.engine_blocks(planes[0].shape[0], tile,
-                                               ops.mesh.lead))
+    counts = ops.sweep_counts(planes, thr, ops.tile_lists(coords), tile, d)
     _acc("sweep_ms", tsw)
 
     exact = _exact_dots(finalize, _vectors(db, total, d), max_abs, L,
@@ -728,7 +724,8 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
     windows of column tiles on the outer loop, each staged once per shard
     (a third of the budget, JAX's rule), and one row tile of the shard at a
     time on the inner loop (staged under sweep_ms, as in JAX). Kernel S
-    takes the row tile and the window as its two operands, not
+    and kernel COUNT take the row tile and the window as their two
+    operands (the window's tile list goes to the card once), not
     concatenated: the survivors come back operand-local and the row tile's
     and the window's first global rows place them, self-pairs included
     (they are kept, so no diagonal offset masks anything). Then the
@@ -741,7 +738,6 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
     bytes_per_tile = P * tile * d
     window_tiles = max(1, int(max(budget // 3, 2 * bytes_per_tile)
                               // bytes_per_tile) - 1)
-    blocks = pp.engine_blocks(P, tile, ops.mesh.lead)
     parts, _, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
                                                  total, d, exact_filter)
     windows = range(0, total, window_tiles * tile)
@@ -755,14 +751,15 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
                                        db, ops)
         _acc("stage_ms", ts)
         coords = np.array([(0, j) for j in range(n_w)], dtype=np.int32)
+        lists = ops.tile_lists(coords)
         for bi in range(begin_row, end_row, tile):
             tsw = time.perf_counter()
             planes_r = thr_r = None           # free the last row tile first
             planes_r, thr_r = _stage_block(
                 np.array(V[bi:min(bi + tile, end_row)], dtype=np.int32),
                 thr_all, bi, tile, L, max_abs, db, ops)
-            counts = ops.sweep_counts(planes_r, thr_r, coords, tile, d,
-                                      blocks, planes_w, thr_w)
+            counts = ops.sweep_counts(planes_r, thr_r, lists, tile, d,
+                                      planes_w, thr_w)
             _acc("sweep_ms", tsw)
             exact = _exact_dots(finalize, V, max_abs, L, planes_r[0], bi,
                                 planes_w[0], ws)

@@ -1,5 +1,6 @@
 """Pairwise similarity on the device: int8 Karatsuba planes, the thresholded
-sweep with survivor compaction (kernel S), the int8 ANN engine's scores of
+sweep with survivor compaction (kernel S; the survivor counts alone are
+kernel COUNT, ops/pallas_pairwise.py), the int8 ANN engine's scores of
 query planes against database planes (kernel S, SCORE epilogue), and exact
 limb-pair partials of candidate pairs (kernel X).
 
@@ -120,7 +121,7 @@ def retention_mask(approx: torch.Tensor, thr_i: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Kernel S launcher (both epilogues)
+# Kernel S launcher (APPEND epilogue)
 # ---------------------------------------------------------------------------
 
 def _check_planes(planes: torch.Tensor, name: str,
@@ -141,12 +142,12 @@ def _check_thr(thr: torch.Tensor, n: int, name: str) -> None:
 
 
 def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
-                 tile_r: int, tile_c: int, d: int, append: bool,
-                 mask_self: bool, cap: int = 0, diag_offset: int = 0,
+                 tile_r: int, tile_c: int, d: int, mask_self: bool,
+                 cap: int = 0, diag_offset: int = 0,
                  slack_rel: float = SLACK_REL, slack_abs: float = SLACK_ABS):
     """Launch kernel S over the tiles ``coords`` ((K, 2) row/column tile
     indices in units of tile_r / tile_c) -> (counts (K,) int32,
-    rc (cap, 2) int32 or None, total (1,) int32 or None), on the device.
+    rc (cap, 2) int32, total (1,) int32), on the device.
     mask_self drops row == column + diag_offset (operand-local indices);
     slack_rel / slack_abs widen the retention test (:func:`retention_mask`)."""
     dev = planes_i.device
@@ -172,9 +173,8 @@ def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
               or (int(coords[:, 1].max()) + 1) * tile_c > nj):
         raise ValueError("tile coordinates outside the planes")
     counts = torch.zeros(K, dtype=torch.int32, device=dev)
-    rc = torch.empty((max(cap, 0), 2), dtype=torch.int32, device=dev) \
-        if append else None
-    total = torch.zeros(1, dtype=torch.int32, device=dev) if append else None
+    rc = torch.empty((max(cap, 0), 2), dtype=torch.int32, device=dev)
+    total = torch.zeros(1, dtype=torch.int32, device=dev)
     if K == 0:
         return counts, rc, total
     coords_dev = torch.from_numpy(coords).to(dev)
@@ -186,11 +186,11 @@ def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
             thr_j.data_ptr(), P, d, d_pad, ni * d_pad, nj * d_pad,
             coords_dev.data_ptr(), K, tile_r, tile_c,
             w.ctypes.data_as(ctypes.c_void_p), float(slack_rel),
-            float(slack_abs), int(mask_self), int(diag_offset), int(append),
-            counts.data_ptr(), rc.data_ptr() if append else None,
-            total.data_ptr() if append else None, int(cap), stream)
+            float(slack_abs), int(mask_self), int(diag_offset),
+            counts.data_ptr(), rc.data_ptr(), total.data_ptr(), int(cap),
+            stream)
     _build.check(err, "sweep kernel")
-    _build.count_launch("sweep", None if append else "sweep_count")
+    _build.count_launch("sweep")
     return counts, rc, total
 
 
@@ -250,7 +250,7 @@ def sweep_extract(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
                                    tile, cap, mask_self, d, diag_offset,
                                    slack_rel, slack_abs)
     counts, rc, total = launch_sweep(planes_i, thr_i, planes_j, thr_j,
-                                     coords, tile, tile, d, append=True,
+                                     coords, tile, tile, d,
                                      mask_self=mask_self, cap=cap,
                                      diag_offset=diag_offset,
                                      slack_rel=slack_rel,

@@ -1,27 +1,35 @@
-"""Kernel S in its COUNT epilogue: the contract of the JAX package's one
-Pallas kernel, ``metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55``
+"""Kernel COUNT: the contract of the JAX package's one Pallas kernel,
+``metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55``
 ``pallas_sweep_counts`` (named after that module, so a reader finds the
 counterpart).
 
-Survivor counts for row tiles [row_t0, row_t1) of edge ``block`` x ALL
-column tiles of edge ``block_j``: per tile, the P int8 plane products, the
-float32 combine and the retention test of ops/pairwise.py, summed. A CUDA
-tensor launches kernel S (``csrc/sweep.cu``), whose blocks must then be
-multiples of 128; a CPU tensor takes :func:`sweep_counts_plain`.
+Survivor counts of tiles: per tile, the P int8 plane products, the float32
+combine and the retention test of ops/pairwise.py, summed. A CUDA tensor
+launches kernel COUNT (``csrc/count.cu``, entry ``mvs_count``), whose tile
+edges must be multiples of 128; a CPU tensor takes the plain version.
 
-The two-phase engine (matrix/compute.py) runs the same launch through
-:func:`count_tiles`: its counts sweep over a list of extraction tiles, each
-swept at the engine's sub-blocks (:func:`engine_blocks`, JAX
-``matrix/compute.py:822-829``) and the sub-block counts summed to the tile
-(``:840-842``).
+- :func:`sweep_counts`: row tiles [row_t0, row_t1) of edge ``block`` x ALL
+  column tiles of edge ``block_j`` (``pallas_sweep_counts``'s contract).
+- :func:`count_tiles`: the two-phase engine's counts sweep (matrix/compute.py)
+  over a list of extraction tiles (:class:`TileList`: checked and copied to
+  the card once per list). The kernel splits the tiles into its own work
+  items and sums each tile's survivors on the card: integer sums do not
+  depend on the split, so the JAX engine's VMEM sub-blocks
+  (:func:`engine_blocks`) only describe how its TPU kernel swept.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .pairwise import SWEEP_BLOCK, approx_dot_f32, launch_sweep, retention_mask
+from .. import _build
+from .pairwise import (SWEEP_BLOCK, _check_planes, _check_thr,
+                       approx_dot_f32, retention_mask)
+from .pairwise_math import (SLACK_ABS, SLACK_REL, limbs_from_planes,
+                            plane_weights)
 
 
 def _grid(npad: int, row_t0: int, row_t1: int | None, block: int,
@@ -35,6 +43,48 @@ def _grid(npad: int, row_t0: int, row_t1: int | None, block: int,
     if not 0 <= row_t0 <= row_t1 <= nti:
         raise ValueError(f"row tiles [{row_t0}, {row_t1}) outside [0, {nti})")
     return row_t1, block_j, npad // block_j
+
+
+def _launch_count(planes_i, thr_i, planes_j, thr_j, coords_dev, n_tiles: int,
+                  tile_r: int, tile_c: int, d: int, row_t0: int = 0,
+                  n_col_tiles: int = 0) -> torch.Tensor:
+    """One launch of kernel COUNT -> (n_tiles,) int32 counts on the device.
+    coords_dev: the (n_tiles, 2) int32 tile list on the planes' device, or
+    None for the dense grid of row tiles [row_t0, ...) x n_col_tiles column
+    tiles. The caller has checked that the tiles lie inside the planes."""
+    dev = planes_i.device
+    _check_planes(planes_i, "planes_i")
+    _check_planes(planes_j, "planes_j")
+    P, ni, d_pad = planes_i.shape
+    nj = planes_j.shape[1]
+    if planes_j.shape[0] != P or planes_j.shape[2] != d_pad \
+            or planes_j.device != dev:
+        raise ValueError("planes_i and planes_j differ in planes, d_pad or "
+                         "device")
+    if not 0 < d <= d_pad:
+        raise ValueError(f"d={d} does not fit d_pad={d_pad}")
+    _check_thr(thr_i, ni, "thr_i")
+    _check_thr(thr_j, nj, "thr_j")
+    if tile_r % SWEEP_BLOCK or tile_c % SWEEP_BLOCK or tile_r <= 0 \
+            or tile_c <= 0:
+        raise ValueError(f"kernel COUNT takes tiles that are multiples of "
+                         f"{SWEEP_BLOCK} (got {tile_r} x {tile_c})")
+    counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    if n_tiles == 0:
+        return counts
+    w = plane_weights(limbs_from_planes(P))
+    lib = _build.library()
+    with _build.launch_stream(dev) as stream:
+        err = lib.mvs_count(
+            planes_i.data_ptr(), planes_j.data_ptr(), thr_i.data_ptr(),
+            thr_j.data_ptr(), P, d, d_pad, ni, nj,
+            None if coords_dev is None else coords_dev.data_ptr(), n_tiles,
+            row_t0, n_col_tiles, tile_r, tile_c,
+            w.ctypes.data_as(ctypes.c_void_p), float(SLACK_REL),
+            float(SLACK_ABS), counts.data_ptr(), stream)
+    _build.check(err, "count kernel")
+    _build.count_launch("count")
+    return counts
 
 
 def sweep_counts_plain(planes: torch.Tensor, thr: torch.Tensor, d: int,
@@ -68,20 +118,20 @@ def sweep_counts(planes: torch.Tensor, thr: torch.Tensor, d: int,
                                   block_j)
     row_t1, block_j, ntj = _grid(planes.shape[1], row_t0, row_t1, block,
                                  block_j)
-    coords = np.array([(r, c) for r in range(row_t0, row_t1)
-                       for c in range(ntj)], dtype=np.int32).reshape(-1, 2)
-    counts, _, _ = launch_sweep(planes, thr, planes, thr, coords, block,
-                                block_j, d, append=False, mask_self=False)
-    return counts.reshape(row_t1 - row_t0, ntj)
+    n = row_t1 - row_t0
+    return _launch_count(planes, thr, planes, thr, None, n * ntj, block,
+                         block_j, d, row_t0, ntj).reshape(n, ntj)
 
 
 def engine_blocks(P: int, tile: int, device) -> tuple[int, int]:
-    """The two-phase engine's COUNT sub-blocks (BI, BJ) for extraction tiles
-    of edge ``tile`` and P planes (JAX ``matrix/compute.py:822-829``):
+    """The JAX two-phase engine's COUNT sub-blocks (BI, BJ) for extraction
+    tiles of edge ``tile`` and P planes (JAX ``matrix/compute.py:822-829``):
     (512, 512) for P <= 3, (512, 128) for P <= 6, each halved while it does
-    not divide the tile, BJ <= BI, never below kernel S's 128-row block;
-    the tile itself for P > 6 and on the CPU (the plain counts at the
-    extraction tile)."""
+    not divide the tile, BJ <= BI, never below 128 rows; the tile itself for
+    P > 6 and on the CPU. The rule sized its TPU kernel's VMEM blocks;
+    kernel COUNT has work items of its own, so here it is the split at
+    which the plain version sweeps the CPU path (:func:`count_tiles`) and
+    the parity tests hold it against JAX."""
     if torch.device(device).type != "cuda" or P > 6:
         return tile, tile
     bi, bj = (512, 512) if P <= 3 else (512, 128)
@@ -92,39 +142,66 @@ def engine_blocks(P: int, tile: int, device) -> tuple[int, int]:
     return bi, bj
 
 
-def count_tiles_plain(planes_i, thr_i, planes_j, thr_j, coords, block: int,
-                      block_j: int, d: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel S COUNT over the (block x block_j)
-    tiles ``coords``."""
-    out = torch.empty(len(coords), dtype=torch.int32, device=planes_i.device)
-    for k, (r, c) in enumerate(np.asarray(coords).tolist()):
-        rows = slice(r * block, (r + 1) * block)
-        cols = slice(c * block_j, (c + 1) * block_j)
-        out[k] = retention_mask(approx_dot_f32(planes_i[:, rows],
-                                               planes_j[:, cols]),
-                                thr_i[rows], thr_j[cols], d).sum()
+class TileList:
+    """A (K, 2) int32 list of (row tile, column tile) coordinates, checked
+    once and, for a CUDA ``device``, copied to the card once, so each
+    :func:`count_tiles` call over it does no host work per tile."""
+
+    def __init__(self, coords, device):
+        self.host = np.ascontiguousarray(coords, dtype=np.int32).reshape(-1, 2)
+        if len(self.host) and self.host.min() < 0:
+            raise ValueError("negative tile coordinates")
+        # one past the largest row and column tile
+        self.ends = tuple(int(x) + 1 for x in self.host.max(axis=0)) \
+            if len(self.host) else (0, 0)
+        self.dev = torch.from_numpy(self.host).to(device) \
+            if torch.device(device).type == "cuda" else None
+
+    def __len__(self) -> int:
+        return len(self.host)
+
+
+def count_tiles_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
+                      d: int, blocks: tuple[int, int] | None = None
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`count_tiles`: each (tile x tile)
+    tile swept in (BI x BJ) = ``blocks`` sub-blocks (the whole tile by
+    default), their counts summed to the tile."""
+    bi, bj = (tile, tile) if blocks is None else blocks
+    if tile % bi or tile % bj:
+        raise ValueError(f"blocks {blocks} do not divide the tile {tile}")
+    coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
+    out = torch.zeros(len(coords), dtype=torch.int32, device=planes_i.device)
+    for k, (r, c) in enumerate(coords.tolist()):
+        for a in range(r * tile, (r + 1) * tile, bi):
+            for b in range(c * tile, (c + 1) * tile, bj):
+                out[k] += retention_mask(
+                    approx_dot_f32(planes_i[:, a:a + bi],
+                                   planes_j[:, b:b + bj]),
+                    thr_i[a:a + bi], thr_j[b:b + bj], d).sum() \
+                    .to(torch.int32)
     return out
 
 
-def count_tiles(planes_i, thr_i, planes_j, thr_j, coords, tile: int, d: int,
-                blocks: tuple[int, int]) -> torch.Tensor:
+def count_tiles(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
+                d: int) -> torch.Tensor:
     """(K,) int32 survivor counts (self-pairs kept) of the (tile x tile)
-    tiles ``coords`` ((K, 2) row tile of planes_i, column tile of planes_j),
-    on the planes' device: ONE launch of kernel S COUNT over every
-    (BI x BJ) = ``blocks`` sub-block of those tiles (CPU tensors: the plain
-    version), the sub-block counts summed to the tile."""
-    bi, bj = blocks
-    if tile % bi or tile % bj:
-        raise ValueError(f"blocks {blocks} do not divide the tile {tile}")
-    mi, mj = tile // bi, tile // bj
-    coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
-    rows = coords[:, 0, None, None] * mi + np.arange(mi)[None, :, None]
-    cols = coords[:, 1, None, None] * mj + np.arange(mj)[None, None, :]
-    sub = np.stack(np.broadcast_arrays(rows, cols), axis=-1).reshape(-1, 2)
+    tiles ``coords`` (a :class:`TileList`, or (K, 2) row tiles of planes_i
+    and column tiles of planes_j), on the planes' device: ONE launch of
+    kernel COUNT, which sums every tile's survivors on the card (CPU
+    tensors: the plain version at :func:`engine_blocks`)."""
+    if not isinstance(coords, TileList):
+        coords = TileList(coords, planes_i.device)
+    if len(coords) and (coords.ends[0] * tile > planes_i.shape[1]
+                        or coords.ends[1] * tile > planes_j.shape[1]):
+        raise ValueError("tile coordinates outside the planes")
     if planes_i.device.type == "cpu":
-        counts = count_tiles_plain(planes_i, thr_i, planes_j, thr_j, sub, bi,
-                                   bj, d)
-    else:
-        counts, _, _ = launch_sweep(planes_i, thr_i, planes_j, thr_j, sub, bi,
-                                    bj, d, append=False, mask_self=False)
-    return counts.reshape(len(coords), mi * mj).sum(dim=1, dtype=torch.int32)
+        return count_tiles_plain(planes_i, thr_i, planes_j, thr_j,
+                                 coords.host, tile, d,
+                                 engine_blocks(planes_i.shape[0], tile,
+                                               planes_i.device))
+    if coords.dev is None or coords.dev.device != planes_i.device:
+        raise ValueError("the tile list lies on another device than the "
+                         "planes")
+    return _launch_count(planes_i, thr_i, planes_j, thr_j, coords.dev,
+                         len(coords), tile, tile, d)

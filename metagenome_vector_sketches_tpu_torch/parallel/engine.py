@@ -14,7 +14,8 @@ shard writer do not depend on the slot count. A 1-slot mesh is the
 single-device engine.
 
 The two-phase engine's counts sweep is :meth:`MeshSweepOps.sweep_counts`
-(kernel S COUNT on every slot's block of tiles, JAX ``_counts_fn``); its
+(kernel COUNT on every slot's block of tiles, JAX ``_counts_fn``, over the
+per-slot tile lists of :meth:`MeshSweepOps.tile_lists`); its
 hot-tile extraction is :meth:`MeshSweepOps.sweep_extract_fused` with
 ``mask_self=False``: kernel S's APPEND epilogue compacts the survivors in
 the sweep itself, so JAX ``_mask_fn``, ``_compact_fn`` and
@@ -61,31 +62,39 @@ class MeshSweepOps:
                 for s in range(self.n_devices)], t
 
     # -- the engine's device calls ------------------------------------------
-    def sweep_counts(self, planes, thr, coords, tile: int, d: int, blocks,
+    def tile_lists(self, coords) -> list:
+        """``coords`` split into :meth:`_pad`'s per-slot blocks, each a
+        :class:`~..ops.pallas_pairwise.TileList` on its slot's device (None
+        for an empty block): the counts sweep's coordinates, checked and
+        copied to the card once per list, however many sweeps read them."""
+        blocks, _ = self._pad(coords)
+        return [pp.TileList(b, self.mesh.devices[s]) if len(b) else None
+                for s, b in enumerate(blocks)]
+
+    def sweep_counts(self, planes, thr, lists, tile: int, d: int,
                      planes_j=None, thr_j=None) -> np.ndarray:
-        """Kernel S COUNT (:func:`~..ops.pallas_pairwise.count_tiles` at the
-        sub-blocks ``blocks``) on every slot's block of ``coords``, every
-        slot launched before any is read -> the (T,) int64 per-tile
-        survivor counts on the host, in coordinate order (JAX
-        ``MeshSweepOps.sweep_counts``). planes/thr (planes_j/thr_j: the
-        column operand, default the same) are per-slot replicas."""
+        """Kernel COUNT (:func:`~..ops.pallas_pairwise.count_tiles`) on
+        every slot's tile list (:meth:`tile_lists`), every slot launched
+        before any is read -> the (T,) int64 per-tile survivor counts on
+        the host, in coordinate order (JAX ``MeshSweepOps.sweep_counts``):
+        one device->host copy of each slot's counts. planes/thr
+        (planes_j/thr_j: the column operand, default the same) are
+        per-slot replicas."""
         planes_j = planes if planes_j is None else planes_j
         thr_j = thr if thr_j is None else thr_j
-        blocks_of, t = self._pad(coords)
         m = self.mesh
         runs = []
-        for s in range(m.size):
-            if len(blocks_of[s]):
+        for s, tiles in enumerate(lists):
+            if tiles is not None:
                 with m.slot(s):
                     runs.append((s, pp.count_tiles(planes[s], thr[s],
                                                    planes_j[s], thr_j[s],
-                                                   blocks_of[s], tile, d,
-                                                   blocks)))
+                                                   tiles, tile, d)))
         out = []
         for s, counts in runs:
             with m.slot(s):
                 out.append(counts.cpu().numpy().astype(np.int64))
-        return np.concatenate(out) if out else np.zeros(t, dtype=np.int64)
+        return np.concatenate(out) if out else np.zeros(0, dtype=np.int64)
 
     def sweep_extract_fused(self, planes, thr, bcoords, tile: int, cap: int,
                             d: int, max_pairs: int, planes_j=None, thr_j=None,

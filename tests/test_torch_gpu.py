@@ -182,8 +182,7 @@ def test_sweep_core_matches_plain(cuda, d, max_abs):
     # 128 x 256 tiles: the survivors of their 128 x 128 halves
     wide = np.array([(r, c) for r in range(4) for c in range(2)])
     counts, rc, total = pw.launch_sweep(planes, thr, planes, thr, wide, 128,
-                                        256, d, append=True, mask_self=True,
-                                        cap=cap)
+                                        256, d, mask_self=True, cap=cap)
     halves = [(r, 2 * c + h) for r, c in wide.tolist() for h in range(2)]
     want = pw.sweep_extract_plain(planes, thr, planes, thr, halves, 128, cap,
                                   True, d)
@@ -649,24 +648,129 @@ def test_streaming_cuda_shard_equals_resident(cuda, tmp_path):
 @pytest.mark.parametrize("bi", [512, 256, 128])
 @pytest.mark.parametrize("max_abs", [3000, 30000])
 def test_count_tiles_kernel_matches_plain(cuda, max_abs, bi, bj):
-    """The two-phase engine's COUNT (count_tiles: kernel S over the tiles'
-    sub-blocks, summed to the tile) equals its plain version, one and two
-    operands, P = 3 and 6."""
+    """The two-phase engine's COUNT (count_tiles: kernel COUNT, the tile
+    list on the card) equals its plain version swept at (bi, bj)
+    sub-blocks, one and two operands, P = 3 and 6."""
     from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
     _, _, planes, thr = _state(cuda, N=1024, d=200, max_abs=max_abs)
     coords = np.array([(r, c) for r in range(2) for c in range(2)])
-    got = pp.count_tiles(planes, thr, planes, thr, coords, 512, 200,
-                         (bi, bj))
-    want = pp.count_tiles(planes.cpu(), thr.cpu(), planes.cpu(), thr.cpu(),
-                          coords, 512, 200, (bi, bj))
+    got = pp.count_tiles(planes, thr, planes, thr,
+                         pp.TileList(coords, cuda), 512, 200)
+    want = pp.count_tiles_plain(planes.cpu(), thr.cpu(), planes.cpu(),
+                                thr.cpu(), coords, 512, 200, (bi, bj))
     assert int(want.sum()) > 0 and torch.equal(got.cpu(), want)
     # the row tile rows 512.. against a window of rows 256..
     pi, ti = planes[:, 512:].contiguous(), thr[512:].contiguous()
     pj, tj = planes[:, 256:768].contiguous(), thr[256:768].contiguous()
-    got = pp.count_tiles(pi, ti, pj, tj, [(0, 0)], 512, 200, (bi, bj))
-    want = pp.count_tiles(pi.cpu(), ti.cpu(), pj.cpu(), tj.cpu(), [(0, 0)],
-                          512, 200, (bi, bj))
+    got = pp.count_tiles(pi, ti, pj, tj, [(0, 0)], 512, 200)
+    want = pp.count_tiles_plain(pi.cpu(), ti.cpu(), pj.cpu(), tj.cpu(),
+                                [(0, 0)], 512, 200, (bi, bj))
     assert torch.equal(got.cpu(), want)
+
+
+def _count_state(dev, P, n, d, seed=0):
+    """(planes, thr) on ``dev`` at P = 1, 3, 6 or 10 planes, n rows, with
+    planted near-duplicates; the last 100 rows are pad rows (zero planes,
+    t = 1e30)."""
+    max_abs = {1: 40, 3: 3000, 6: 30000, 10: 2000000}[P]
+    _, L, planes, thr = _state(dev, N=n, d=d, max_abs=max_abs, seed=seed)
+    assert planes.shape[0] == P
+    planes[:, n - 100:] = 0
+    thr[n - 100:] = 1e30
+    return planes, thr
+
+
+@pytest.mark.parametrize("edge", [128, 384, 2048])
+@pytest.mark.parametrize("P", [1, 3, 6, 10])
+def test_count_kernel_matches_plain(cuda, P, edge):
+    """Kernel COUNT equals its plain version exactly at tile edges 128 (a
+    work item with three dead quarters), 384 (odd: dead halves) and 2048
+    (32 items a tile; more items than the card holds clusters at once):
+    count_tiles over every tile in a shuffled order, sweep_counts over row
+    ranges and over rectangular tiles; pad rows never count."""
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    n, d = 2 * max(edge, 768), 200
+    planes, thr = _count_state(cuda, P, n, d, seed=P)
+    nt = n // edge
+    coords = np.array([(r, c) for r in range(nt) for c in range(nt)])
+    coords = coords[np.random.default_rng(edge).permutation(len(coords))]
+    got = pp.count_tiles(planes, thr, planes, thr, coords, edge, d)
+    want = pp.count_tiles_plain(planes, thr, planes, thr, coords, edge, d)
+    assert int(want.sum()) > 0 and torch.equal(got, want)
+    for r0, r1 in ((0, None), (1, nt)):
+        assert torch.equal(
+            pp.sweep_counts(planes, thr, d, r0, r1, edge),
+            pp.sweep_counts_plain(planes, thr, d, r0, r1, edge))
+    if edge < 2048:
+        kw = dict(row_t0=1, block=edge, block_j=2 * edge) \
+            if n % (2 * edge) == 0 else dict(block=2 * edge, block_j=edge)
+        assert torch.equal(pp.sweep_counts(planes, thr, d, **kw),
+                           pp.sweep_counts_plain(planes, thr, d, **kw))
+
+
+def test_count_kernel_two_operands_many_items(cuda):
+    """The streaming engine's operands (a row tile, a window of column
+    tiles that starts elsewhere) and a list of 600 tiles, repeats
+    included, far more work items than clusters: equal to the plain
+    version; counts sum only their own tile's survivors."""
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    planes, thr = _count_state(cuda, 3, 2048, 128, seed=4)
+    pi, ti = planes[:, 256:512].contiguous(), thr[256:512].contiguous()
+    pj, tj = planes[:, 768:].contiguous(), thr[768:].contiguous()
+    win = pp.TileList([(0, j) for j in range(5)], cuda)
+    for _ in range(2):                     # one list, several sweeps
+        got = pp.count_tiles(pi, ti, pj, tj, win, 256, 128)
+        assert torch.equal(got, pp.count_tiles_plain(
+            pi, ti, pj, tj, win.host, 256, 128))
+    rng = np.random.default_rng(5)
+    coords = rng.integers(0, 8, size=(600, 2))
+    want = pp.count_tiles_plain(planes, thr, planes, thr, np.unique(
+        coords, axis=0), 256, 128)
+    lookup = {tuple(c): int(w) for c, w in zip(np.unique(coords, axis=0),
+                                               want.tolist())}
+    got = pp.count_tiles(planes, thr, planes, thr, coords, 256, 128)
+    assert got.tolist() == [lookup[tuple(c)] for c in coords]
+
+
+def test_count_kernel_two_streams(cuda):
+    """Two COUNT launches on two streams at once (each its own list and
+    operands; one busy stream behind a sleep) both equal the plain
+    version."""
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    a = _count_state(cuda, 3, 2048, 256, seed=6)
+    b = _count_state(cuda, 6, 1024, 256, seed=7)
+    ca = pp.TileList([(r, c) for r in range(4) for c in range(4)], cuda)
+    cb = pp.TileList([(r, c) for r in range(2) for c in range(2)], cuda)
+    want_a = pp.count_tiles_plain(*a, *a, ca.host, 512, 256)
+    want_b = pp.count_tiles_plain(*b, *b, cb.host, 512, 256)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        torch.cuda._sleep(50_000_000)
+        got_a = pp.count_tiles(*a, *a, ca, 512, 256)
+    with torch.cuda.stream(s2):
+        got_b = pp.count_tiles(*b, *b, cb, 512, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a) and torch.equal(got_b, want_b)
+
+
+def test_count_kernel_refuses_bad_input(cuda):
+    """Tiles that are not multiples of 128, tiles outside the planes and
+    a list on another device than the planes raise; no launch counted."""
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    planes, thr = _count_state(cuda, 3, 512, 64)
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError):
+        pp.count_tiles(planes, thr, planes, thr, [(0, 0)], 192, 64)
+    with pytest.raises(ValueError):
+        pp.count_tiles(planes, thr, planes, thr, [(2, 0)], 256, 64)
+    with pytest.raises(ValueError):
+        pp.count_tiles(planes, thr, planes, thr, pp.TileList([(0, 0)], "cpu"),
+                       256, 64)
+    with pytest.raises(ValueError):
+        pp.sweep_counts(planes, thr, 64, block=64)
+    assert _build.launch_counts()["count"] == 0
 
 
 @pytest.mark.parametrize("case", ["host", "device", "streaming", "2 slots",
@@ -675,8 +779,9 @@ def test_two_phase_cuda_shard_equals_fused(cuda, tmp_path, case):
     """engine="two_phase" on the card (COUNT sweep, APPEND extraction with
     self-pairs kept, host or device finalize) writes the fused shard's
     bytes: finalize host and device, streaming, two slots of cuda:0,
-    tiles whose COUNT runs at 128- and 256-row blocks, and an int16 db at
-    P = 6 with (512, 128) blocks. COUNT is launched and nothing reruns."""
+    tiles of 384 and 256 (the JAX engine's 128- and 256-row blocks), and
+    an int16 db at P = 6 (JAX's (512, 128) blocks). COUNT is launched and
+    nothing reruns."""
     from metagenome_vector_sketches_tpu_torch import _build
     from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
@@ -714,8 +819,7 @@ def test_two_phase_cuda_shard_equals_fused(cuda, tmp_path, case):
         assert mc.LAST_STAGES["mode"] == (
             "two_phase-streaming" if case == "streaming" else "two_phase")
         assert mc.LAST_STAGES["reruns"] == 0
-        assert launches["sweep_count"] > 0
-        assert launches["sweep"] > launches["sweep_count"]
+        assert launches["count"] > 0 and launches["sweep"] > 0
         assert (launches["partials"] > 0) == (case != "host")
     mc.clear_device_cache()
     _same_shard_files(tmp_path / "fused", tmp_path / "two", (0, 1))
@@ -988,7 +1092,7 @@ def test_slot_results_are_handed_off_before_a_gather(cuda, monkeypatch):
 
 
 def test_each_kernel_launches_on_the_second_card(cuda1, tmp_path):
-    """Kernels P, S (COUNT, APPEND, SCORE), X, G and K launched on cuda:1
+    """Kernels P, COUNT, S (APPEND, SCORE), X, G and K launched on cuda:1
     with cuda:0 current for PyTorch: every output lies on cuda:1 and equals
     the plain version; the current device is left as it was. Then a mesh
     over cuda:0 and cuda:1 writes the single-device shards."""
@@ -1004,6 +1108,10 @@ def test_each_kernel_launches_on_the_second_card(cuda1, tmp_path):
     assert torch.equal(pp.sweep_counts(planes, thr, 200, block=128),
                        pp.sweep_counts_plain(planes, thr, 200, block=128))
     coords = np.array([(r, c) for r in range(4) for c in range(r, 4)])
+    got = pp.count_tiles(planes, thr, planes, thr, pp.TileList(coords, cuda1),
+                         128, 200)
+    assert got.device == cuda1 and torch.equal(got, pp.count_tiles_plain(
+        planes, thr, planes, thr, coords, 128, 200))
     got = pw.sweep_extract(planes, thr, planes, thr, coords, 128, 1 << 16,
                            True, 200)
     want = pw.sweep_extract_plain(planes, thr, planes, thr, coords, 128,

@@ -219,9 +219,10 @@ def test_engine_blocks_rule():
                                             (20000, (256, 128)),
                                             (20000, (128, 128))])
 def test_engine_counts_equal_pallas_kernel(max_abs, blocks):
-    """The engine's per-tile counts (count_tiles: sub-blocks summed to the
-    tile) equal the JAX Pallas kernel's, in interpret mode at the same
-    blocks, summed the same way: row tiles [1, 3) x every column tile."""
+    """The engine's per-tile counts (count_tiles, and its plain version
+    swept at the JAX engine's sub-blocks, summed to the tile) equal the JAX
+    Pallas kernel's, in interpret mode at those blocks, summed the same
+    way; also through the mesh's per-slot tile lists."""
     rng = np.random.default_rng(7)
     n, d, tile = 512, 128, 256
     V = rng.integers(-max_abs, max_abs + 1, size=(n, d)).astype(np.int32)
@@ -243,16 +244,18 @@ def test_engine_counts_equal_pallas_kernel(max_abs, blocks):
         row_t0=0, row_t1=nt * mi, block=bi, block_j=bj, interpret=True))
     want = sub.reshape(nt, mi, nt, mj).sum(axis=(1, 3)).reshape(-1)
     coords = np.array([(r, c) for r in range(nt) for c in range(nt)])
-    got = pp.count_tiles(planes, t, planes, t, coords, tile, d, blocks)
+    got = pp.count_tiles(planes, t, planes, t, coords, tile, d)
     assert got.dtype == torch.int32 and want.sum() > 0
     np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(pp.count_tiles_plain(
+        planes, t, planes, t, coords, tile, d, blocks).numpy(), want)
     # the mesh's counts sweep (8 slots) returns the same, in coords order
     from metagenome_vector_sketches_tpu_torch.parallel.engine import (
         MeshSweepOps)
     ops = MeshSweepOps(Mesh([torch.device("cpu")] * 8))
     rep = ops.replicate(planes, t)
     np.testing.assert_array_equal(
-        ops.sweep_counts(*rep, coords, tile, d, blocks), want)
+        ops.sweep_counts(*rep, ops.tile_lists(coords), tile, d), want)
 
 
 def test_fused_then_two_phase_stages_once(tmp_path, monkeypatch):
