@@ -10,12 +10,14 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
 
 1. kernels: each kernel against its plain PyTorch version on the card,
    with exact equality (projection P, the counts sweep COUNT over row
-   ranges, rectangular tiles and a tile list on two operands, sweep S
-   with a nonzero diagonal offset, partials X, incidence Gram G at ragged
-   n and u), and the TMA/wgmma cores of S and COUNT at the edges of their
-   contracts (d_pad 64, 192, 2048; P = 1, 3, 6, 10; 128-row and 128 x 256
-   tiles; diag_offset +-128; SCORE at B = 1 and 256 with a ragged valid
-   count; G at n = 128, 384),
+   ranges, rectangular tiles and a tile list on two operands, the sweep
+   with survivor compaction APPEND (COUNT's second epilogue, csrc/count.cu)
+   with a nonzero diagonal offset and past its cap, its counts against
+   COUNT's, partials X, incidence Gram G at ragged n and u), and the
+   TMA/wgmma cores of COUNT, APPEND and S at the edges of their contracts
+   (d_pad 64, 192, 2048; P = 1, 3, 6, 10; 128-row and 128 x 256 tiles;
+   diag_offset +-128; SCORE at B = 1 and 256 with a ragged valid count; G
+   at n = 128, 384),
    and the selection K bit-equal (keys, lanes, merged keys, positions) in
    each of its regimes (two-stage over one and five tiles a row, one CTA a
    row, the multi-CTA radix select, the full sort), with valid < R, all
@@ -23,7 +25,7 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    straddling 128-lane blocks, B = 1 and 256, an empty and a full running
    pool, strided and unaligned rows, and on its key entry;
 2. main: the main path at N accessions x d = 2048 — synthetic hash sets
-   with planted groups -> sketch (P) -> one pairwise shard (S, X) ->
+   with planted groups -> sketch (P) -> one pairwise shard (APPEND, X) ->
    top-k queries of planted rows; planted recall must be 1.0, an exact
    numpy oracle must agree on sampled rows, and every kernel's launch
    count over that run must be > 0. The sketch's split (parse, batch
@@ -32,9 +34,12 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    its plain version and its bound at the main path's shapes (P also on a
    skewed batch: the toy fixture's real set sizes, 3 to 80,772 hashes,
    filling one project_many batch; P and X also as the kernel alone, from
-   a profiler trace; X from a cold L2), with the TOP/s and share of the int8 peak
-   of S APPEND and a torch._int_mm yardstick of the GEMM core alone
-   (printed as such: the port never calls it);
+   a profiler trace; X from a cold L2), with the TOP/s and share of the
+   int8 peak of APPEND (wrapper over a tile list on the card, kernel alone,
+   host time of a call) and a torch._int_mm yardstick of the GEMM core
+   alone (printed as such: the port never calls it); the card's SM clock
+   and power draw are sampled (nvidia-smi, in a thread) through the shard
+   and printed for its sweep's windows;
 3. cli: the README walkthrough through the port's command-line tools at
    N = 2048 on an int32 and an --int16 db, every output held against an
    exact numpy oracle — sketch, pairwise_comp (also with --finalize device
@@ -71,7 +76,7 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    zstd-compressed where a zstd back end loads) and export_npz; the toy
    fixture sketched with --device device (vectors.bin byte-equal) and its
    shard, inside device_trace, equal to compute_pairwise_oracle, the trace
-   naming gemm_kernel and partials_kernel; the residency cache: shards 0
+   naming retention_kernel and partials_kernel; the residency cache: shards 0
    and 1 of 2 of phase 2's db in one process, the second's stage_ms under
    5% of the first's, byte-equal to shard 1 staged after
    clear_device_cache();
@@ -90,15 +95,18 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
 9. two_phase (after phase 5, on phase 2's db): compute_pairwise_shard
    with engine="two_phase" (the path of the JAX package's one Pallas
    kernel: kernel COUNT over the full rectangle, hot-tile extraction
-   through S APPEND with self-pairs kept, exact finalize) resident with
+   through APPEND with self-pairs kept, exact finalize) resident with
    finalize="device" and "host", streaming at phase 5's budget and on a
    mesh of two slots of cuda:0, each shard byte-equal to phase 2's fused
    shard; COUNT and APPEND launched in every run, no reruns; the host
    finalize after a fused shard of the same db re-uses its staged planes;
-   walls and stages beside that fused shard; COUNT on 16 tiles of 2048^2
-   at P = 3 (phase 2's rows) and P = 6 (an int16-like db) against its
-   plain version, its wrapper, kernel-alone and host ms a call, bound and
-   torch._int_mm yardstick.
+   walls and stages beside that fused shard, the SM clock and power draw
+   sampled through the counted shard's sweeps; COUNT and APPEND (self-pairs
+   kept) on 16 tiles of 2048^2 at P = 3 (phase 2's rows) and P = 6 (an
+   int16-like db) against their plain versions and APPEND's counts against
+   COUNT's, their wrapper, kernel-alone and host ms a call, bound and
+   torch._int_mm yardstick, and 2 s of calls of each back to back beside
+   the SM clock and power draw sampled meanwhile.
 
 Each path's kernels must be launched in that path's counted run (counts
 set to 0 just before it, read just after). At the end no module of jax or
@@ -112,6 +120,7 @@ plain_ms, bound_ms, bound_by, library_ms) and {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -135,7 +144,7 @@ REPLACES = {
     "select": "metagenome_vector_sketches_tpu/ann/int_index.py:155",
     "count": "metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55",
 }
-SOURCES = {"projection": "projection.cu", "sweep": "sweep.cu",
+SOURCES = {"projection": "projection.cu", "sweep": "count.cu",
            "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu",
            "select": "select.cu", "count": "count.cu"}
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
@@ -243,6 +252,46 @@ def rows_of(rc, n):
     return a[np.lexsort((a[:, 1], a[:, 0]))]
 
 
+class SweepWindows:
+    """(start, end) time.perf_counter windows of every call of the engine's
+    sweeps (MeshSweepOps.sweep_counts: kernel COUNT; sweep_extract_fused:
+    kernel APPEND; each ends synchronised) made while the block runs."""
+
+    NAMES = ("sweep_counts", "sweep_extract_fused")
+
+    def __enter__(self):
+        from metagenome_vector_sketches_tpu_torch.parallel.engine import (
+            MeshSweepOps)
+        self.cls = MeshSweepOps
+        self.real = {k: getattr(MeshSweepOps, k) for k in self.NAMES}
+        self.windows = {k: [] for k in self.NAMES}
+
+        def timed_call(name):
+            def call(ops, *args, **kw):
+                t0 = time.perf_counter()
+                out = self.real[name](ops, *args, **kw)
+                self.windows[name].append((t0, time.perf_counter()))
+                return out
+            return call
+
+        for k in self.NAMES:
+            setattr(MeshSweepOps, k, timed_call(k))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.cls, k, fn)
+
+    def report(self, tag, clocks):
+        for k, label in zip(self.NAMES, ("COUNT sweep", "APPEND sweep")):
+            w = self.windows[k]
+            if w:
+                say(f"[{tag}] clocks during the {label} ({len(w)} calls, "
+                    f"{sum(b - a for a, b in w) * 1e3:.1f} ms): "
+                    f"{clocks.line(w)}")
+        say(f"[{tag}] clocks through the whole shard: {clocks.line()}")
+
+
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -300,12 +349,12 @@ def _gram_err(chunks):
 
 
 def _core_cases(errs):
-    """The TMA/wgmma cores of S and COUNT at the edges of their contracts,
-    each against the plain version exactly: d_pad 64, 192 (an odd number of
-    64-byte K steps) and 2048; P = 1, 3, 6, 10; COUNT on 128 x 128, 128 x
-    256 and 256 x 128 tiles; APPEND on one 128-row tile, the 128-tile
-    triangle and 128 x 256 tiles; the self mask at diag_offset +-128; SCORE
-    at B = 1 and 256 on 640 rows with 555 valid."""
+    """The TMA/wgmma cores of COUNT, APPEND and S at the edges of their
+    contracts, each against the plain version exactly: d_pad 64, 192 (an
+    odd number of 64-byte K steps) and 2048; P = 1, 3, 6, 10; COUNT on 128
+    x 128, 128 x 256 and 256 x 128 tiles; APPEND on one 128-row tile, the
+    128-tile triangle and 128 x 256 tiles; the self mask at diag_offset
+    +-128; SCORE at B = 1 and 256 on 640 rows with 555 valid."""
     import torch
     from metagenome_vector_sketches_tpu_torch.ann import int_index as ii
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
@@ -317,7 +366,7 @@ def _core_cases(errs):
         n = int(want[2].item())
         check(int(got[2].item()) == n and torch.equal(got[1], want[1])
               and np.array_equal(rows_of(got[0], n), rows_of(want[0], n)),
-              f"S APPEND differs from plain ({what})")
+              f"APPEND differs from plain ({what})")
 
     for d in (64, 192, 2048):
         for max_abs in (100, 3000, 30000, 2000000):
@@ -347,7 +396,7 @@ def _core_cases(errs):
             same((rc, want[1], total), want, f"{what}, tiles of 128 x 256")
             check(torch.equal(counts, want[1].view(-1, 2).sum(1)
                               .to(torch.int32)),
-                  f"S APPEND 128 x 256 tile counts differ ({what})")
+                  f"APPEND 128 x 256 tile counts differ ({what})")
             for off in (128, -128):
                 a, b = 128, 128 + off
                 pi, ti = planes[:, a:a + 256].contiguous(), \
@@ -373,7 +422,8 @@ def _core_cases(errs):
                 check(torch.equal(got, pw.scan_scores_plain(qp, db, inv,
                                                             555)),
                       f"S SCORE differs (d={d} P={db.shape[0]} B={B})")
-    say("[kernels] S and COUNT cores: d_pad 64/192/2048 x P 1/3/6/10, "
+    say("[kernels] COUNT, APPEND and S cores: d_pad 64/192/2048 x P "
+        "1/3/6/10, "
         "COUNT (128^2, 128x256, 256x128 tiles), APPEND (1 tile, triangle, "
         "128x256 tiles, diag_offset +-128), SCORE (B 1/256, 555 of 640 "
         "valid): exact")
@@ -529,7 +579,8 @@ def phase_kernels(errs):
         err = int((k.long() - p.long()).abs().max())
         check(err == 0, f"COUNT differs on two operands (N={N} d={d})")
         errs["count"] = max(errs["count"], err)
-        # APPEND over the triangle grid at tile 256, self-pairs masked
+        # APPEND over the triangle grid at tile 256, self-pairs masked (its
+        # counts are COUNT's minus the diagonal)
         tile = 256
         nt = N // tile
         coords = np.array([(r, c) for r in range(nt) for c in range(r, nt)],
@@ -540,10 +591,10 @@ def phase_kernels(errs):
         rc_p, cnt_p, tot_p = pw.sweep_extract_plain(
             planes, thr, planes, thr, coords, tile, cap, True, d)
         n = int(tot_k.item())
-        check(n == int(tot_p.item()) and n <= cap, "S APPEND totals differ")
-        check(torch.equal(cnt_k, cnt_p), "S APPEND per-tile counts differ")
+        check(n == int(tot_p.item()) and n <= cap, "APPEND totals differ")
+        check(torch.equal(cnt_k, cnt_p), "APPEND per-tile counts differ")
         check(np.array_equal(rows_of(rc_k, n), rows_of(rc_p, n)),
-              "S APPEND survivor sets differ")
+              "APPEND survivor sets differ")
         full = pp.sweep_counts(planes, thr, d, block=tile, block_j=tile)
         diag = pw.retention_mask(pw.approx_dot_f32(planes, planes), thr,
                                  thr, d).diagonal().reshape(nt, tile).sum(1)
@@ -551,17 +602,17 @@ def phase_kernels(errs):
         want = full[ci[:, 0], ci[:, 1]].long()
         want -= torch.where(ci[:, 0] == ci[:, 1], diag[ci[:, 0]], 0)
         check(torch.equal(cnt_k.long(), want),
-              "S APPEND counts != COUNT counts minus the diagonal")
+              "APPEND counts != COUNT counts minus the diagonal")
         # overflow: a small cap keeps the exact total, writes a subset
         small = max(1, n // 3)
         rc_s, cnt_s, tot_s = pw.sweep_extract(planes, thr, planes, thr,
                                               coords, tile, small, True, d)
         check(int(tot_s.item()) == n and torch.equal(cnt_s, cnt_k),
-              "S APPEND past its cap must keep counting")
+              "APPEND past its cap must keep counting")
         sub = {tuple(x) for x in rows_of(rc_s, small).tolist()}
         check(len(sub) == small and sub <= {tuple(x) for x in
                                             rows_of(rc_k, n).tolist()},
-              "S APPEND past its cap wrote pairs that are not survivors")
+              "APPEND past its cap wrote pairs that are not survivors")
         # X on the survivors plus some self pairs and random pairs
         extra = torch.from_numpy(rng.integers(0, N, size=(4096, 2))
                                  .astype(np.int32)).cuda()
@@ -594,10 +645,10 @@ def phase_kernels(errs):
             m = int(tk.item())
             check(m == int(tp.item()) and torch.equal(ck, cp)
                   and np.array_equal(rows_of(rk, m), rows_of(rp, m)),
-                  f"S APPEND with diag_offset {b - a} differs from plain")
+                  f"APPEND with diag_offset {b - a} differs from plain")
             got = rows_of(rk, m)
             check(not bool((got[:, 0] + a == got[:, 1] + b).any()),
-                  f"S APPEND with diag_offset {b - a} kept a self-pair")
+                  f"APPEND with diag_offset {b - a} kept a self-pair")
         say(f"[kernels] S/X: N={N} d={d} L={L} P={P}: COUNT exact, APPEND "
             f"{n} survivors exact (also at diag_offset {N // 4}, "
             f"{-N // 4}), X {len(ch)} pairs exact")
@@ -753,9 +804,11 @@ def phase_main(N, work, timings):
     t0 = time.perf_counter()
     db = sketch(hashes, db_path, D, device="cuda", verbose=False)
     t_sketch = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mc.compute_pairwise_shard(db_path, mat, device="cuda", verbose=False)
-    t_pair = time.perf_counter() - t0
+    from metagenome_vector_sketches_tpu_torch.compare_kernels import Clocks
+    with Clocks() as clocks, SweepWindows() as windows:
+        t0 = time.perf_counter()
+        mc.compute_pairwise_shard(db_path, mat, device="cuda", verbose=False)
+        t_pair = time.perf_counter() - t0
     names, norms = db.names_and_norms_f32()
     rng = np.random.default_rng(3)
     n_query = min(1024, n_groups * GROUP)
@@ -771,6 +824,7 @@ def phase_main(N, work, timings):
     say(f"[main] stages N={N} d={D}: {json.dumps(stages)}")
     say(f"[main] sketch {t_sketch:.2f} s, pairwise {t_pair:.2f} s, "
         f"query {n_query} rows {t_query:.3f} s, launches {launches}")
+    windows.report("main", clocks)
     found = 0
     for row, res in zip(qrows, results):
         g = row // GROUP
@@ -832,28 +886,32 @@ def phase_main(N, work, timings):
         L, db.max_component(), D)).astype(np.float32)).cuda()
     coords = np.array([(r, c) for r in range(4) for c in range(r, 4)],
                       dtype=np.int32)
+    tiles = pw.TileList(coords, "cuda")       # the engine's list on the card
     cap = 1 << 22
-    rc_k, cnt_k, tot_k = pw.sweep_extract(planes, thr, planes, thr, coords,
-                                          tile, cap, True, D)
+
+    def append():
+        return pw.sweep_extract(planes, thr, planes, thr, tiles, tile, cap,
+                                True, D)
+
+    rc_k, cnt_k, tot_k = append()
     rc_p, cnt_p, tot_p = pw.sweep_extract_plain(planes, thr, planes, thr,
                                                 coords, tile, cap, True, D)
     n = int(tot_k.item())
     check(n == int(tot_p.item()) and torch.equal(cnt_k, cnt_p)
           and np.array_equal(rows_of(rc_k, n), rows_of(rc_p, n)),
-          "sweep differs from plain at main-path shapes")
+          "APPEND differs from plain at main-path shapes")
     P = planes.shape[0]
     pairs = len(coords) * tile * tile
     timings["sweep"] = timed(
-        cuda_ms(lambda: pw.sweep_extract(planes, thr, planes, thr, coords,
-                                         tile, cap, True, D)),
+        cuda_ms(append),
         cuda_ms(lambda: pw.sweep_extract_plain(planes, thr, planes, thr,
                                                coords, tile, cap, True, D),
                 reps=1),
         2 * pairs * D * P, INT8_PEAK,
-        planes.numel() + 4 * thr.numel() + 4 * len(coords) + 8 * n)
-    alone = kernel_ms(lambda: pw.sweep_extract(planes, thr, planes, thr,
-                                               coords, tile, cap, True, D),
-                      "gemm_kernel")
+        planes.numel() + 4 * thr.numel() + 12 * len(coords) + 8 * n)
+    alone = kernel_ms(append, "retention_kernel")
+    from metagenome_vector_sketches_tpu_torch.compare_kernels import host_ms
+    host = host_ms(append)
     # the GEMM core alone, as a yardstick (not a kernel of the port): one
     # torch._int_mm per plane and tile, no combine, threshold or compaction
     blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
@@ -875,12 +933,16 @@ def phase_main(N, work, timings):
             f"({t['bound_by']})")
     say(f"[main] X wrapper {timings['partials']['ms']:.4f} ms, kernel alone "
         f"(profiler) {alone_str(x_alone)}")
-    rate_line("main", "S APPEND (10 tiles of 2048^2, P=3)", timings["sweep"])
-    say(f"[main] S APPEND kernel alone (profiler): "
-        + alone_str(alone)
-        + f"; yardstick of the GEMM core alone, not a kernel of the port: "
-        f"{P} x {len(coords)} torch._int_mm 2048^3 (one per plane and tile) "
-        f"{yard:.4f} ms")
+    rate_line("main", "APPEND (10 tiles of 2048^2, P=3)", timings["sweep"])
+    say(f"[main] APPEND P={P}: wrapper {timings['sweep']['ms']:.4f} ms, "
+        f"kernel alone (profiler) {alone_str(alone)}"
+        + (f" ({100 * timings['sweep']['bound_ms'] / alone:.1f}% of its "
+           f"bound)" if alone else "")
+        + f", host {host * 1e3:.1f} us a call, plain "
+        f"{timings['sweep']['plain_ms']:.4f} ms, bound "
+        f"{timings['sweep']['bound_ms']:.4f} ms; yardstick of the GEMM core "
+        f"alone, not a kernel of the port: {P} x {len(coords)} "
+        f"torch._int_mm 2048^3 (one per plane and tile) {yard:.4f} ms")
     # the shard's planes stay in the residency slot: free them for the
     # phases that follow
     mc.clear_device_cache()
@@ -1292,7 +1354,7 @@ def _tools_legacy(work, want, names, qrows, N):
 def _tools_toy(work):
     """The toy fixture on the card: sketch --device device writes its
     vectors.bin; one shard, inside device_trace, equals
-    compute_pairwise_oracle, and the trace names kernels S and X."""
+    compute_pairwise_oracle, and the trace names kernels APPEND and X."""
     import filecmp
     import re
     from metagenome_vector_sketches_tpu_torch.cli import project_everything
@@ -1334,15 +1396,16 @@ def _tools_toy(work):
     kernels = sorted({e.get("name", "") for e in events
                       if e.get("cat") == "kernel"})
     mine = {m.group(0) for k in kernels for m in [re.search(
-        r"(gemm_kernel|partials_kernel|project_\w+)(<[^>]*>)?", k)] if m}
+        r"(retention_kernel|partials_kernel|project_\w+)(<[^>]*>)?", k)]
+            if m}
     say(f"[tools] device_trace kernels of the port: "
         f"{json.dumps(sorted(mine))}; {len(kernels)} kernel names in all")
-    for name in ("gemm_kernel", "partials_kernel"):
+    for name in ("retention_kernel", "partials_kernel"):
         check(any(name in k for k in kernels), f"the trace names no {name}")
     say(f"[tools] toy_db_256: sketch --device device writes its vectors.bin;"
         f" its shard on the card equals compute_pairwise_oracle ({len(want)} "
         f"triples); the trace ({os.path.getsize(os.path.join(trace_dir, traces[0]))}"
-        " B) names gemm_kernel and partials_kernel")
+        " B) names retention_kernel and partials_kernel")
 
 
 def _tools_cache(work, N):
@@ -1739,21 +1802,24 @@ STAGE_PRINT = ("stage_ms", "sweep_ms", "extract_ms", "finalize_ms",
                "hot_tiles", "reruns")
 
 
-def _count_timing(L, db_path, norms64, max_abs, errs, timings):
-    """Kernel COUNT over the 4 x 4 tiles of 2048^2 of phase 2's first 8,192
-    rows (P = 3) and of an int16-like db of that shape (P = 6,
-    compare_kernels.count_state), the tile list on the card: against its
-    plain version on the card (exact), wrapper, kernel-alone and host ms a
-    call, its bound and the torch._int_mm yardstick of its GEMM core (no
-    single PyTorch call counts survivors: library_ms is null). The P = 3
-    numbers are COUNT's entry of the kernels line."""
+def _count_append_timing(L, db_path, norms64, max_abs, errs, timings):
+    """Kernels COUNT and APPEND (self-pairs kept: the two-phase
+    extraction's call) over the 4 x 4 tiles of 2048^2 of phase 2's first
+    8,192 rows (P = 3) and of an int16-like db of that shape (P = 6,
+    compare_kernels.count_state), one tile list on the card: each against
+    its plain version on the card (exact), APPEND's counts against COUNT's,
+    wrapper, kernel-alone and host ms a call, the bound and the
+    torch._int_mm yardstick of the GEMM core (no single PyTorch call counts
+    or compacts survivors: library_ms is null), and 2 s of calls back to
+    back beside the SM clock sampled meanwhile. The P = 3 COUNT numbers are
+    COUNT's entry of the kernels line."""
     import torch
     from metagenome_vector_sketches_tpu_torch.compare_kernels import (
-        count_state, host_ms)
+        count_state, host_ms, sustained)
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
     from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
     from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
-    tile, nt = 2048, 4
+    tile, nt, cap = 2048, 4, 1 << 22
     V = np.fromfile(os.path.join(db_path, "vectors.bin"), dtype=np.int32,
                     count=nt * tile * D).reshape(nt * tile, D)
     P = pm.num_planes(L)
@@ -1766,50 +1832,70 @@ def _count_timing(L, db_path, norms64, max_abs, errs, timings):
         L, max_abs, D)).astype(np.float32)).cuda()
     coords = np.array([(r, c) for r in range(nt) for c in range(nt)],
                       dtype=np.int32)
-    tiles = pp.TileList(coords, "cuda")
+    tiles = pw.TileList(coords, "cuda")
     shapes = {3: (planes, thr),
               6: count_state(6, torch.Generator(device="cuda").manual_seed(3),
                              nt, tile, D)}
+    pairs = len(coords) * tile * tile
     for P, (planes, thr) in shapes.items():
-        def kernel():
+        def count():
             return pp.count_tiles(planes, thr, planes, thr, tiles, tile, D)
 
-        def plain():
-            return pp.count_tiles_plain(planes, thr, planes, thr, coords,
-                                        tile, D)
+        def append():
+            return pw.sweep_extract(planes, thr, planes, thr, tiles, tile,
+                                    cap, False, D)
 
-        got, want = kernel(), plain()
+        got, want = count(), pp.count_tiles_plain(planes, thr, planes, thr,
+                                                  coords, tile, D)
         err = int((got - want).abs().max().item())
         errs["count"] = max(errs["count"], err)
         check(err == 0 and int(want.sum()) > 0,
               f"COUNT differs from its plain version at P={P} (max abs err "
               f"{err})")
-        pairs = len(coords) * tile * tile
-        t = timed(cuda_ms(kernel), cuda_ms(plain, reps=1),
-                  2 * P * pairs * planes.shape[2], INT8_PEAK,
-                  planes.numel() + 4 * thr.numel() + 12 * len(coords))
-        alone = kernel_ms(kernel, "count_kernel")
-        host = host_ms(kernel)
-        blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
-                  for i in range(nt)]
-        yard = cuda_ms(lambda: [torch._int_mm(blocks[p * nt + r],
-                                              blocks[p * nt + c].t())
-                                for p in range(P)
-                                for r, c in coords.tolist()])
-        say(f"[two_phase] COUNT P={P}: {len(coords)} tiles of {tile}^2 "
-            f"({int(want.sum())} survivors) equal to its plain version; "
-            f"wrapper {t['ms']:.4f} ms, kernel alone (profiler) "
-            f"{alone_str(alone)}, host {host * 1e3:.1f} us a call, plain "
-            f"{t['plain_ms']:.4f} ms")
-        rate_line("two_phase", f"COUNT (16 tiles of 2048^2, P={P})", t)
+        rc_k, cnt_k, tot_k = append()
+        rc_p, cnt_p, tot_p = pw.sweep_extract_plain(
+            planes, thr, planes, thr, coords, tile, cap, False, D)
+        n = int(tot_p.item())
+        check(int(tot_k.item()) == n and torch.equal(cnt_k, cnt_p)
+              and np.array_equal(rows_of(rc_k, n), rows_of(rc_p, n)),
+              f"APPEND differs from its plain version at P={P}")
+        check(torch.equal(cnt_k, got), f"APPEND's counts differ from "
+                                       f"COUNT's at P={P}")
+        planes_bytes = planes.numel() + 4 * thr.numel() + 8 * len(coords)
+        yard = cuda_ms(lambda: [torch._int_mm(
+            planes[p, r * tile:(r + 1) * tile],
+            planes[p, c * tile:(c + 1) * tile].t())
+            for p in range(P) for r, c in coords.tolist()])
+        for name, fn, plain, extra in (
+                ("COUNT", count, lambda: pp.count_tiles_plain(
+                    planes, thr, planes, thr, coords, tile, D),
+                 4 * len(coords)),
+                ("APPEND", append, lambda: pw.sweep_extract_plain(
+                    planes, thr, planes, thr, coords, tile, cap, False, D),
+                 4 * len(coords) + 8 * n)):
+            t = timed(cuda_ms(fn), cuda_ms(plain, reps=1),
+                      2 * P * pairs * planes.shape[2], INT8_PEAK,
+                      planes_bytes + extra)
+            alone = kernel_ms(fn, "retention_kernel")
+            host = host_ms(fn)
+            say(f"[two_phase] {name} P={P}: {len(coords)} tiles of {tile}^2 "
+                f"({n} survivors) equal to its plain version; wrapper "
+                f"{t['ms']:.4f} ms, kernel alone (profiler) "
+                f"{alone_str(alone)}, host {host * 1e3:.1f} us a call, plain "
+                f"{t['plain_ms']:.4f} ms")
+            rate_line("two_phase", f"{name} (16 tiles of 2048^2, P={P})", t)
+            if alone:
+                say(f"[two_phase] {name} P={P} kernel alone: "
+                    f"{100 * t['bound_ms'] / alone:.1f}% of its bound")
+            ms, line, reps = sustained(fn, t["ms"])
+            say(f"[two_phase] {name} P={P}: {reps} calls back to back "
+                f"{ms:.4f} ms a call ({100 * t['bound_ms'] / ms:.1f}% of the "
+                f"bound; 10 calls {t['ms']:.4f}); {line}")
+            if P == 3 and name == "COUNT":
+                timings["count"] = t
         say(f"[two_phase] yardstick of the GEMM core alone, not a kernel of "
             f"the port: {P} x {len(coords)} torch._int_mm 2048^3 "
-            f"{yard:.4f} ms")
-        if alone:
-            say(f"[two_phase] COUNT P={P} kernel alone: "
-                f"{100 * t['bound_ms'] / alone:.1f}% of its bound")
-        if P == 3:
-            timings["count"] = t
+            f"{yard:.4f} ms; APPEND's counts equal COUNT's")
 
 
 def phase_two_phase(N, work, errs, timings):
@@ -1819,6 +1905,7 @@ def phase_two_phase(N, work, errs, timings):
     shard; walls and stages beside a fused shard staged the same way."""
     import torch
     from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.compare_kernels import Clocks
     from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
     from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
@@ -1847,11 +1934,17 @@ def phase_two_phase(N, work, errs, timings):
             mc.clear_device_cache()          # the fused shard stages anew
         out = os.path.join(work, "two_phase_" + name.replace(" ", "_"))
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        mc.compute_pairwise_shard(db_path, out, device="cuda", verbose=False,
-                                  **kw)
-        walls[name] = time.perf_counter() - t0
+        with contextlib.ExitStack() as sampled:
+            if name == "two_phase device":    # the counted run's clocks
+                clocks = sampled.enter_context(Clocks())
+                windows = sampled.enter_context(SweepWindows())
+            t0 = time.perf_counter()
+            mc.compute_pairwise_shard(db_path, out, device="cuda",
+                                      verbose=False, **kw)
+            walls[name] = time.perf_counter() - t0
         launches[name] = _build.launch_counts()
+        if name == "two_phase device":
+            windows.report("two_phase", clocks)
         stages[name] = {k: (round(v, 1) if isinstance(v, float) else v)
                         for k, v in mc.LAST_STAGES.items()
                         if k in STAGE_PRINT + ("mode", "windows")}
@@ -1883,7 +1976,7 @@ def phase_two_phase(N, work, errs, timings):
           "the resident two-phase runs' candidates differ")
     lc = launches["two_phase device"]
     say(f"[two_phase] every shard byte-equal to phase 2's fused shard; "
-        f"kernel COUNT launches on the counted run {lc['count']}, S APPEND "
+        f"kernel COUNT launches on the counted run {lc['count']}, APPEND "
         f"{lc['sweep']}, X {lc['partials']}; reruns 0")
     rect = 2 * pm.num_planes(L) * npad * npad * (D + (-D) % 64) / INT8_PEAK
     say(f"[two_phase] N={N}: COUNT over the full rectangle ({npad // tile}^2 "
@@ -1891,7 +1984,7 @@ def phase_two_phase(N, work, errs, timings):
         f"sweep_ms {stages['two_phase device']['sweep_ms']} ms; fused "
         f"sweep_ms {stages['fused']['sweep_ms']} ms over its triangle")
     _, norms64 = db.names_and_norms()
-    _count_timing(L, db_path, norms64, max_abs, errs, timings)
+    _count_append_timing(L, db_path, norms64, max_abs, errs, timings)
     return total
 
 

@@ -37,10 +37,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-# launch counters: "sweep" counts kernel S in its APPEND epilogue, "scan" in
-# its SCORE epilogue (the int8 ANN engine), "gram" kernel G (the MinHash
-# incidence Gram), "select" kernel K (the ANN top-k selection), "count"
-# kernel COUNT (the two-phase engine's counts sweep)
+# launch counters: "sweep" counts kernel APPEND (the sweep with survivor
+# compaction), "count" kernel COUNT (the two-phase engine's counts sweep;
+# both csrc/count.cu), "scan" kernel S (its SCORE epilogue: the int8 ANN
+# engine), "gram" kernel G (the MinHash incidence Gram), "select" kernel K
+# (the ANN top-k selection)
 KERNELS = ("projection", "sweep", "partials", "scan", "gram", "select",
            "count")
 _launches = {k: 0 for k in KERNELS}
@@ -58,11 +59,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # hashes, offsets, item_off, n_sets, max_items, chunk, d, out, stream
     "mvs_project": [_P, _P, _P, _I, _LL, _I, _I, _P, _P],
-    # planes_i, planes_j, thr_i, thr_j, P, d, d_pad, stride_i, stride_j,
+    # planes_i, planes_j, thr_i, thr_j, P, d, d_pad, rows_i, rows_j,
     # coords, n_tiles, tile_r, tile_c, weights(host), slack_rel, slack_abs,
     # mask_self, diag_offset, counts, rc, total, cap, stream
-    "mvs_sweep": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P,
-                  _F, _F, _I, _LL, _P, _P, _P, _LL, _P],
+    "mvs_append": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P,
+                   _F, _F, _I, _LL, _P, _P, _P, _LL, _P],
     # planes_i, planes_j, thr_i, thr_j, P, d, d_pad, rows_i, rows_j, coords,
     # n_tiles, row_t0, n_col_tiles, tile_r, tile_c, weights(host),
     # slack_rel, slack_abs, counts, stream

@@ -9,19 +9,29 @@ each checked against the plain PyTorch versions first.
         --partials old=build/parent/partials.cu \\
                    new=metagenome_vector_sketches_tpu_torch/csrc/partials.cu
     python -m metagenome_vector_sketches_tpu_torch.compare_kernels \\
-        --count old=build/parent/sweep.cu \\
+        --append old=build/parent/sweep.cu \\
+                 new=metagenome_vector_sketches_tpu_torch/csrc/count.cu \\
+        --count old=build/parent/count.cu \\
                 new=metagenome_vector_sketches_tpu_torch/csrc/count.cu
 
 Each source is compiled on its own (nvcc, sm_90a, the port's flags,
 ``-Xptxas -v``) and swapped in as the port's kernel library; ``--sass
 DIR`` also writes each build's ``cuobjdump -sass`` text into DIR.
 
-- ``sweep.cu`` builds (positional): kernels S and G at the shapes
-  ``chip_smoke.py`` uses: S APPEND on 10 tiles of 2048^2 at P = 3, S
-  SCORE on 256 x 262,144 at P = 3, G on one 8,192 x 16,384 incidence
-  chunk. A build whose ``mvs_sweep`` still takes the COUNT epilogue's
-  ``append`` flag (24 parameters: the sweep.cu before kernel COUNT) is
-  called with append = 1.
+- ``sweep.cu`` builds (positional): kernels S SCORE and G at the shapes
+  ``chip_smoke.py`` uses: SCORE on 256 x 262,144 at P = 3, G on one 8,192
+  x 16,384 incidence chunk.
+- ``--append`` builds: kernel APPEND on the fused engine's triangle of 10
+  tiles of 2048^2 (a 4 x 4 grid of 8,192 rows, self-pairs masked), d =
+  2048, at P = 3 and at P = 6 (``count_state``), as the wrapper call over
+  a tile list already on the card, as the kernel alone and as the host
+  time of a call, each build's survivor sets, counts and totals checked
+  against the plain version first. A ``count.cu`` build runs
+  ``mvs_append``; a build of the sweep.cu from before APPEND moved to
+  count.cu runs kernel S's APPEND epilogue (``mvs_sweep``; with the
+  COUNT epilogue's ``append`` flag, 24 parameters, called with append =
+  1) the way that parent's ``launch_sweep`` called it, the coordinates
+  copied to the card on every call.
 - ``--count`` builds: the two-phase engine's counts sweep on 16 tiles of
   2048^2 (a 4 x 4 grid of 8,192 rows), d = 2048, at P = 3 and at P = 6
   (an int16-like db, L = 3), as the wrapper call over a tile list already
@@ -31,9 +41,21 @@ DIR`` also writes each build's ``cuobjdump -sass`` text into DIR.
   append = 0) the way that parent's ``count_tiles`` called it: every tile
   expanded on the host into the JAX engine's sub-blocks
   (``engine_blocks``), the coordinates copied to the card, one launch, the
-  sub-block counts summed to the tile by a second op. Printed once: the
-  plain version, the bound and the ``torch._int_mm`` yardstick of the
-  GEMM core.
+  sub-block counts summed to the tile by a second op.
+
+``--append`` and ``--count`` print once: the plain version, the bound and
+the ``torch._int_mm`` yardstick of the GEMM core.
+
+- ``--shards name=TREE ...`` (``--n`` rows, default 262,144): whole
+  shards of two checkouts of the repository in turns, each turn a
+  process with ``PYTHONPATH=TREE`` (its own kernel library, built before
+  the first timed turn): chip_smoke.py phase 2's db (synthetic sets with
+  planted groups, sketched once on the card), the fused shard, then the
+  two-phase shard (finalize device) on the planes the fused one staged,
+  each inside a torch.profiler trace; each shard's wall, ``LAST_STAGES``,
+  the device ms of each of its kernels and the SM clock and power
+  sampled during its sweeps (:class:`Clocks`) printed, every shard
+  byte-equal to the first tree's.
 - ``projection.cu`` builds: kernel P at the main path's batch (32,768 sets
   x 256 hashes, d = 2048) and at a skewed batch (the toy fixture's real
   set sizes, 3 to 80,772 hashes, drawn from a seed to fill one
@@ -70,11 +92,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -97,11 +121,16 @@ FIRST_CUT = {"mvs_project": [_P, _P, _I, _I, _P, _P],
              "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _P, _LL, _P, _P],
              "mvs_select": [_P, _P, _LL, _I, _I, _LL, _LL, _LL, _I, _P, _P,
                             _P, _P, _P, _P, _I, _I, _P, _P, _P]}
-# mvs_sweep of the sweep.cu before kernel COUNT: an append flag (0: the
-# COUNT epilogue) after diag_offset
+# mvs_sweep of the sweep.cu from before kernel APPEND moved to count.cu
+# (planes_i, planes_j, thr_i, thr_j, P, d, d_pad, stride_i, stride_j,
+# coords, n_tiles, tile_r, tile_c, weights(host), slack_rel, slack_abs,
+# mask_self, diag_offset, counts, rc, total, cap, stream) and, before kernel
+# COUNT, the same with an append flag (0: the COUNT epilogue) after
+# diag_offset
 _F = ctypes.c_float
-WITH_COUNT = [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P, _F,
-              _F, _I, _LL, _I, _P, _P, _P, _LL, _P]
+PARENT_SWEEP = [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _I, _I, _I, _P,
+                _F, _F, _I, _LL, _P, _P, _P, _LL, _P]
+WITH_COUNT = PARENT_SWEEP[:18] + [_I] + PARENT_SWEEP[18:]
 
 
 class _WithCount:
@@ -151,12 +180,14 @@ def _load(name: str, src: str, out_dir: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(out)
     with_count = hasattr(lib, "mvs_sweep") and \
         _n_params(src, "mvs_sweep") == len(WITH_COUNT)
+    if hasattr(lib, "mvs_sweep"):
+        lib.mvs_sweep.argtypes = WITH_COUNT if with_count else PARENT_SWEEP
+        lib.mvs_sweep.restype = ctypes.c_int
     for fn, argtypes in _build._SIGNATURES.items():
         if hasattr(lib, fn):
             first = fn in FIRST_CUT and \
                 _n_params(src, fn) == len(FIRST_CUT[fn])
-            getattr(lib, fn).argtypes = FIRST_CUT[fn] if first else \
-                WITH_COUNT if fn == "mvs_sweep" and with_count else argtypes
+            getattr(lib, fn).argtypes = FIRST_CUT[fn] if first else argtypes
             getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
             setattr(lib, f"{fn}_first_cut", first)
     if hasattr(lib, "mvs_error_string"):
@@ -212,11 +243,21 @@ def cold_ms(fn, reps: int = 20) -> float:
     return total / reps
 
 
+def kernel_name(lib) -> str:
+    """The profiler name of a build's sweep kernel: retention_kernel
+    (kernels COUNT and APPEND of count.cu), count_kernel (the count.cu
+    before APPEND joined it), gemm_kernel (kernel S of a sweep.cu)."""
+    if hasattr(lib, "mvs_append"):
+        return "retention_kernel"
+    return "count_kernel" if hasattr(lib, "mvs_count") else "gemm_kernel"
+
+
 def kernel_times(fn, name: str, reps: int = 10, cold: bool = False):
     """{kernel: mean device ms per fn() call} of the kernels whose name
     holds ``name``, from a torch.profiler trace (each kernel alone, without
     the wrapper's host work or its other launches); ``cold``: the L2 is
-    flushed before each call."""
+    flushed before each call. Empty when the trace holds fewer launches of
+    a kernel than calls (the profiler dropped events): not measured."""
     from torch.profiler import ProfilerActivity, profile
     if cold:
         flush, call = l2_flush(), fn
@@ -229,9 +270,11 @@ def kernel_times(fn, name: str, reps: int = 10, cold: bool = False):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: getattr(e, "self_device_time_total", 0) / reps / 1e3
-            for e in prof.key_averages()
-            if name in e.key and getattr(e, "self_device_time_total", 0)}
+    found = [e for e in prof.key_averages()
+             if name in e.key and getattr(e, "self_device_time_total", 0)]
+    if any(e.count < reps for e in found):
+        return {}
+    return {e.key: e.self_device_time_total / reps / 1e3 for e in found}
 
 
 def kernel_ms(fn, name: str, reps: int = 10, cold: bool = False):
@@ -240,6 +283,72 @@ def kernel_ms(fn, name: str, reps: int = 10, cold: bool = False):
     device time."""
     times = kernel_times(fn, name, reps, cold)
     return sum(times.values()) if times else None
+
+
+class Clocks:
+    """Card 0's SM clock (MHz) and power draw (W) while the block runs: one
+    ``nvidia-smi -lms 50`` process, started (and its first sample read)
+    before the block, its lines read in a thread; ``samples`` holds
+    (time.perf_counter seconds, MHz, W)."""
+
+    def __enter__(self):
+        self.samples = []
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self._first = threading.Event()
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+        self._first.wait(timeout=20)
+        return self
+
+    def _read(self):
+        for ln in self._proc.stdout:
+            t = time.perf_counter()
+            try:
+                mhz, w = (float(x) for x in ln.split(","))
+            except ValueError:
+                continue                  # a line that holds no number
+            self.samples.append((t, mhz, w))
+            self._first.set()
+        self._first.set()
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        self._proc.wait(timeout=30)
+        self._thread.join(timeout=30)
+
+    def line(self, windows=None) -> str:
+        """Median / min / max SM clock and median / max power of the
+        samples inside ``windows`` ((start, end) perf_counter pairs; all
+        samples when None)."""
+        s = [(mhz, w) for t, mhz, w in self.samples
+             if windows is None or any(a <= t <= b for a, b in windows)]
+        if not s:
+            return "no sample"
+        mhz, w = np.array([x[0] for x in s]), np.array([x[1] for x in s])
+        return (f"{len(s)} samples: SM clock median {np.median(mhz):.0f} MHz "
+                f"(min {mhz.min():.0f}, max {mhz.max():.0f}), power median "
+                f"{np.median(w):.1f} W (max {w.max():.1f})")
+
+
+def sustained(fn, ms: float, seconds: float = 2.0):
+    """-> (ms a call over ``seconds`` of calls back to back, CUDA events,
+    at ``ms`` a call as a short run measured it; the SM clock and power
+    sampled meanwhile, as a line; the number of calls)."""
+    reps = max(10, int(seconds * 1e3 / ms))
+    fn()
+    torch.cuda.synchronize()
+    with Clocks() as clocks:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps, clocks.line(), reps
 
 
 def _check(lib, rc: int, what: str) -> None:
@@ -397,17 +506,7 @@ def compare_partials(builds, out_dir) -> int:
 def compare_sweep(builds, out_dir) -> int:
     libs = {name: _load(name, src, out_dir) for name, src in builds}
     g = torch.Generator(device="cuda").manual_seed(1)
-    D, tile, R = 2048, 2048, 262144
-    V = (torch.randn((4 * tile, D), generator=g, device="cuda") * 150) \
-        .round_().clamp_(-600, 600).to(torch.int32)
-    V[1:5] = V[0]
-    planes = torch.zeros((3, 4 * tile, D), dtype=torch.int8, device="cuda")
-    pw.planes_update(planes, pw.decompose_limbs(V, 2), 0)
-    thr = ((V.double() ** 2).sum(1) / D
-           + pm.threshold_adjust(2, 600, D)).float().contiguous()
-    coords = np.array([(r, c) for r in range(4) for c in range(r, 4)],
-                      dtype=np.int32)
-    cap = 1 << 22
+    D, R = 2048, 262144
     db = torch.randint(-64, 64, (3, R, D), generator=g, device="cuda",
                        dtype=torch.int8)
     qp = torch.randint(-64, 64, (3, 256, D), generator=g, device="cuda",
@@ -416,27 +515,15 @@ def compare_sweep(builds, out_dir) -> int:
     A = (torch.rand((8192, 16384), generator=g, device="cuda") < 1 / 128) \
         .to(torch.int8)
     C = torch.zeros((8192, 8192), dtype=torch.int32, device="cuda")
-
-    want_s = pw.sweep_extract_plain(planes, thr, planes, thr, coords, tile,
-                                    cap, True, D)
-    n = int(want_s[2].item())
     want_q = pw.scan_scores_plain(qp, db, inv, R - 77)
     want_g = mh.gram_accumulate_plain(torch.zeros_like(C), A)
-
-    def key(rc):
-        return sorted(map(tuple, rc[:n].tolist()))
-
     for name, lib in libs.items():
         _build._lib = lib
-        got = pw.sweep_extract(planes, thr, planes, thr, coords, tile, cap,
-                               True, D)
-        ok = (int(got[2].item()) == n and torch.equal(got[1], want_s[1])
-              and key(got[0]) == key(want_s[0]))
-        ok = ok and torch.equal(pw.scan_scores(qp, db, inv, R - 77), want_q)
+        ok = torch.equal(pw.scan_scores(qp, db, inv, R - 77), want_q)
         ok = ok and torch.equal(mh.mirror_upper(mh.gram_accumulate(
             torch.zeros_like(C), A)), want_g)
-        print(f"[{name}] S APPEND ({n} survivors), SCORE and G equal to the "
-              f"plain versions: {ok}", flush=True)
+        print(f"[{name}] S SCORE and G equal to the plain versions: {ok}",
+              flush=True)
         if not ok:
             return 3
     del want_q, want_g
@@ -446,13 +533,243 @@ def compare_sweep(builds, out_dir) -> int:
         return _ms(fn)
 
     cases = {
-        "S": lambda lib: use(lib, lambda: pw.sweep_extract(
-            planes, thr, planes, thr, coords, tile, cap, True, D)),
         "SCORE": lambda lib: use(lib, lambda: pw.scan_scores(
             qp, db, inv, R - 77)),
         "G": lambda lib: use(lib, lambda: mh.gram_accumulate(C, A)),
     }
     _report(_turns(libs, [n for n, _ in builds], cases), "S/G")
+    return 0
+
+
+# one turn of --shards: the fused, then the two-phase shard of a db, in
+# the process of one tree
+_SHARD_TURN = """
+import json, re, sys, time
+from torch.profiler import ProfilerActivity, profile
+from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+from metagenome_vector_sketches_tpu_torch.parallel.engine import MeshSweepOps
+db, out = sys.argv[1], sys.argv[2]
+windows = {}
+def timed(name):
+    real = getattr(MeshSweepOps, name)
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        res = real(*args, **kw)
+        windows.setdefault(name, []).append((t0, time.perf_counter()))
+        return res
+    setattr(MeshSweepOps, name, call)
+for name in ("sweep_counts", "sweep_extract_fused"):
+    timed(name)
+for engine in ("fused", "two_phase"):
+    windows.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mc.compute_pairwise_shard(db, out + "_" + engine, device="cuda",
+                                  verbose=False, engine=engine)
+        wall = time.perf_counter() - t0
+    st = {k: mc.LAST_STAGES.get(k) for k in (
+        "stage_ms", "sweep_ms", "extract_ms", "finalize_ms", "write_ms",
+        "candidates", "pairs_written", "hot_tiles", "reruns")}
+    device_ms = {}
+    for e in prof.key_averages():
+        m = re.search(r"\\w+_kernel(<[^>]*>)?", e.key)
+        t = getattr(e, "self_device_time_total", 0) / 1e3
+        if m and t:
+            device_ms[m.group(0)] = device_ms.get(m.group(0), 0) + t
+    print(json.dumps({"engine": engine, "wall_s": wall, **st,
+                      "device_ms": device_ms, "module": mc.__file__,
+                      "windows": windows}), flush=True)
+"""
+
+
+def compare_shards(builds, n: int) -> int:
+    import filecmp
+    import shutil
+    from .bench_data import synth_hashes_file
+    from .io.ingest import sketch
+    work = tempfile.mkdtemp(prefix="compare_shards_", dir=os.getcwd())
+    try:
+        hashes, db = os.path.join(work, "h.txt"), os.path.join(work, "db")
+        synth_hashes_file(hashes, n, max(1, n // 64), max(1, n // 128))
+        sketch(hashes, db, 2048, device="cuda", verbose=False)
+        torch.cuda.empty_cache()
+
+        def turn(name, tree, out):
+            # run from the tree: "python -c" puts its working directory
+            # first on sys.path, ahead of PYTHONPATH
+            tree = os.path.abspath(tree)
+            with Clocks() as clocks:
+                r = subprocess.run(
+                    [sys.executable, "-c", _SHARD_TURN, db, out],
+                    capture_output=True, text=True, cwd=tree,
+                    env=dict(os.environ, PYTHONPATH=tree))
+            if r.returncode:
+                raise RuntimeError(f"{name}: shard turn failed\n{r.stderr}")
+            runs = [json.loads(x) for x in r.stdout.splitlines()
+                    if x.startswith("{")]
+            for st in runs:
+                if not st.pop("module").startswith(tree + os.sep):
+                    raise RuntimeError(f"{name}: the turn did not run {tree}")
+                # the turn's sweep windows (perf_counter is system-wide)
+                st["clocks"] = {k: clocks.line(w) for k, w in
+                                st.pop("windows").items()}
+            return runs
+
+        for name, tree in builds:         # each tree builds its library
+            turn(name, tree, os.path.join(work, f"warm_{name}"))
+        card = torch.cuda.get_device_name(0)
+        ref = None
+        order = [name for name, _ in builds]
+        trees = dict(builds)
+        for i, name in enumerate((order + order[::-1]) * 2):
+            out = os.path.join(work, f"{name}_{i}")
+            for st in turn(name, trees[name], out):
+                print(f"[shards:{name}] {card}: N={n} turn {i} "
+                      f"{json.dumps(st)}", flush=True)
+            for engine in ("fused", "two_phase"):
+                folder = os.path.join(f"{out}_{engine}", "shard_0")
+                ref = ref or folder
+                same = all(filecmp.cmp(os.path.join(ref, f),
+                                       os.path.join(folder, f),
+                                       shallow=False)
+                           for f in ("matrix.bin", "row_index.bin",
+                                     "neighbor_start.bin"))
+                if not same:
+                    print(f"[shards:{name}] {engine} shard differs from "
+                          f"the first", flush=True)
+                    return 3
+                if folder != ref:
+                    shutil.rmtree(f"{out}_{engine}")
+        print(f"[shards] every shard byte-equal to the first", flush=True)
+        return 0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def append_parent(lib, planes, thr, coords, tile: int, cap: int, d: int):
+    """Kernel S APPEND of a build of the sweep.cu from before APPEND moved
+    to count.cu (``mvs_sweep``; ``lib`` its CDLL, or its _WithCount), called
+    as that parent's launch_sweep called it: the coordinates copied to the
+    card on every call, self-pairs masked -> (rc, counts, total)."""
+    P, n, d_pad = planes.shape
+    dev = planes.device
+    coords = np.ascontiguousarray(coords, dtype=np.int32).reshape(-1, 2)
+    counts = torch.zeros(len(coords), dtype=torch.int32, device=dev)
+    rc = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+    total = torch.zeros(1, dtype=torch.int32, device=dev)
+    coords_dev = torch.from_numpy(coords).to(dev)
+    w = pm.plane_weights(pm.limbs_from_planes(P))
+    with _build.launch_stream(dev, lib) as stream:
+        err = lib.mvs_sweep(
+            planes.data_ptr(), planes.data_ptr(), thr.data_ptr(),
+            thr.data_ptr(), P, d, d_pad, n * d_pad, n * d_pad,
+            coords_dev.data_ptr(), len(coords), tile, tile,
+            w.ctypes.data_as(ctypes.c_void_p), float(pm.SLACK_REL),
+            float(pm.SLACK_ABS), 1, 0, counts.data_ptr(), rc.data_ptr(),
+            total.data_ptr(), cap, stream)
+    _check(lib, err, "sweep kernel (APPEND)")
+    return rc, counts, total
+
+
+def _append_call(lib, planes, thr, tiles, tile, cap, d):
+    """Kernel APPEND of one build over the TileList ``tiles``, self-pairs
+    masked (a count.cu build), or the parent's APPEND epilogue."""
+    if hasattr(lib, "mvs_sweep"):
+        return append_parent(lib, planes, thr, tiles.host, tile, cap, d)
+    _build._lib = lib
+    return pw.sweep_extract(planes, thr, planes, thr, tiles, tile, cap, True,
+                            d)
+
+
+def _yardstick(planes, coords, tile: int) -> float:
+    """ms of one torch._int_mm per plane and tile on the planes' (tile x
+    tile) blocks: the GEMM core alone, a yardstick, not a kernel of the
+    port."""
+    P, nt = planes.shape[0], planes.shape[1] // tile
+    blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
+              for i in range(nt)]
+    return _ms(lambda: [torch._int_mm(blocks[p * nt + r],
+                                      blocks[p * nt + c].t())
+                        for p in range(P) for r, c in coords.tolist()],
+               reps=5)
+
+
+def _sorted_rows(rc, n: int) -> np.ndarray:
+    a = rc[:n].cpu().numpy().astype(np.int64)
+    return a[np.lexsort((a[:, 1], a[:, 0]))]
+
+
+def compare_append(builds, out_dir) -> int:
+    libs = {name: _load(name, src, out_dir) for name, src in builds}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    D, tile, nt, cap = 2048, 2048, 4, 1 << 22
+    card = torch.cuda.get_device_name(0)
+    tiles = pw.TileList([(r, c) for r in range(nt) for c in range(r, nt)],
+                        "cuda")
+    shapes = {}
+    for P in (3, 6):
+        planes, thr = count_state(P, g, nt, tile, D)
+        t0 = time.perf_counter()
+        want = pw.sweep_extract_plain(planes, thr, planes, thr, tiles.host,
+                                      tile, cap, True, D)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        bound = 2 * P * len(tiles) * tile * tile * D / 1979e12 * 1e3
+        yard = _yardstick(planes, tiles.host, tile)
+        print(f"[APPEND] {card}: P={P}: {len(tiles)} tiles of {tile}^2 (the "
+              f"triangle of {nt} x {nt}, self-pairs masked), d={D}, "
+              f"{int(want[2].item())} survivors; bound {bound:.4f} ms "
+              f"(operations at 1,979 TOP/s); plain {plain:.1f} ms; "
+              f"yardstick, not a kernel of the port: {P} x {len(tiles)} "
+              f"torch._int_mm {tile}^3 {yard:.4f} ms", flush=True)
+        shapes[P] = (planes, thr, want)
+    # the fused engine's first round at N = 262,144: the first 511 tiles
+    # of the 128 x 128 triangle, one launch (phase 2-like rows, P = 3)
+    planes, thr = count_state(3, g, 128, tile, D)
+    big = pw.TileList([(r, c) for r in range(128) for c in range(r, 128)]
+                      [:(2**31 - 1) // (tile * tile)], "cuda")
+    want = pw.sweep_extract_plain(planes, thr, planes, thr, big.host, tile,
+                                  cap, True, D)
+    shapes["round"] = (planes, thr, want)
+    print(f"[APPEND] {card}: round: {len(big)} tiles of {tile}^2 of a "
+          f"262,144-row triangle, P=3, {int(want[2].item())} survivors; "
+          f"bound {2 * 3 * len(big) * tile * tile * D / 1979e12 * 1e3:.3f} "
+          f"ms", flush=True)
+    lists = {3: tiles, 6: tiles, "round": big}
+    for name, lib in libs.items():
+        for P, (planes, thr, want) in shapes.items():
+            got = _append_call(lib, planes, thr, lists[P], tile, cap, D)
+            n = int(want[2].item())
+            ok = (int(got[2].item()) == n and torch.equal(got[1], want[1])
+                  and np.array_equal(_sorted_rows(got[0], n),
+                                     _sorted_rows(want[0], n)))
+            print(f"[APPEND:{name}] P={P}: survivors, counts and total equal "
+                  f"to the plain version: {ok}", flush=True)
+            if not ok:
+                return 3
+    cases = {}
+    for P, (planes, thr, _) in shapes.items():
+        def run(lib, planes=planes, thr=thr, tl=lists[P]):
+            return lambda: _append_call(lib, planes, thr, tl, tile, cap, D)
+
+        def back_to_back(lib, run=run, P=P):
+            ms, line, reps = sustained(run(lib), _ms(run(lib), reps=3))
+            print(f"[APPEND:{lib.name}] P={P}: {reps} calls back to back: "
+                  f"{line}", flush=True)
+            return ms
+        if P == "round":
+            cases["round one call"] = lambda lib, run=run: _ms(run(lib),
+                                                               reps=1)
+        else:
+            cases[f"P={P} wrapper"] = lambda lib, run=run: _ms(run(lib))
+            cases[f"P={P} kernel alone"] = lambda lib, run=run: kernel_ms(
+                run(lib), kernel_name(lib))
+            cases[f"P={P} host of a call"] = lambda lib, run=run: host_ms(
+                run(lib))
+        cases[f"P={P} 2 s back to back"] = back_to_back
+    for name, lib in libs.items():
+        lib.name = name
+    _report(_turns(libs, [n for n, _ in builds], cases), "APPEND")
     return 0
 
 
@@ -539,12 +856,7 @@ def compare_count(builds, out_dir) -> int:
                                     tile, D)
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t0) * 1e3
-        blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
-                  for i in range(nt)]
-        yard = _ms(lambda: [torch._int_mm(blocks[p * nt + r],
-                                          blocks[p * nt + c].t())
-                            for p in range(P) for r, c in
-                            tiles.host.tolist()], reps=5)
+        yard = _yardstick(planes, tiles.host, tile)
         bound = 2 * P * len(tiles) * tile * tile * D / 1979e12 * 1e3
         print(f"[COUNT] {card}: P={P}: {len(tiles)} tiles of {tile}^2, "
               f"d={D}, {int(want.sum())} survivors; bound {bound:.4f} ms "
@@ -566,8 +878,7 @@ def compare_count(builds, out_dir) -> int:
             return lambda: _count_call(lib, planes, thr, tiles, tile, D)
         cases[f"P={P} wrapper"] = lambda lib, run=run: _ms(run(lib))
         cases[f"P={P} kernel alone"] = lambda lib, run=run: kernel_ms(
-            run(lib), "gemm_kernel" if isinstance(lib, _WithCount)
-            else "count_kernel")
+            run(lib), kernel_name(lib))
         cases[f"P={P} host of a call"] = lambda lib, run=run: host_ms(
             run(lib))
     _report(_turns(libs, [n for n, _ in builds], cases), "COUNT")
@@ -708,8 +1019,14 @@ def main(argv=None) -> int:
                     metavar="name=partials.cu")
     ap.add_argument("--select", nargs="+", default=[],
                     metavar="name=select.cu")
+    ap.add_argument("--append", nargs="+", default=[],
+                    metavar="name=count.cu|sweep.cu")
     ap.add_argument("--count", nargs="+", default=[],
                     metavar="name=count.cu|sweep.cu")
+    ap.add_argument("--shards", nargs="+", default=[],
+                    metavar="name=TREE")
+    ap.add_argument("--n", type=int, default=262144,
+                    help="rows of --shards' db (default 262,144)")
     ap.add_argument("--chunks", default=str(pj.CHUNK),
                     help="kernel P work-item sizes to time, comma-separated "
                          f"(default {pj.CHUNK}; a first-cut build has none)")
@@ -726,7 +1043,9 @@ def main(argv=None) -> int:
               (lambda b, o: compare_projection(b, o, chunks), args.projection),
               (compare_partials, args.partials),
               (compare_select, args.select),
-              (compare_count, args.count)]
+              (compare_append, args.append),
+              (compare_count, args.count),
+              (lambda b, o: compare_shards(b, args.n), args.shards)]
     if not any(b for _, b in groups):
         ap.error("no builds given")
     for _, builds in groups:

@@ -1,19 +1,30 @@
-// Kernel COUNT: the two-phase engine's counts sweep on Hopper (entry
-// mvs_count).
+// Kernels COUNT and APPEND: the retention sweep over a list of tiles on
+// Hopper, one persistent kernel (retention_kernel<kAppend, kPow2>) with two
+// epilogues (entries mvs_count and mvs_append).
 //
-// Replaces: metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55
+// COUNT replaces: metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55
 // pallas_sweep_counts (the repo's one Pallas kernel, body _make_kernel at
 // :27), on its path, the two-phase engine's counts sweep (JAX
-// matrix/compute.py:830-846). Per (row, column) pair of every tile in a
-// list: P int8 x int8 -> int32 plane products (exact), combined in float32
-// in plane order,
+// matrix/compute.py:830-846): each tile's survivors, summed into
+// counts[tile].
+// APPEND replaces: the sweep + survivor compaction of the XLA program
+// metagenome_vector_sketches_tpu/ops/pairwise.py:635 sweep_extract_fused_ij
+// (the fused engine's sweep; the two-phase engine's hot-tile extraction):
+// the same per-tile counts, and every survivor's operand-local (row,
+// column) int32 pair written into a flat buffer rc of capacity `cap`.
+//
+// Math, per (row, column) pair of every tile in a list: P int8 x int8 ->
+// int32 plane products (exact), combined in float32 in plane order,
 //   approx = f32(S_0)*w_0;  approx = approx + f32(S_p)*w_p  (p = 1..P-1)
 // then  approx / d  >  0.05*(t_i + t_j)*SLACK_REL - SLACK_ABS, the order
-// ops/pairwise.py's approx_dot_f32 and retention_mask write; the tile's
-// survivors are summed into counts[tile]. Every float step is an explicitly
-// rounded intrinsic (__int2float_rn, __fmul_rn, __fadd_rn, __fdiv_rn,
-// __fsub_rn), so nvcc cannot contract to FMA and the result is bit-equal to
-// the plain PyTorch version (and to kernel S APPEND's test in sweep.cu).
+// ops/pairwise.py's approx_dot_f32 and retention_mask write. Every float
+// step is an explicitly rounded intrinsic (__int2float_rn, __fmul_rn,
+// __fadd_rn, __fdiv_rn, __fsub_rn), so nvcc cannot contract to FMA and the
+// result is bit-equal to the plain PyTorch version; both epilogues run the
+// one test below, so COUNT's and APPEND's counts agree bit for bit. When d
+// is a power of two the quotient is __fmul_rn(approx, 1/d): 1/d is exact in
+// float32 and both forms round the same real number once, so it equals
+// __fdiv_rn(approx, d) and leaves out __fdiv_rn's slow-path call (kPow2).
 // Never build this file with --use_fast_math. Integer sums are exact in any
 // order, so the counts do not depend on how the tiles are split into work
 // items: the TPU kernel's VMEM sub-blocks have no counterpart here.
@@ -21,7 +32,8 @@
 // What bounds it on the H100: the int8 tensor cores, 2 P d operations a
 // pair at 1,979 TOP/s (16 tiles of 2048^2 at P = 3, d = 2048: 0.417 ms),
 // and next the L2 that feeds them (the planes of a 16-tile sweep, 48 MB,
-// sit in the 50 MB L2).
+// sit in the 50 MB L2). APPEND's survivors are few (a few per million
+// pairs at the main path's density), so its writes do not count.
 //
 // Design:
 // - CTA tile 128 x 128: two consumer warpgroups of 64 rows each run
@@ -36,17 +48,16 @@
 // - Clusters of 2 x 2 CTAs compute 256 x 256 blocks. The two CTAs of a row
 //   share their 128 rows of A, the two of a column their 128 rows of B:
 //   each CTA loads one 64-row half of each, multicast to its partner, so a
-//   CTA pulls half its stage (16 KB) from L2, the share of kernel S's
-//   128 x 256 CTA tiles in 2-CTA clusters. A stage is refilled once the
+//   CTA pulls half its stage (16 KB) from L2. A stage is refilled once the
 //   consumers of every CTA that writes into it (its row and column
 //   partners and itself) have released it: its empty barrier counts 3 x 8
 //   warps.
 // - Persistent: the grid holds as many clusters as fit on the card at once
-//   (cudaOccupancyMaxActiveClusters, once per device); cluster c walks the
-//   work items c, c + G, ... of the list, an item being one 256 x 256 block
-//   of one tile. The producer walks the same items, so the ring stays full
-//   across items: item n+1's loads overlap item n's epilogue, and nothing
-//   is set up per block.
+//   (cudaOccupancyMaxActiveClusters, once per device and instance);
+//   cluster c walks the work items c, c + G, ... of the list, an item being
+//   one 256 x 256 block of one tile. The producer walks the same items, so
+//   the ring stays full across items: item n+1's loads overlap item n's
+//   epilogue, and nothing is set up per block.
 // - MMAs in flight: each K step commits its four wgmmas as one group, waits
 //   for the PREVIOUS group (wait_group 1) and releases that group's stage;
 //   a plane ends with wait_group 0 and the fold. The two consumer
@@ -55,19 +66,30 @@
 // - No masked columns: an item's CTAs are 128 x 128 and every tile edge is
 //   a multiple of 128, so only a tile edge that is an odd multiple of 128
 //   leaves its last items a dead 128-row or 128-column half, which loads
-//   and multiplies (its partner needs the half it shares) and counts
-//   nothing.
+//   and multiplies (its partner needs the half it shares) and counts and
+//   writes nothing.
 // - Epilogue: the CTA block's 128 row and 128 column thresholds are
 //   prefetched into L1 when an item starts; after the last fold each
 //   thread reads its 2 row and 32 column thresholds (registers the
-//   accumulators no longer need), tests its 64 pairs and adds the warp's
-//   survivors to counts[tile] with one atomicAdd.
-// - ptxas (CUDA 12.8, sm_90a): 168 registers at launch (40 / 232 after
-//   setmaxnreg), a small spill around __fdiv_rn's slow-path calls in the
-//   epilogue; dynamic shared memory 197,728 B: one CTA per SM.
+//   accumulators no longer need) and tests its 64 pairs into two 32-bit
+//   words of pass bits (APPEND's self mask, row == column + diag_offset,
+//   reduced to one 32-bit compare a pair); the warp adds its survivors to
+//   counts[tile] with one atomicAdd. APPEND then compacts, only in warps
+//   that hold a survivor: per pass-bit slot one __ballot_sync, __popc for
+//   the in-warp rank and ONE atomicAdd per warp on the running total, an
+//   8-byte store per survivor. The compaction loop stays rolled (unrolled
+//   64 times, kernel S's ran ~20% slower: PERF.md). The total keeps
+//   counting past `cap` (writes stop there), so the caller learns the
+//   exact size to rerun with. Pad rows carry t = 1e30 and never pass.
+// - ptxas (CUDA 12.8, sm_90a, -Xptxas -v), every instance 168 registers
+//   at launch (40 / 232 after setmaxnreg), dynamic shared memory 197,728
+//   B: one CTA per SM. The kPow2 instances (d = 2048 on the main path): no
+//   spills, a 64-byte stack frame (the plane weights). The __fdiv_rn
+//   instances spill around its slow-path call: COUNT 120 B stored / 156 B
+//   loaded, APPEND 68 / 100 B (and ran 15% / 11% slower: PERF.md).
 // - The tile list lives on the device: (n_tiles, 2) int32 (row tile,
-//   column tile) coordinates, or, without a list, the dense grid of row
-//   tiles [row_t0, ...) x n_col_tiles column tiles (sweep_counts).
+//   column tile) coordinates, or, for COUNT without a list, the dense grid
+//   of row tiles [row_t0, ...) x n_col_tiles column tiles (sweep_counts).
 //
 // wgmma accumulator layout (m64nNk32, s32): warp w of a consumer warpgroup
 // owns rows 16w + g and 16w + g + 8 (g = lane / 4) of the warpgroup's 64;
@@ -101,6 +123,11 @@ constexpr int kBarOffset = kStages * kStageBytes;
 // + the full and empty barriers, + slack to align the base to 1024 bytes
 constexpr int kBytes = kBarOffset + 2 * kStages * 8 + 1024;
 
+// The quotient approx / d as __fmul_rn(approx, 1/d) when d is a power of two
+// (bit-equal, see the note above); false sends every d to the __fdiv_rn
+// instances (the variant PERF.md times this choice against).
+constexpr bool kPow2Div = true;
+
 struct Args {
   const float* thr_i;
   const float* thr_j;
@@ -108,11 +135,18 @@ struct Args {
   int32_t* counts;
   int P;
   int nk;  // K steps of kBK bytes
-  float dval, slack_rel, slack_abs;
+  float dval, inv_d, slack_rel, slack_abs;  // inv_d: 1/d (kPow2 instances)
   int tile_r, tile_c;
   int row_t0, n_col_tiles;  // the dense grid (coords == null)
   int nbr, nbc;             // cluster blocks of a tile: rows, columns
   int n_items;              // n_tiles x nbr x nbc (32-bit: no division call)
+  // APPEND: the self mask (row == column + diag_offset) and the survivors'
+  // buffer of `cap` (row, column) pairs with its running total
+  int mask_self;
+  long long diag_offset;
+  int2* rc;
+  unsigned* total;
+  long long cap;
 };
 
 // one box of plane `plane` at (k bytes, row) into the CTAs of `mask` (same
@@ -216,9 +250,37 @@ __device__ __forceinline__ Item item_at(const Args& a, int it, int r, int c) {
           rin < a.tile_r && cin < a.tile_c};
 }
 
+// APPEND's compaction of one warp's pass bits (bit e of word w: accumulator
+// 32 w + e): per slot one ballot and, where the slot holds survivors, one
+// atomicAdd on the total for the warp; writes stop at cap.
+__device__ __forceinline__ void compact(const Args& a, const Item& item,
+                                        const unsigned (&bits)[kAcc / 32],
+                                        int rbase, int t, int lane) {
+#pragma unroll
+  for (int w = 0; w < kAcc / 32; ++w) {
+#pragma unroll 1
+    for (int e = 0; e < 32; ++e) {
+      const bool pass = (bits[w] >> e) & 1u;
+      const unsigned m = __ballot_sync(kFullMask, pass);
+      if (!m) continue;  // warp-uniform
+      unsigned base = 0;
+      if (lane == 0) base = atomicAdd(a.total, (unsigned)__popc(m));
+      base = __shfl_sync(kFullMask, base, 0);
+      const unsigned long long pos =
+          (unsigned long long)base + __popc(m & ((1u << lane) - 1u));
+      if (pass && pos < (unsigned long long)a.cap) {
+        const int i = 32 * w + e;
+        a.rc[pos] = make_int2(item.row0 + rbase + 8 * ((i >> 1) & 1),
+                              item.col0 + 8 * (i >> 2) + 2 * t + (i & 1));
+      }
+    }
+  }
+}
+
 // The consumer warpgroups: every item of this cluster, plane after plane,
 // K step after K step, the float32 fold at each plane's end and the
-// retention test and count at the item's end.
+// retention test, the count and (APPEND) the compaction at the item's end.
+template <bool kAppend, bool kPow2>
 __device__ __forceinline__ void consume(const Args& a, const Weights& wts,
                                         uint32_t a_smem, uint32_t b_smem,
                                         uint32_t full, uint32_t empty, int r,
@@ -294,25 +356,48 @@ __device__ __forceinline__ void consume(const Args& a, const Weights& wts,
 #pragma unroll
     for (int j = 0; j < kAcc / 2; ++j)
       tj[j] = __ldg(a.thr_j + item.col0 + 8 * (j >> 1) + 2 * t + (j & 1));
-    int cnt = 0;
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const float q = __fdiv_rn(approx[i], a.dval);
-      float th = __fadd_rn(ti[(i >> 1) & 1], tj[2 * (i >> 2) + (i & 1)]);
-      th = __fmul_rn(0.05f, th);
-      th = __fmul_rn(th, a.slack_rel);
-      th = __fsub_rn(th, a.slack_abs);
-      cnt += q > th;
+    // APPEND's self mask: accumulator i (row +8h, column 8j + e) is the
+    // pair r == c + diag_offset when self == 8j + e - 8h (a value in
+    // [-8, 127]; any other value masks nothing)
+    int self = INT_MIN;
+    if (kAppend && a.mask_self) {
+      const long long o = (long long)item.row0 + rbase - item.col0 - 2 * t -
+                          a.diag_offset;
+      if (o >= -8 && o < kBN) self = (int)o;
     }
-    cnt = __reduce_add_sync(kFullMask, cnt);
+    static_assert(kAcc == 64, "two words of pass bits a thread");
+    unsigned bits[kAcc / 32];
+#pragma unroll
+    for (int w = 0; w < kAcc / 32; ++w) {
+      unsigned word = 0;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = 32 * w + e;
+        const float q = kPow2 ? __fmul_rn(approx[i], a.inv_d)
+                              : __fdiv_rn(approx[i], a.dval);
+        float th = __fadd_rn(ti[(i >> 1) & 1], tj[2 * (i >> 2) + (i & 1)]);
+        th = __fmul_rn(0.05f, th);
+        th = __fmul_rn(th, a.slack_rel);
+        th = __fsub_rn(th, a.slack_abs);
+        const bool pass =
+            q > th && self != 8 * (i >> 2) + (i & 1) - 8 * ((i >> 1) & 1);
+        word |= (unsigned)pass << e;
+      }
+      bits[w] = word;
+    }
+    if (kAppend && __any_sync(kFullMask, bits[0] | bits[1]))
+      compact(a, item, bits, rbase, t, lane);
+    const int cnt =
+        __reduce_add_sync(kFullMask, __popc(bits[0]) + __popc(bits[1]));
     if (lane == 0 && cnt) atomicAdd(&a.counts[item.tile], cnt);
   }
 }
 
+template <bool kAppend, bool kPow2>
 __global__ void __launch_bounds__(kThreads, 1)
-    count_kernel(const __grid_constant__ CUtensorMap map_i,
-                 const __grid_constant__ CUtensorMap map_j, const Args a,
-                 const Weights wts) {
+    retention_kernel(const __grid_constant__ CUtensorMap map_i,
+                     const __grid_constant__ CUtensorMap map_j, const Args a,
+                     const Weights wts) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -371,14 +456,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     cluster_sync();
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
-    consume(a, wts, a_smem, b_smem, full, empty, r, c, cluster, n_clusters);
+    consume<kAppend, kPow2>(a, wts, a_smem, b_smem, full, empty, r, c,
+                            cluster, n_clusters);
     cluster_sync();
   }
 }
 
-// The map of (P, rows, d_pad) int8 planes in boxes of 64 bytes x `box`
-// rows with the 64-byte swizzle; rows past `rows` read as zeros. Returns a
-// cudaError_t.
+// The map of (P, rows, d_pad) int8 planes in boxes of kBK bytes x `box`
+// rows with the kBK-byte swizzle; rows and columns past the planes read as
+// zeros. Returns a cudaError_t.
 int plane_map(CUtensorMap* map, const void* base, int P, long long rows,
               int d_pad, int box) {
   const EncodeTiled enc = encoder();
@@ -414,8 +500,9 @@ cudaLaunchConfig_t launch_config(long long grid, cudaStream_t stream,
   return cfg;
 }
 
-// Clusters of the kernel that fit on `device` at once (its shared memory
-// attribute set on the way), queried once per device.
+// Clusters of one instance that fit on `device` at once (its shared memory
+// attribute set on the way), queried once per device and instance.
+template <bool kAppend, bool kPow2>
 int max_clusters(int device, int* out) {
   static int cache[kMaxDevices];
   if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
@@ -423,18 +510,82 @@ int max_clusters(int device, int* out) {
     *out = cache[device];
     return 0;
   }
+  const auto kernel = retention_kernel<kAppend, kPow2>;
   cudaError_t e = cudaFuncSetAttribute(
-      count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(kCluster, nullptr, &attr);
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, count_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   if (e != cudaSuccess) return (int)e;
   if (n <= 0) return (int)cudaErrorInvalidConfiguration;
   cache[device] = n;
   *out = n;
   return 0;
+}
+
+template <bool kAppend, bool kPow2>
+int launch(const CUtensorMap& mi, const CUtensorMap& mj, const Args& a,
+           const Weights& w, cudaStream_t stream) {
+  int device = 0, clusters = 0;
+  int err = (int)cudaGetDevice(&device);
+  if (!err) err = max_clusters<kAppend, kPow2>(device, &clusters);
+  if (err) return err;
+  const long long grid =
+      (long long)kCluster * (a.n_items < clusters ? a.n_items : clusters);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(grid, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, retention_kernel<kAppend, kPow2>, mi, mj, a, w);
+  if (e != cudaSuccess) return (int)e;
+  return mvs_launch_status();
+}
+
+// The operands both entries share, checked, into `a` and the two tensor
+// maps; -> a cudaError_t, or -1 when the list holds no work item.
+int prepare(Args* a, CUtensorMap* mi, CUtensorMap* mj, const void* planes_i,
+            const void* planes_j, const void* thr_i, const void* thr_j, int P,
+            int d, int d_pad, long long rows_i, long long rows_j,
+            const void* coords, int n_tiles, int tile_r, int tile_c,
+            float slack_rel, float slack_abs, void* counts) {
+  if (P < 1 || P > kMaxPlanes || d <= 0 || tile_r <= 0 || tile_c <= 0 ||
+      tile_r % kBM || tile_c % kBN || d_pad <= 0 || d_pad % 64 ||
+      n_tiles < 0 || rows_i < tile_r || rows_j < tile_c ||
+      rows_i > INT_MAX || rows_j > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  a->nbr = (tile_r + kCR * kBM - 1) / (kCR * kBM);
+  a->nbc = (tile_c + kCC * kBN - 1) / (kCC * kBN);
+  const long long n_items = (long long)n_tiles * a->nbr * a->nbc;
+  if (n_items > INT_MAX) return (int)cudaErrorInvalidValue;
+  a->n_items = (int)n_items;
+  if (n_items == 0) return -1;
+  int err = plane_map(mi, planes_i, P, rows_i, d_pad, kABox);
+  if (!err) err = plane_map(mj, planes_j, P, rows_j, d_pad, kBBox);
+  if (err) return err;
+  a->thr_i = (const float*)thr_i;
+  a->thr_j = (const float*)thr_j;
+  a->coords = (const int32_t*)coords;
+  a->counts = (int32_t*)counts;
+  a->P = P;
+  a->nk = (d_pad + kBK - 1) / kBK;
+  a->dval = (float)d;
+  // 1/d, exact in float32 for a power of two; 0 selects __fdiv_rn
+  a->inv_d = kPow2Div && (d & (d - 1)) == 0 ? 1.0f / (float)d : 0.0f;
+  a->slack_rel = slack_rel;
+  a->slack_abs = slack_abs;
+  a->tile_r = tile_r;
+  a->tile_c = tile_c;
+  return 0;
+}
+
+template <bool kAppend>
+int run(const CUtensorMap& mi, const CUtensorMap& mj, const Args& a,
+        const void* weights_host, int P, void* stream) {
+  const Weights w = load_weights(weights_host, P);
+  return a.inv_d != 0.0f
+             ? launch<kAppend, true>(mi, mj, a, w, (cudaStream_t)stream)
+             : launch<kAppend, false>(mi, mj, a, w, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -453,47 +604,44 @@ MVS_EXPORT int mvs_count(const void* planes_i, const void* planes_j,
                          int n_col_tiles, int tile_r, int tile_c,
                          const void* weights_host, float slack_rel,
                          float slack_abs, void* counts, void* stream) {
-  if (P < 1 || P > kMaxPlanes || tile_r <= 0 || tile_c <= 0 ||
-      tile_r % kBM || tile_c % kBN || d_pad <= 0 || d_pad % 64 ||
-      n_tiles < 0 || rows_i < tile_r || rows_j < tile_c ||
-      rows_i > INT_MAX || rows_j > INT_MAX ||
-      (!coords && (n_col_tiles <= 0 || row_t0 < 0)))
+  if (!coords && (n_col_tiles <= 0 || row_t0 < 0))
     return (int)cudaErrorInvalidValue;
   Args a{};
-  a.nbr = (tile_r + kCR * kBM - 1) / (kCR * kBM);
-  a.nbc = (tile_c + kCC * kBN - 1) / (kCC * kBN);
-  const long long n_items = (long long)n_tiles * a.nbr * a.nbc;
-  if (n_items > INT_MAX) return (int)cudaErrorInvalidValue;
-  a.n_items = (int)n_items;
-  if (n_items == 0) return mvs_launch_status();
-  int device = 0, clusters = 0;
-  int err = (int)cudaGetDevice(&device);
-  if (!err) err = max_clusters(device, &clusters);
-  if (err) return err;
   CUtensorMap mi, mj;
-  err = plane_map(&mi, planes_i, P, rows_i, d_pad, kABox);
-  if (!err) err = plane_map(&mj, planes_j, P, rows_j, d_pad, kBBox);
-  if (err) return err;
-  a.thr_i = (const float*)thr_i;
-  a.thr_j = (const float*)thr_j;
-  a.coords = (const int32_t*)coords;
-  a.counts = (int32_t*)counts;
-  a.P = P;
-  a.nk = (d_pad + kBK - 1) / kBK;
-  a.dval = (float)d;
-  a.slack_rel = slack_rel;
-  a.slack_abs = slack_abs;
-  a.tile_r = tile_r;
-  a.tile_c = tile_c;
+  const int err = prepare(&a, &mi, &mj, planes_i, planes_j, thr_i, thr_j, P,
+                          d, d_pad, rows_i, rows_j, coords, n_tiles, tile_r,
+                          tile_c, slack_rel, slack_abs, counts);
+  if (err) return err < 0 ? mvs_launch_status() : err;
   a.row_t0 = row_t0;
   a.n_col_tiles = n_col_tiles;
-  const Weights w = load_weights(weights_host, P);
-  const long long grid =
-      (long long)kCluster * (a.n_items < clusters ? a.n_items : clusters);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(grid, (cudaStream_t)stream, &attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, count_kernel, mi, mj, a, w);
-  if (e != cudaSuccess) return (int)e;
-  return mvs_launch_status();
+  return run<false>(mi, mj, a, weights_host, P, stream);
+}
+
+// APPEND over the tile list coords ((n_tiles, 2) int32 on the device, as
+// mvs_count's): counts as mvs_count's, plus rc: (cap, 2) int32 and total:
+// one uint32, counts and total zeroed by the caller. mask_self drops the
+// pairs whose row index equals column index + diag_offset: 0 when both
+// operands share one row numbering, the column operand's first global row
+// minus the row operand's when they are two windows of one database.
+MVS_EXPORT int mvs_append(const void* planes_i, const void* planes_j,
+                          const void* thr_i, const void* thr_j, int P, int d,
+                          int d_pad, long long rows_i, long long rows_j,
+                          const void* coords, int n_tiles, int tile_r,
+                          int tile_c, const void* weights_host,
+                          float slack_rel, float slack_abs, int mask_self,
+                          long long diag_offset, void* counts, void* rc,
+                          void* total, long long cap, void* stream) {
+  if (!coords || cap < 0) return (int)cudaErrorInvalidValue;
+  Args a{};
+  CUtensorMap mi, mj;
+  const int err = prepare(&a, &mi, &mj, planes_i, planes_j, thr_i, thr_j, P,
+                          d, d_pad, rows_i, rows_j, coords, n_tiles, tile_r,
+                          tile_c, slack_rel, slack_abs, counts);
+  if (err) return err < 0 ? mvs_launch_status() : err;
+  a.mask_self = mask_self;
+  a.diag_offset = diag_offset;
+  a.rc = (int2*)rc;
+  a.total = (unsigned*)total;
+  a.cap = cap;
+  return run<true>(mi, mj, a, weights_host, P, stream);
 }

@@ -1,8 +1,8 @@
 // Hopper helpers of the port's int8 GEMM kernels (sweep.cu: kernels S and
-// G; count.cu: kernel COUNT): mbarriers, cluster barriers, the wgmma fence
-// and commit, the tensor-map encoder and the plane weights. Each source
-// gets its own copies (an anonymous namespace), so a source also builds
-// alone (compare_kernels.py).
+// G; count.cu: kernels COUNT and APPEND): mbarriers, cluster barriers, the
+// wgmma fence and commit, the tensor-map encoder and the plane weights.
+// Each source gets its own copies (an anonymous namespace), so a source
+// also builds alone (compare_kernels.py).
 #pragma once
 
 #include <cuda.h>

@@ -1,27 +1,26 @@
 // Kernels S and G: the port's int8 GEMM core on Hopper (a TMA ring feeding
-// wgmma) with the thresholded sweep's, the ANN scan's and the MinHash
-// Gram's epilogues.
+// wgmma) with the ANN scan's and the MinHash Gram's epilogues.
 //
-// Kernel S replaces: the sweep + survivor compaction of the XLA program
-// metagenome_vector_sketches_tpu/ops/pairwise.py:635 sweep_extract_fused_ij
-// in its APPEND epilogue (entry mvs_sweep), and the plane GEMMs + combine +
-// x 1/|v| of the XLA program ann/int_index.py:124 _int_scan_pool in its
-// SCORE epilogue (entry mvs_scan). Kernel G (entry mvs_gram) replaces the
-// XLA program metagenome_vector_sketches_tpu/ops/minhash.py:47 _chunk_gram.
-// The survivor counts alone (the repo's one Pallas kernel,
-// ops/pallas_pairwise.py:55 pallas_sweep_counts) are kernel COUNT, count.cu.
+// Kernel S (entry mvs_scan) replaces the plane GEMMs + combine + x 1/|v| of
+// the XLA program metagenome_vector_sketches_tpu/ann/int_index.py:124
+// _int_scan_pool (its SCORE epilogue). Kernel G (entry mvs_gram) replaces
+// the XLA program metagenome_vector_sketches_tpu/ops/minhash.py:47
+// _chunk_gram. The thresholded sweeps (the survivor counts of the repo's
+// one Pallas kernel, ops/pallas_pairwise.py:55 pallas_sweep_counts, and
+// the survivor compaction of ops/pairwise.py:635 sweep_extract_fused_ij)
+// are kernels COUNT and APPEND, count.cu.
 //
-// Math of S, per (row, column) pair: P int8 x int8 -> int32 plane products
-// (exact), combined in float32 in plane order,
+// Math of S, per (query row, database column) pair: P int8 x int8 -> int32
+// plane products (exact), combined in float32 in plane order,
 //   approx = f32(S_0)*w_0;  approx = approx + f32(S_p)*w_p  (p = 1..P-1)
-// then  approx / d  >  0.05*(t_i + t_j)*SLACK_REL - SLACK_ABS, the order
-// ops/pairwise.py:214-236 and :346 write. Every float step is an explicitly
-// rounded intrinsic (__int2float_rn, __fmul_rn, __fadd_rn, __fdiv_rn,
-// __fsub_rn), so nvcc cannot contract to FMA and the result is bit-equal to
-// the plain PyTorch version, which runs the same eager float32 ops in the
-// same order. Integer MMAs are exact in any order. Never build this file
-// with --use_fast_math. G: c[i, j] += sum_k a[i, k] a[j, k] for an (n, u)
-// 0/1 int8 incidence chunk, int32 (a count is at most u).
+// then  score = approx * inv_n[c], the order ops/pairwise.py's
+// approx_dot_f32 and scan_scores_plain write. Every float step is an
+// explicitly rounded intrinsic (__int2float_rn, __fmul_rn, __fadd_rn), so
+// nvcc cannot contract to FMA and the result is bit-equal to the plain
+// PyTorch version, which runs the same eager float32 ops in the same
+// order. Integer MMAs are exact in any order. Never build this file with
+// --use_fast_math. G: c[i, j] += sum_k a[i, k] a[j, k] for an (n, u) 0/1
+// int8 incidence chunk, int32 (a count is at most u).
 //
 // What bounds them on the H100: the int8 tensor cores (1,979 TOP/s dense)
 // and, next, the L2 that feeds them. At d = 2048 the operands come from L2;
@@ -57,35 +56,25 @@
 //   plane's fold stays in the accumulator registers for the epilogue. That
 //   leaves a ring of 4 stages (96 KB). G keeps only the int32 set and
 //   takes a ring of 8 stages (192 KB).
-// - Epilogue inputs: S's consumers copy the block's 256 column values
-//   (thr_j or inv_n) and 128 row thresholds into shared memory before the
-//   main loop, so the epilogue reads no global memory; G loads its block of
-//   c 32 accumulators at a time, every load of a chunk ahead of its stores.
-// - Tiles of S that are an odd multiple of 128 wide compute a full 256-wide
-//   CTA tile and mask the columns past the tile; tiles with an odd number
-//   of 128-row blocks leave the last pair's second CTA without rows of its
-//   own (it only feeds its peer); G's clusters that straddle the block
-//   diagonal mask the 128 x 128 block below it.
+// - Epilogue inputs: S's consumers copy the block's 256 inv_n values into
+//   shared memory before the main loop, so the epilogue reads no global
+//   memory; G loads its block of c 32 accumulators at a time, every load
+//   of a chunk ahead of its stores.
+// - Column blocks of S past the scan's width mask their columns; row
+//   blocks with an odd number of 128-row blocks leave the last pair's
+//   second CTA without rows of its own (it only feeds its peer); G's
+//   clusters that straddle the block diagonal mask the 128 x 128 block
+//   below it.
 // - ptxas (CUDA 12.8, sm_90a, -Xptxas -v): every instance 168 registers at
 //   launch (384 threads; 40 / 232 after setmaxnreg), no spills, a 64-byte
-//   stack frame for S's plane weights. Dynamic shared memory: S 232,000 B
-//   (ring 96 KB, approx 128 KB, table 1.5 KB, barriers, 1 KB alignment
+//   stack frame for S's plane weights. Dynamic shared memory: S 231,488 B
+//   (ring 96 KB, approx 128 KB, inv_n table 1 KB, barriers, 1 KB alignment
 //   slack), G 197,760 B: one CTA per SM.
 //
 // Epilogues (template parameter), on the wgmma accumulator layout: warp w
 // of a consumer warpgroup owns rows 16w + g and 16w + g + 8 (g = lane / 4)
 // of the warpgroup's 64; accumulator 4j + e is column 8j + 2(lane % 4) +
 // (e & 1) of row +8 * (e >> 1).
-//   APPEND — per-tile survivor counts (one atomicAdd per warp), plus every
-//            survivor's global (r, c)
-//            int32 written into a flat buffer of capacity `cap`: one
-//            __ballot_sync per element slot, __popc for the in-warp rank and
-//            ONE atomicAdd per warp on the running total, in warps that
-//            hold a survivor. The total keeps counting past `cap` (writes
-//            stop there), so the caller learns the exact size to rerun
-//            with. Self-pairs can be masked: r == c + diag_offset, the
-//            offset between the two operands' first global rows. Pad rows
-//            carry t = 1e30, so they never pass.
 //   SCORE  — rows are query planes, columns one chunk of the database
 //            stack; every pair's combined dot times inv_n[c] (one more
 //            __fmul_rn) is written to a row-major float32 (rows, ld) score
@@ -112,39 +101,27 @@ constexpr int kATile = kBM * kBK;           // 8 KB
 constexpr int kBTile = kBN * kBK;           // 16 KB
 constexpr int kStageBytes = kATile + kBTile;
 
-enum Epilogue { kAppend = 1, kScore = 2, kGram = 3 };
+enum Epilogue { kScore = 2, kGram = 3 };
 
 template <int kMode>
 struct Layout {
   static constexpr int kStages = kMode == kGram ? 8 : 4;
   static constexpr int kApproxBytes =
       kMode == kGram ? 0 : kAcc * kConsumers * 4;
-  // S: the block's column (thr_j or inv_n) and row (thr_i) values
-  static constexpr int kTableBytes = kMode == kGram ? 0 : (kBN + kBM) * 4;
+  // S: the block's inv_n values
+  static constexpr int kTableBytes = kMode == kGram ? 0 : kBN * 4;
   static constexpr int kBarOffset =
       kStages * kStageBytes + kApproxBytes + kTableBytes;
   // + the full and empty barriers, + slack to align the base to 1024 bytes
   static constexpr int kBytes = kBarOffset + 2 * kStages * 8 + 1024;
 };
 
-// The operands of one launch: APPEND reads thr_*, coords, counts, rc,
-// total, cap; SCORE reads inv_n, valid, scores, ld (its grid covers one
-// tile_r x tile_c block); GRAM reads c, ldc, n_blocks.
+// The operands of one launch: SCORE reads inv_n, valid, scores, ld (its
+// grid covers one tile_r x tile_c block); GRAM reads c, ldc, n_blocks.
 struct Args {
-  const float* thr_i;
-  const float* thr_j;
   int P;
   int nk;  // K steps of kBK bytes
-  float dval;
-  const int32_t* coords;
   int tile_r, tile_c;
-  float slack_rel, slack_abs;
-  int mask_self;
-  long long diag_offset;
-  int32_t* counts;
-  int32_t* rc;
-  unsigned* total;
-  long long cap;
   const float* inv_n;
   int valid;
   float* scores;
@@ -263,13 +240,13 @@ __device__ __forceinline__ void wgmma_m64n256k32(int (&d)[kAcc], uint64_t da,
 // The consumer warpgroups: the main loop over P planes x nk K steps, the
 // plane folds (S) and the epilogue, for the CTA block at (row0, col0) with
 // col_lim valid columns; a CTA that is not `live` (the pair's second block
-// past a tile of an odd number of 128-row blocks) only feeds its peer.
+// past an odd number of 128-row blocks) only feeds its peer.
 template <int kMode, int kStages>
 __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
                                         uint32_t a_smem, uint32_t b_smem,
                                         float* approx, uint32_t full,
                                         uint32_t empty, int row0, int col0,
-                                        int col_lim, int tile, bool live) {
+                                        int col_lim, bool live) {
   const int ct = threadIdx.x, wg = ct >> 7, lane = ct & 31;
   const int t = lane & 3;
   // this thread's rows of the CTA block: rbase and rbase + 8
@@ -279,15 +256,12 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
   for (int i = 0; i < kAcc; ++i) acc[i] = 0;
 
   // S stages the values its epilogue reads into shared memory now, so the
-  // loads overlap the main loop: one column per thread (kBN == kConsumers),
-  // then the rows' thresholds
+  // loads overlap the main loop: one column per thread (kBN == kConsumers)
   static_assert(kBN == kConsumers, "one table column per consumer thread");
   float* table = approx + kAcc * kConsumers;
   if (kMode != kGram && live) {
     const int gc = col0 + ct;
-    table[ct] = kMode == kScore ? (gc < args.valid ? args.inv_n[gc] : 0.f)
-                                : (ct < col_lim ? args.thr_j[gc] : 0.f);
-    if (kMode != kScore && ct < kBM) table[kBN + ct] = args.thr_i[row0 + ct];
+    table[ct] = gc < args.valid ? args.inv_n[gc] : 0.f;
   }
 
   // a stage is free once both CTAs' consumers are done with it (the peer
@@ -344,7 +318,7 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
   if (!live) return;
   // accumulators in chunks of 32 (8 column groups of 8): G issues a
   // chunk's loads of c together, ahead of its stores, so their latencies
-  // overlap; APPEND keeps one pass bit per accumulator in a word
+  // overlap
   constexpr int kChunk = 32;
   static_assert(kAcc == 4 * kChunk, "four chunks of accumulators");
   if (kMode == kGram) {
@@ -375,80 +349,21 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
 
   // the table is written by all consumer threads
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-  if (kMode == kScore) {
 #pragma unroll
-    for (int u = 0; u < kAcc / 2; ++u) {
-      const int cl = 8 * (u >> 1) + 2 * t;
-      if (cl >= col_lim) continue;
-      const int gc = col0 + cl;
-      const long long gr = row0 + rbase + 8 * (u & 1);
-      float2 x;
-      x.x = gc < args.valid
-                ? __fmul_rn(__int_as_float(acc[2 * u]), table[cl])
-                : -INFINITY;
-      x.y = gc + 1 < args.valid
-                ? __fmul_rn(__int_as_float(acc[2 * u + 1]), table[cl + 1])
-                : -INFINITY;
-      *reinterpret_cast<float2*>(&args.scores[gr * args.ld + gc]) = x;
-    }
-    return;
+  for (int u = 0; u < kAcc / 2; ++u) {
+    const int cl = 8 * (u >> 1) + 2 * t;
+    if (cl >= col_lim) continue;
+    const int gc = col0 + cl;
+    const long long gr = row0 + rbase + 8 * (u & 1);
+    float2 x;
+    x.x = gc < args.valid
+              ? __fmul_rn(__int_as_float(acc[2 * u]), table[cl])
+              : -INFINITY;
+    x.y = gc + 1 < args.valid
+              ? __fmul_rn(__int_as_float(acc[2 * u + 1]), table[cl + 1])
+              : -INFINITY;
+    *reinterpret_cast<float2*>(&args.scores[gr * args.ld + gc]) = x;
   }
-
-  // APPEND: first every element's retention test (bit e of word c
-  // for accumulator 32 c + e), then the compaction, only in warps that
-  // hold a survivor
-  const float ti[2] = {table[kBN + rbase], table[kBN + rbase + 8]};
-  unsigned bits[kAcc / kChunk];
-  int cnt = 0;
-#pragma unroll
-  for (int c = 0; c < kAcc / kChunk; ++c) {
-    unsigned word = 0;
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e) {
-      const int i = c * kChunk + e, h = (i >> 1) & 1;
-      const int cl = 8 * (i >> 2) + 2 * t + (i & 1);
-      const int gr = row0 + rbase + 8 * h;
-      const int gc = col0 + cl;
-      const float q = __fdiv_rn(__int_as_float(acc[i]), args.dval);
-      float th = __fadd_rn(ti[h], table[cl]);
-      th = __fmul_rn(0.05f, th);
-      th = __fmul_rn(th, args.slack_rel);
-      th = __fsub_rn(th, args.slack_abs);
-      const bool pass =
-          cl < col_lim && (q > th) &&
-          !(args.mask_self && (long long)gr == gc + args.diag_offset);
-      word |= (pass ? 1u : 0u) << e;
-    }
-    bits[c] = word;
-    cnt += __popc(word);
-  }
-  // The compaction loop stays rolled: unrolled 128 times, its code made
-  // the whole APPEND kernel ~20% slower (measured on the H100, PERF.md).
-  if (__any_sync(kFullMask, bits[0] | bits[1] | bits[2] | bits[3])) {
-#pragma unroll
-    for (int c = 0; c < kAcc / kChunk; ++c) {
-#pragma unroll 1
-      for (int i = c * kChunk; i < (c + 1) * kChunk; ++i) {
-        const bool pass = (bits[c] >> (i % kChunk)) & 1u;
-        const unsigned m = __ballot_sync(kFullMask, pass);
-        if (m) {  // warp-uniform
-          unsigned base = 0;
-          if (lane == 0) base = atomicAdd(args.total, (unsigned)__popc(m));
-          base = __shfl_sync(kFullMask, base, 0);
-          if (pass) {
-            const unsigned long long pos =
-                (unsigned long long)base + __popc(m & ((1u << lane) - 1u));
-            if (pos < (unsigned long long)args.cap) {
-              args.rc[2 * pos] = row0 + rbase + 8 * ((i >> 1) & 1);
-              args.rc[2 * pos + 1] = col0 + 8 * (i >> 2) + 2 * t + (i & 1);
-            }
-          }
-        }
-      }
-    }
-  }
-  cnt = __reduce_add_sync(kFullMask, cnt);
-  if (lane == 0 && cnt) atomicAdd(&args.counts[tile], cnt);
 }
 
 template <int kMode>
@@ -472,7 +387,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   uint32_t rank;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
   const int pair = blockIdx.x >> 1;
-  int row0, col0, col_lim = kBN, tile = 0;
+  int row0, col0, col_lim = kBN;
   bool live;
   if (kMode == kGram) {
     // the 256 x 256 blocks on and above the diagonal, row by row
@@ -486,19 +401,11 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
     col0 = (bp + k) * kBN;
     live = 2 * bp + (int)rank < args.n_blocks;
   } else {
-    const int sub_r = (args.tile_r + 2 * kBM - 1) / (2 * kBM);
     const int sub_c = (args.tile_c + kBN - 1) / kBN;
-    const int per_tile = sub_r * sub_c;
-    tile = pair / per_tile;
-    const int sub = pair % per_tile;
-    const int tr = kMode == kScore ? 0 : args.coords[2 * tile];
-    const int tc = kMode == kScore ? 0 : args.coords[2 * tile + 1];
-    const int rin = (sub / sub_c) * 2 * kBM + rank * kBM;
-    const int cin = (sub % sub_c) * kBN;
-    row0 = tr * args.tile_r + rin;
-    col0 = tc * args.tile_c + cin;
-    col_lim = min(kBN, args.tile_c - cin);
-    live = rin < args.tile_r;
+    row0 = (pair / sub_c) * 2 * kBM + rank * kBM;
+    col0 = (pair % sub_c) * kBN;
+    col_lim = min(kBN, args.tile_c - col0);
+    live = row0 < args.tile_r;
   }
 
   if (threadIdx.x == 0) {
@@ -536,7 +443,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
     consume<kMode, S>(args, wts, a_smem, b_smem, approx, full, empty, row0,
-                      col0, col_lim, tile, live);
+                      col0, col_lim, live);
     cluster_sync();
   }
 }
@@ -575,58 +482,6 @@ int launch(const CUtensorMap& map_i, const CUtensorMap& map_j,
 }
 
 }  // namespace
-
-// planes_*: (P, N*, d_pad) int8 with plane strides stride_* (N* = stride_*
-// / d_pad rows); thr_*: float32 squared-norm thresholds; coords: (n_tiles,
-// 2) int32 tile indices (units of tile_r rows / tile_c columns);
-// weights_host: P float32 on the HOST. counts: (n_tiles,) int32, rc: (cap,
-// 2) int32 and total: one uint32, counts and total zeroed by the caller.
-// mask_self drops the pairs whose row index equals
-// column index + diag_offset: 0 when both operands share one row numbering,
-// the column operand's first global row minus the row operand's when they
-// are two windows of one database.
-MVS_EXPORT int mvs_sweep(const void* planes_i, const void* planes_j,
-                         const void* thr_i, const void* thr_j, int P, int d,
-                         int d_pad, long long stride_i, long long stride_j,
-                         const void* coords, int n_tiles, int tile_r,
-                         int tile_c, const void* weights_host,
-                         float slack_rel, float slack_abs, int mask_self,
-                         long long diag_offset, void* counts, void* rc,
-                         void* total, long long cap, void* stream) {
-  if (P < 1 || P > kMaxPlanes || tile_r <= 0 || tile_c <= 0 ||
-      tile_r % kBM || tile_c % kBox || d_pad <= 0 || d_pad % kBK ||
-      n_tiles < 0 || stride_i < d_pad || stride_j < d_pad ||
-      stride_i % kBK || stride_j % kBK)
-    return (int)cudaErrorInvalidValue;
-  const long long grid = 2LL * n_tiles * ((tile_r + 2 * kBM - 1) / (2 * kBM)) *
-                         ((tile_c + kBN - 1) / kBN);
-  if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (grid == 0) return mvs_launch_status();
-  CUtensorMap mi, mj;
-  int err = plane_map(&mi, planes_i, P, stride_i / d_pad, d_pad, stride_i);
-  if (!err) err = plane_map(&mj, planes_j, P, stride_j / d_pad, d_pad,
-                            stride_j);
-  if (err) return err;
-  Args a{};
-  a.thr_i = (const float*)thr_i;
-  a.thr_j = (const float*)thr_j;
-  a.P = P;
-  a.nk = d_pad / kBK;
-  a.dval = (float)d;
-  a.coords = (const int32_t*)coords;
-  a.tile_r = tile_r;
-  a.tile_c = tile_c;
-  a.slack_rel = slack_rel;
-  a.slack_abs = slack_abs;
-  a.mask_self = mask_self;
-  a.diag_offset = diag_offset;
-  a.counts = (int32_t*)counts;
-  a.rc = (int32_t*)rc;
-  a.total = (unsigned*)total;
-  a.cap = cap;
-  const Weights w = load_weights(weights_host, P);
-  return launch<kAppend>(mi, mj, a, w, grid, (cudaStream_t)stream);
-}
 
 // The SCORE epilogue. q_planes: (P, rows, d_pad) int8 query planes (plane
 // stride stride_q); db_planes: (P, >= cols, d_pad) int8, one chunk of the

@@ -10,12 +10,13 @@ The fused engine:
    (P, Npad, d_pad) int8 Karatsuba planes there; thresholds are the
    text-parsed squared norms (+ the certified slack adjustment), 1e30 on
    pad rows.
-2. Sweep: kernel S over the shard's TRIANGLE tile grid (only column tiles
-   c >= r inside the shard's own row-tile range; mirrors are re-emitted on
-   the host), APPEND epilogue with self-pairs masked, chunk by chunk. When
-   a chunk's survivor total exceeds the buffer's capacity, the chunk is
-   rerun at exactly that capacity (kernel S counts past its cap); when the
-   exact size would break the buffer budget, the chunk is halved instead.
+2. Sweep: kernel APPEND over the shard's TRIANGLE tile grid (only column
+   tiles c >= r inside the shard's own row-tile range; mirrors are
+   re-emitted on the host) with self-pairs masked, over a tile list on the
+   card, one range of it at a time. When a range's survivor total exceeds
+   the buffer's capacity, the range is rerun at exactly that capacity
+   (kernel APPEND counts past its cap); when the exact size would break
+   the buffer budget, the range is halved instead.
 3. Partials: kernel X computes the survivors' exact int32 limb-pair
    partials; self-pairs go through kernel X on (i, i).
 4. One device->host copy per chunk; the host combines the partials into
@@ -30,8 +31,9 @@ before anything is measured or staged.
 When the planes exceed the device budget, the streaming engine
 (:func:`_compute_streaming`) keeps a group of the shard's row tiles on the
 device and streams windows of column tiles past it (the full rectangle,
-two operands, self-pairs masked through kernel S's diagonal offset); the
-next window is read from the vectors memmap on a worker thread meanwhile.
+two operands, self-pairs masked through kernel APPEND's diagonal
+offset); the next window is read from the vectors memmap on a worker
+thread meanwhile.
 
 The two-phase engine (``engine="two_phase"``, and every tile whose square
 is not a multiple of 32, as in the JAX package; resident:
@@ -43,7 +45,7 @@ Pallas kernel, ``pallas_sweep_counts``:
    tiles x every column tile (ops.pallas_pairwise.count_tiles; the tile
    list goes to the card once, each tile's survivors are summed there).
 2. Hot-tile extraction: the tiles with survivors, in chunks whose summed
-   counts fit CANDIDATE_BUDGET_BYTES, through kernel S APPEND with the
+   counts fit CANDIDATE_BUDGET_BYTES, through kernel APPEND with the
    self-pairs kept, at the capacity the counts give (a slot that finds
    more is rerun at its exact total). Every unordered pair is found in
    both orders: nothing is mirrored on the host.
@@ -55,11 +57,11 @@ Pallas kernel, ``pallas_sweep_counts``:
 
 With ``mesh`` (parallel.mesh.Mesh), every engine runs tile-data-parallel
 over its slots (JAX ``compute.py:202-205, 383, 811, 1167-1259``): the planes
-are replicated to every slot and each round of tiles is split into
-per-slot blocks (parallel.engine.MeshSweepOps); the shard is
-byte-identical to the single-device one. Without a mesh the engine runs on
-a 1-slot mesh of ``device``. ``gate`` changes nothing here: kernel S's
-APPEND epilogue already emits nothing for a tile without survivors.
+are replicated to every slot and the tiles are split into per-slot
+blocks (parallel.engine.MeshSweepOps); the shard is byte-identical to the
+single-device one. Without a mesh the engine runs on a 1-slot mesh of
+``device``. ``gate`` changes nothing here: kernel APPEND already emits
+nothing for a tile without survivors.
 """
 
 from __future__ import annotations
@@ -83,12 +85,12 @@ from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
 
 # per-shard stage timing of the LAST compute_pairwise_shard call (the keys
-# of the JAX engine's LAST_STAGES). sweep_ms is kernel S (synchronised),
-# extract_ms kernel X plus the device->host copy, finalize_ms the host's
-# exact combine and filter. The streaming engine adds stage_read_ms (the
-# memmap reads, the windows' on the worker thread), stage_wait_ms (time
-# spent waiting for a prefetched window), row_groups, windows and
-# tiles_swept. The two-phase engine's sweep_ms is its counts sweep (plus,
+# of the JAX engine's LAST_STAGES). sweep_ms is kernel APPEND
+# (synchronised), extract_ms kernel X plus the device->host copy,
+# finalize_ms the host's exact combine and filter. The streaming engine
+# adds stage_read_ms (the memmap reads, the windows' on the worker thread),
+# stage_wait_ms (time spent waiting for a prefetched window), row_groups,
+# windows and tiles_swept. The two-phase engine's sweep_ms is its counts sweep (plus,
 # streaming, the row tile's staging), its extract_ms the extraction net of
 # the finalize nested in it, whose exact dots finalize_ms includes; it
 # adds hot_tiles (tiles the counts sweep found survivors in, which the
@@ -151,15 +153,15 @@ def _keep_only(key) -> int:
 
 def sweep_tile(tile_rows: int, device) -> int:
     """The sweep's tile edge on ``device``: tile_rows itself on the CPU; on
-    CUDA rounded UP to a multiple of kernel S's block (128), logged once.
-    The shard does not depend on the tile (the writer lexsorts)."""
+    CUDA rounded UP to a multiple of the kernels' block (128), logged
+    once. The shard does not depend on the tile (the writer lexsorts)."""
     if torch.device(device).type != "cuda" or tile_rows % pw.SWEEP_BLOCK == 0:
         return tile_rows
     tile = pw.pad_rows(tile_rows, device)
     if tile_rows not in _ROUNDED_TILES:
         _ROUNDED_TILES.add(tile_rows)
-        log(f"tile_rows={tile_rows} rounded up to {tile} (kernel S takes "
-            f"multiples of {pw.SWEEP_BLOCK} on CUDA)")
+        log(f"tile_rows={tile_rows} rounded up to {tile} (the kernels "
+            f"take multiples of {pw.SWEEP_BLOCK} on CUDA)")
     return tile
 
 
@@ -173,7 +175,8 @@ def _reset_stages():
                        # mirror twins included
                        candidates=0, emitted=0, pairs_written=0,
                        stage_decompose_ms=0.0, stage_h2d_ms=0.0,
-                       # wall of each sweep chunk (kernel S, synchronised)
+                       # wall of each sweep round (kernel APPEND,
+                       # synchronised)
                        dispatch_walls_ms=[])
 
 
@@ -246,7 +249,7 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
     from the vectors memmap, "device" runs kernel X on the staged planes;
     None is "device" on CUDA and "host" on the CPU. The fused engine
     ignores it (it combines exact in-kernel partials), as in the JAX
-    package. gate changes nothing: kernel S emits nothing for an empty
+    package. gate changes nothing: kernel APPEND emits nothing for an empty
     tile.
     """
     if finalize not in (None, "host", "device"):
@@ -560,10 +563,10 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
                              L, d, exact_filter, max_abs, ops, budget):
     """The beyond-memory engine (JAX ``_compute_streaming_fused``, with its
     schedule): a ROW GROUP of the shard's row tiles is staged once and a
-    WINDOW of column tiles at a time streams past it; kernel S sweeps every
-    (row tile x window tile) of the full rectangle with two operands, and
-    masks the self-pairs through its diagonal offset (window start - row
-    group start). The budget is split in quarters: the row group, the
+    WINDOW of column tiles at a time streams past it; kernel APPEND sweeps
+    every (row tile x window tile) of the full rectangle with two operands,
+    and masks the self-pairs through its diagonal offset (window start -
+    row group start). The budget is split in quarters: the row group, the
     window being swept, the next window and staging temporaries. The
     flattened (row group, window) schedule lets a worker thread read the
     next window from the vectors memmap (host work only: the read and the
@@ -636,36 +639,38 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
 
 def _sweep(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
            fin_dots, row_base=0, col_base=0):
-    """Kernel S over ``coords`` (row tiles of planes_i x column tiles of
-    planes_j, per-slot replicas whose first rows are the global rows
-    row_base and col_base) round by round, each round's tiles split over
-    the mesh's slots (:class:`MeshSweepOps`), kernel X on each slot's
-    survivors, then the host finalize with global rows and columns, slot
-    by slot."""
-    T = len(coords)
+    """Kernel APPEND over ``coords`` (row tiles of planes_i x column tiles
+    of planes_j, per-slot replicas whose first rows are the global rows
+    row_base and col_base): the tiles are split once into per-slot tile
+    lists on the cards (:meth:`MeshSweepOps.tile_lists`), and round by
+    round every slot sweeps the next range of its own list, then kernel X
+    runs on each slot's survivors and the host finalizes them with global
+    rows and columns, slot by slot."""
+    lists = ops.tile_lists(coords)
+    per_slot = max((len(t) for t in lists if t is not None), default=0)
     per_pair = (2 + pm.num_planes(L)) * 4        # rc + partials bytes
-    # kernel S counts in 32 bits: one slot's block holds fewer than 2^31
-    # pairs; a round holds one block per slot
-    chunk = max(1, min(-(-T // ops.n_devices),
-                       (2**31 - 1) // (tile * tile)))
+    # kernel APPEND counts in 32 bits: one slot's range holds fewer than
+    # 2^31 pairs
+    chunk = max(1, min(per_slot, (2**31 - 1) // (tile * tile)))
     cap = SWEEP_CAP_START
     diag = col_base - row_base
     s = 0
-    while s < T:
-        e = min(s + chunk * ops.max_tiles_scale(), T)
+    while s < per_slot:
+        e = min(s + chunk, per_slot)
         t0 = time.perf_counter()
-        res = ops.sweep_extract_fused(planes_i, thr_i, coords[s:e], tile,
-                                      cap, d, CANDIDATE_BUDGET_BYTES // per_pair,
-                                      planes_j, thr_j, diag)
+        res = ops.sweep_extract_fused(planes_i, thr_i, lists, tile, cap, d,
+                                      CANDIDATE_BUDGET_BYTES // per_pair,
+                                      planes_j, thr_j, diag, first=s,
+                                      count=e - s)
         if res is None:
             # a slot's exact buffer would break the budget: fewer tiles a
             # slot, same start
-            chunk = max(1, -(-(e - s) // ops.n_devices) // 2)
+            chunk = max(1, (e - s) // 2)
             _acc("sweep_ms", t0)
             continue
-        swept, counts = res
-        # the next round's capacity: the largest slot block of this one
-        cap = max(cap, ops.block_total_max(counts))
+        swept, _ = res
+        # the next round's capacity: this round's largest slot total
+        cap = max([cap] + [run[1] for run in swept if run is not None])
         _acc("sweep_ms", t0)
         walls = LAST_STAGES["dispatch_walls_ms"]
         if len(walls) < _MAX_DISPATCH_WALLS:
@@ -723,8 +728,8 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
     """The two-phase engine beyond the device budget (JAX ``:1214-1273``):
     windows of column tiles on the outer loop, each staged once per shard
     (a third of the budget, JAX's rule), and one row tile of the shard at a
-    time on the inner loop (staged under sweep_ms, as in JAX). Kernel S
-    and kernel COUNT take the row tile and the window as their two
+    time on the inner loop (staged under sweep_ms, as in JAX). Kernels
+    APPEND and COUNT take the row tile and the window as their two
     operands (the window's tile list goes to the card once), not
     concatenated: the survivors come back operand-local and the row tile's
     and the window's first global rows place them, self-pairs included
@@ -779,18 +784,20 @@ def _extract_tiles(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
     """The two-phase engine's hot-tile extraction (JAX ``:936-1078``): the
     tiles ``coords`` with counts > 0, in consecutive chunks whose summed
     counts fit CANDIDATE_BUDGET_BYTES (checked before any launch; one tile
-    at least), each chunk one round of kernel S APPEND with the self-pairs
-    kept on every slot, at the capacity its counts give. The survivors'
-    operand-local (row, column) pairs come to the host and, placed by
-    row_base and col_base (the global rows of planes_i's and planes_j's
-    first rows), go to finalize(rows, cols).
+    at least), each chunk one round of kernel APPEND with the self-pairs
+    kept on every slot (the chunk's per-slot tile lists go to the cards
+    once), at the capacity its counts give. The survivors' operand-local
+    (row, column) pairs come to the host and, placed by row_base and
+    col_base (the global rows of planes_i's and planes_j's first rows), go
+    to finalize(rows, cols).
 
     The counts are advisory, as in JAX (``:995-1000``): a slot whose
     APPEND total exceeds its capacity is rerun at the exact total
     (LAST_STAGES reruns), a chunk whose APPEND counts differ from its COUNT
     is logged, and a slot of several tiles that would break the budget
-    halves the chunk. On the card both epilogues are one kernel with one
-    float32 op order, so neither happens."""
+    halves the chunk. On the card COUNT and APPEND are the two epilogues of
+    one kernel (csrc/count.cu) with one retention test, so neither
+    happens."""
     per_pair = (2 + pm.num_planes(L)) * 4         # rc + partials bytes
     limit = CANDIDATE_BUDGET_BYTES // per_pair
     hot = np.flatnonzero(counts > 0)
@@ -802,7 +809,8 @@ def _extract_tiles(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
         ks = hot[s:e]
         want = counts[ks]
         cap = ops.block_total_max(want)
-        res = ops.sweep_extract_fused(planes_i, thr_i, coords[ks], tile, cap,
+        res = ops.sweep_extract_fused(planes_i, thr_i,
+                                      ops.tile_lists(coords[ks]), tile, cap,
                                       d, limit, planes_j, thr_j,
                                       mask_self=False)
         if res is None:

@@ -1,8 +1,9 @@
 """Pairwise similarity on the device: int8 Karatsuba planes, the thresholded
-sweep with survivor compaction (kernel S; the survivor counts alone are
-kernel COUNT, ops/pallas_pairwise.py), the int8 ANN engine's scores of
-query planes against database planes (kernel S, SCORE epilogue), and exact
-limb-pair partials of candidate pairs (kernel X).
+sweep with survivor compaction over a tile list (kernel APPEND, the second
+epilogue of kernel COUNT's pipeline, csrc/count.cu; the survivor counts
+alone are kernel COUNT, ops/pallas_pairwise.py), the int8 ANN engine's
+scores of query planes against database planes (kernel S, SCORE epilogue),
+and exact limb-pair partials of candidate pairs (kernel X).
 
 The database lives on the device as a (P, Npad, d_pad) int8 plane tensor
 (P = L(L+1)/2: the L balanced base-128 limbs, then the pairwise limb sums;
@@ -31,7 +32,7 @@ from .pairwise_math import (SLACK_ABS, SLACK_REL, combine_plane_partials,
                             limbs_from_planes, num_planes, plane_weights)
 
 D_ALIGN = 64          # d_pad granularity (kernel S's K step)
-SWEEP_BLOCK = 128     # kernel S's row block: CUDA tiles are multiples of it
+SWEEP_BLOCK = 128     # the kernels' row block: CUDA tiles are multiples of it
 
 
 def pad_dim(d: int) -> int:
@@ -40,7 +41,7 @@ def pad_dim(d: int) -> int:
 
 def pad_rows(n: int, device) -> int:
     """Rows of a plane tensor that holds n rows on ``device``: a multiple of
-    kernel S's block on CUDA (zero rows), n itself on the CPU."""
+    the kernels' block on CUDA (zero rows), n itself on the CPU."""
     if torch.device(device).type != "cuda":
         return n
     return max(1, (n + SWEEP_BLOCK - 1) // SWEEP_BLOCK) * SWEEP_BLOCK
@@ -121,8 +122,45 @@ def retention_mask(approx: torch.Tensor, thr_i: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Kernel S launcher (APPEND epilogue)
+# Tile lists and the operands of kernels COUNT and APPEND
 # ---------------------------------------------------------------------------
+
+class TileList:
+    """A (K, 2) int32 list of (row tile, column tile) coordinates, checked
+    once and, for a CUDA ``device``, copied to the card once, so each sweep
+    over it (:func:`sweep_extract`, ``pallas_pairwise.count_tiles``) does no
+    host work per tile. ``tiles[a:b]`` is the range [a, b) of the list, a
+    view of both copies."""
+
+    def __init__(self, coords, device):
+        host = np.ascontiguousarray(coords, dtype=np.int32).reshape(-1, 2)
+        if len(host) and host.min() < 0:
+            raise ValueError("negative tile coordinates")
+        self._set(host, torch.from_numpy(host).to(device)
+                  if torch.device(device).type == "cuda" else None)
+
+    def _set(self, host: np.ndarray, dev) -> None:
+        self.host, self.dev = host, dev
+        # one past the largest row and column tile
+        self.ends = tuple(int(x) + 1 for x in host.max(axis=0)) \
+            if len(host) else (0, 0)
+
+    def __len__(self) -> int:
+        return len(self.host)
+
+    def __getitem__(self, s: slice) -> "TileList":
+        if not isinstance(s, slice) or s.step not in (None, 1):
+            raise TypeError("a TileList takes a range [a:b] of its tiles")
+        part = TileList.__new__(TileList)
+        part._set(self.host[s], None if self.dev is None else self.dev[s])
+        return part
+
+
+def tile_list(coords, device) -> TileList:
+    """``coords`` itself when it is a :class:`TileList`, else a new one on
+    ``device``."""
+    return coords if isinstance(coords, TileList) else TileList(coords, device)
+
 
 def _check_planes(planes: torch.Tensor, name: str,
                   align: int = D_ALIGN) -> None:
@@ -141,62 +179,86 @@ def _check_thr(thr: torch.Tensor, n: int, name: str) -> None:
         raise ValueError(f"{name} must be a contiguous ({n},) float32 tensor")
 
 
-def launch_sweep(planes_i, thr_i, planes_j, thr_j, coords: np.ndarray,
-                 tile_r: int, tile_c: int, d: int, mask_self: bool,
-                 cap: int = 0, diag_offset: int = 0,
-                 slack_rel: float = SLACK_REL, slack_abs: float = SLACK_ABS):
-    """Launch kernel S over the tiles ``coords`` ((K, 2) row/column tile
-    indices in units of tile_r / tile_c) -> (counts (K,) int32,
-    rc (cap, 2) int32, total (1,) int32), on the device.
-    mask_self drops row == column + diag_offset (operand-local indices);
-    slack_rel / slack_abs widen the retention test (:func:`retention_mask`)."""
-    dev = planes_i.device
+def check_tiles(planes_i, planes_j, tiles: TileList, tile_r: int,
+                tile_c: int) -> None:
+    """Raise ValueError unless the tiles of ``tiles`` lie inside the planes
+    (rows of planes_i, columns of planes_j) and, for a CUDA launch, the
+    list lies on the planes' device."""
+    if len(tiles) and (tiles.ends[0] * tile_r > planes_i.shape[1]
+                       or tiles.ends[1] * tile_c > planes_j.shape[1]):
+        raise ValueError("tile coordinates outside the planes")
+    if planes_i.device.type == "cuda" and (
+            tiles.dev is None or tiles.dev.device != planes_i.device):
+        raise ValueError("the tile list lies on another device than the "
+                         "planes")
+
+
+def check_operands(planes_i, thr_i, planes_j, thr_j, tile_r: int,
+                   tile_c: int, d: int, what: str) -> None:
+    """Raise ValueError unless kernel COUNT or APPEND (``what``) takes these
+    operands: contiguous int8 planes of one P, d_pad and device, float32
+    thresholds of their rows, 0 < d <= d_pad, tiles that are multiples of
+    128."""
     _check_planes(planes_i, "planes_i")
     _check_planes(planes_j, "planes_j")
     P, ni, d_pad = planes_i.shape
-    nj = planes_j.shape[1]
     if planes_j.shape[0] != P or planes_j.shape[2] != d_pad \
-            or planes_j.device != dev:
+            or planes_j.device != planes_i.device:
         raise ValueError("planes_i and planes_j differ in planes, d_pad or "
                          "device")
     if not 0 < d <= d_pad:
         raise ValueError(f"d={d} does not fit d_pad={d_pad}")
     _check_thr(thr_i, ni, "thr_i")
-    _check_thr(thr_j, nj, "thr_j")
+    _check_thr(thr_j, planes_j.shape[1], "thr_j")
     if tile_r % SWEEP_BLOCK or tile_c % SWEEP_BLOCK or tile_r <= 0 \
             or tile_c <= 0:
-        raise ValueError(f"kernel S takes tiles that are multiples of "
+        raise ValueError(f"kernel {what} takes tiles that are multiples of "
                          f"{SWEEP_BLOCK} (got {tile_r} x {tile_c})")
-    coords = np.ascontiguousarray(coords, dtype=np.int32).reshape(-1, 2)
-    K = len(coords)
-    if K and (coords.min() < 0 or (int(coords[:, 0].max()) + 1) * tile_r > ni
-              or (int(coords[:, 1].max()) + 1) * tile_c > nj):
-        raise ValueError("tile coordinates outside the planes")
+
+
+# ---------------------------------------------------------------------------
+# Sweep with survivor compaction (kernel APPEND)
+# ---------------------------------------------------------------------------
+
+def launch_sweep(planes_i, thr_i, planes_j, thr_j, tiles, tile_r: int,
+                 tile_c: int, d: int, mask_self: bool, cap: int = 0,
+                 diag_offset: int = 0, slack_rel: float = SLACK_REL,
+                 slack_abs: float = SLACK_ABS):
+    """Launch kernel APPEND over ``tiles`` (a :class:`TileList` on the
+    planes' device, or a range of one; (K, 2) row/column tile indices in
+    units of tile_r / tile_c are copied into a new one) -> (counts (K,)
+    int32, rc (cap, 2) int32, total (1,) int32), on the device.
+    mask_self drops row == column + diag_offset (operand-local indices);
+    slack_rel / slack_abs widen the retention test (:func:`retention_mask`)."""
+    dev = planes_i.device
+    check_operands(planes_i, thr_i, planes_j, thr_j, tile_r, tile_c, d,
+                   "APPEND")
+    if cap < 0:
+        raise ValueError(f"cap={cap}: the survivor buffer cannot be negative")
+    tiles = tile_list(tiles, dev)
+    check_tiles(planes_i, planes_j, tiles, tile_r, tile_c)
+    P, ni, d_pad = planes_i.shape
+    K = len(tiles)
     counts = torch.zeros(K, dtype=torch.int32, device=dev)
-    rc = torch.empty((max(cap, 0), 2), dtype=torch.int32, device=dev)
+    rc = torch.empty((cap, 2), dtype=torch.int32, device=dev)
     total = torch.zeros(1, dtype=torch.int32, device=dev)
     if K == 0:
         return counts, rc, total
-    coords_dev = torch.from_numpy(coords).to(dev)
     w = plane_weights(limbs_from_planes(P))
     lib = _build.library()
     with _build.launch_stream(dev) as stream:
-        err = lib.mvs_sweep(
+        err = lib.mvs_append(
             planes_i.data_ptr(), planes_j.data_ptr(), thr_i.data_ptr(),
-            thr_j.data_ptr(), P, d, d_pad, ni * d_pad, nj * d_pad,
-            coords_dev.data_ptr(), K, tile_r, tile_c,
+            thr_j.data_ptr(), P, d, d_pad, ni, planes_j.shape[1],
+            tiles.dev.data_ptr(), K, tile_r, tile_c,
             w.ctypes.data_as(ctypes.c_void_p), float(slack_rel),
             float(slack_abs), int(mask_self), int(diag_offset),
             counts.data_ptr(), rc.data_ptr(), total.data_ptr(), int(cap),
             stream)
-    _build.check(err, "sweep kernel")
+    _build.check(err, "append kernel")
     _build.count_launch("sweep")
     return counts, rc, total
 
-
-# ---------------------------------------------------------------------------
-# Sweep with survivor compaction (APPEND epilogue)
-# ---------------------------------------------------------------------------
 
 def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
                         cap: int, mask_self: bool, d: int,
@@ -205,6 +267,8 @@ def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
     """Plain PyTorch version of :func:`sweep_extract` (survivors in tile
     order, row-major within a tile)."""
     dev = planes_i.device
+    if isinstance(coords, TileList):
+        coords = coords.host
     coords = np.asarray(coords, dtype=np.int64).reshape(-1, 2)
     counts = torch.zeros(len(coords), dtype=torch.int32, device=dev)
     found = []
@@ -232,10 +296,13 @@ def sweep_extract_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
 def sweep_extract(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
                   cap: int, mask_self: bool, d: int, diag_offset: int = 0,
                   slack_rel: float = SLACK_REL, slack_abs: float = SLACK_ABS):
-    """Survivors of the tiles ``coords`` ((K, 2) row/column tile indices of
-    edge ``tile`` into planes_i / planes_j) -> (rc (cap, 2) int32 survivor
-    (row, column) pairs, operand-local, counts (K,) int32 per-tile survivor
-    counts, total (1,) int32 survivors in all).
+    """Survivors of the tiles ``coords`` (a :class:`TileList`, or a range
+    ``tiles[a:b]`` of one, of row/column tile indices of edge ``tile`` into
+    planes_i / planes_j; a (K, 2) array is copied into a new list) -> (rc
+    (cap, 2) int32 survivor (row, column) pairs, operand-local, counts (K,)
+    int32 per-tile survivor counts, total (1,) int32 survivors in all): ONE
+    launch of kernel APPEND on CUDA, the plain version on the CPU (over the
+    list's host copy).
 
     Only the first min(total, cap) rows of rc are written; total and counts
     are exact past cap, so the caller can rerun at the exact capacity.

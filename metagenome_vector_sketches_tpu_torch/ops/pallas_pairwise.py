@@ -11,8 +11,9 @@ edges must be multiples of 128; a CPU tensor takes the plain version.
 - :func:`sweep_counts`: row tiles [row_t0, row_t1) of edge ``block`` x ALL
   column tiles of edge ``block_j`` (``pallas_sweep_counts``'s contract).
 - :func:`count_tiles`: the two-phase engine's counts sweep (matrix/compute.py)
-  over a list of extraction tiles (:class:`TileList`: checked and copied to
-  the card once per list). The kernel splits the tiles into its own work
+  over a list of extraction tiles (:class:`~.pairwise.TileList`: checked
+  and copied to the card once per list). The kernel splits the tiles into
+  its own work
   items and sums each tile's survivors on the card: integer sums do not
   depend on the split, so the JAX engine's VMEM sub-blocks
   (:func:`engine_blocks`) only describe how its TPU kernel swept.
@@ -26,8 +27,9 @@ import numpy as np
 import torch
 
 from .. import _build
-from .pairwise import (SWEEP_BLOCK, _check_planes, _check_thr,
-                       approx_dot_f32, retention_mask)
+from .pairwise import (SWEEP_BLOCK, approx_dot_f32, check_operands,
+                       check_tiles, retention_mask, tile_list)
+from .pairwise import TileList  # noqa: F401  (this module's name for it)
 from .pairwise_math import (SLACK_ABS, SLACK_REL, limbs_from_planes,
                             plane_weights)
 
@@ -53,22 +55,10 @@ def _launch_count(planes_i, thr_i, planes_j, thr_j, coords_dev, n_tiles: int,
     None for the dense grid of row tiles [row_t0, ...) x n_col_tiles column
     tiles. The caller has checked that the tiles lie inside the planes."""
     dev = planes_i.device
-    _check_planes(planes_i, "planes_i")
-    _check_planes(planes_j, "planes_j")
+    check_operands(planes_i, thr_i, planes_j, thr_j, tile_r, tile_c, d,
+                   "COUNT")
     P, ni, d_pad = planes_i.shape
     nj = planes_j.shape[1]
-    if planes_j.shape[0] != P or planes_j.shape[2] != d_pad \
-            or planes_j.device != dev:
-        raise ValueError("planes_i and planes_j differ in planes, d_pad or "
-                         "device")
-    if not 0 < d <= d_pad:
-        raise ValueError(f"d={d} does not fit d_pad={d_pad}")
-    _check_thr(thr_i, ni, "thr_i")
-    _check_thr(thr_j, nj, "thr_j")
-    if tile_r % SWEEP_BLOCK or tile_c % SWEEP_BLOCK or tile_r <= 0 \
-            or tile_c <= 0:
-        raise ValueError(f"kernel COUNT takes tiles that are multiples of "
-                         f"{SWEEP_BLOCK} (got {tile_r} x {tile_c})")
     counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     if n_tiles == 0:
         return counts
@@ -142,25 +132,6 @@ def engine_blocks(P: int, tile: int, device) -> tuple[int, int]:
     return bi, bj
 
 
-class TileList:
-    """A (K, 2) int32 list of (row tile, column tile) coordinates, checked
-    once and, for a CUDA ``device``, copied to the card once, so each
-    :func:`count_tiles` call over it does no host work per tile."""
-
-    def __init__(self, coords, device):
-        self.host = np.ascontiguousarray(coords, dtype=np.int32).reshape(-1, 2)
-        if len(self.host) and self.host.min() < 0:
-            raise ValueError("negative tile coordinates")
-        # one past the largest row and column tile
-        self.ends = tuple(int(x) + 1 for x in self.host.max(axis=0)) \
-            if len(self.host) else (0, 0)
-        self.dev = torch.from_numpy(self.host).to(device) \
-            if torch.device(device).type == "cuda" else None
-
-    def __len__(self) -> int:
-        return len(self.host)
-
-
 def count_tiles_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
                       d: int, blocks: tuple[int, int] | None = None
                       ) -> torch.Tensor:
@@ -186,22 +157,16 @@ def count_tiles_plain(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
 def count_tiles(planes_i, thr_i, planes_j, thr_j, coords, tile: int,
                 d: int) -> torch.Tensor:
     """(K,) int32 survivor counts (self-pairs kept) of the (tile x tile)
-    tiles ``coords`` (a :class:`TileList`, or (K, 2) row tiles of planes_i
-    and column tiles of planes_j), on the planes' device: ONE launch of
-    kernel COUNT, which sums every tile's survivors on the card (CPU
-    tensors: the plain version at :func:`engine_blocks`)."""
-    if not isinstance(coords, TileList):
-        coords = TileList(coords, planes_i.device)
-    if len(coords) and (coords.ends[0] * tile > planes_i.shape[1]
-                        or coords.ends[1] * tile > planes_j.shape[1]):
-        raise ValueError("tile coordinates outside the planes")
+    tiles ``coords`` (a :class:`~.pairwise.TileList`, or (K, 2) row tiles
+    of planes_i and column tiles of planes_j), on the planes' device: ONE
+    launch of kernel COUNT, which sums every tile's survivors on the card
+    (CPU tensors: the plain version at :func:`engine_blocks`)."""
+    coords = tile_list(coords, planes_i.device)
+    check_tiles(planes_i, planes_j, coords, tile, tile)
     if planes_i.device.type == "cpu":
         return count_tiles_plain(planes_i, thr_i, planes_j, thr_j,
                                  coords.host, tile, d,
                                  engine_blocks(planes_i.shape[0], tile,
                                                planes_i.device))
-    if coords.dev is None or coords.dev.device != planes_i.device:
-        raise ValueError("the tile list lies on another device than the "
-                         "planes")
     return _launch_count(planes_i, thr_i, planes_j, thr_j, coords.dev,
                          len(coords), tile, tile, d)

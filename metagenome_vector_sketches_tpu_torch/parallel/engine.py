@@ -3,22 +3,22 @@
 
 One shard's tile grid is data-parallel over a :class:`~.mesh.Mesh`: the
 Karatsuba planes and thresholds are replicated to every slot, the tile
-coordinates of a round are split into one contiguous block per slot, and
-every slot runs the single-device kernels on its own block: kernel S
-(APPEND epilogue) and then kernel X on its survivors. Every slot is
-launched before any is synchronised; each slot reruns its own block at its
-exact capacity when its survivors overflow the buffer (kernel S counts past
-its cap); the slots' (rc, partials) come to the host in slot order, in the
-single-device layout, so matrix.compute's exact host finalize and the
-shard writer do not depend on the slot count. A 1-slot mesh is the
-single-device engine.
+coordinates are split once into one contiguous block per slot, each a tile
+list on its slot's card (:meth:`MeshSweepOps.tile_lists`), and every slot
+runs the single-device kernels on a range of its own list: kernel APPEND
+and then kernel X on its survivors. Every slot is launched before any is
+synchronised; each slot reruns its own range at its exact capacity when its
+survivors overflow the buffer (kernel APPEND counts past its cap); the
+slots' (rc, partials) come to the host in slot order, in the single-device
+layout, so matrix.compute's exact host finalize and the shard writer do
+not depend on the slot count. A 1-slot mesh is the single-device engine.
 
 The two-phase engine's counts sweep is :meth:`MeshSweepOps.sweep_counts`
 (kernel COUNT on every slot's block of tiles, JAX ``_counts_fn``, over the
 per-slot tile lists of :meth:`MeshSweepOps.tile_lists`); its
 hot-tile extraction is :meth:`MeshSweepOps.sweep_extract_fused` with
-``mask_self=False``: kernel S's APPEND epilogue compacts the survivors in
-the sweep itself, so JAX ``_mask_fn``, ``_compact_fn`` and
+``mask_self=False``: kernel APPEND compacts the survivors in the sweep
+itself, so JAX ``_mask_fn``, ``_compact_fn`` and
 ``_compact_words_fn`` (bitmaps, index and word compaction) have no
 counterpart, nor have the fused engine's ``compact_cands_combined`` /
 ``split_combined``: each slot's rows reach the host already split.
@@ -53,7 +53,7 @@ class MeshSweepOps:
     def _pad(self, coords: np.ndarray) -> tuple[list, int]:
         """-> (per-slot contiguous blocks of coords, len(coords)): the
         blocks of JAX ``_pad`` (ceil(t / n) tiles each, the last ones
-        shorter); its pad tiles are not launched, kernel S takes any
+        shorter); its pad tiles are not launched, the kernels take any
         count."""
         coords = np.asarray(coords, dtype=np.int32).reshape(-1, 2)
         t = coords.shape[0]
@@ -64,11 +64,11 @@ class MeshSweepOps:
     # -- the engine's device calls ------------------------------------------
     def tile_lists(self, coords) -> list:
         """``coords`` split into :meth:`_pad`'s per-slot blocks, each a
-        :class:`~..ops.pallas_pairwise.TileList` on its slot's device (None
-        for an empty block): the counts sweep's coordinates, checked and
-        copied to the card once per list, however many sweeps read them."""
+        :class:`~..ops.pairwise.TileList` on its slot's device (None for an
+        empty block): the sweeps' coordinates, checked and copied to the
+        card once per list, however many sweeps read them."""
         blocks, _ = self._pad(coords)
-        return [pp.TileList(b, self.mesh.devices[s]) if len(b) else None
+        return [pw.TileList(b, self.mesh.devices[s]) if len(b) else None
                 for s, b in enumerate(blocks)]
 
     def sweep_counts(self, planes, thr, lists, tile: int, d: int,
@@ -96,32 +96,36 @@ class MeshSweepOps:
                 out.append(counts.cpu().numpy().astype(np.int64))
         return np.concatenate(out) if out else np.zeros(0, dtype=np.int64)
 
-    def sweep_extract_fused(self, planes, thr, bcoords, tile: int, cap: int,
+    def sweep_extract_fused(self, planes, thr, lists, tile: int, cap: int,
                             d: int, max_pairs: int, planes_j=None, thr_j=None,
-                            diag_offset: int = 0, mask_self: bool = True):
-        """Kernel S (APPEND; self-pairs masked unless ``mask_self`` is
-        False, as the two-phase engine's extraction keeps them) on every
-        slot's block of ``bcoords``, then each slot whose survivors overflow
-        ``cap`` rerun at its exact count. planes/thr (planes_j/thr_j: the
-        column operand, default the same) are per-slot replicas
-        (:meth:`replicate`).
+                            diag_offset: int = 0, mask_self: bool = True,
+                            first: int = 0, count: int | None = None):
+        """Kernel APPEND (self-pairs masked unless ``mask_self`` is False,
+        as the two-phase engine's extraction keeps them) on every slot's
+        tiles [first, first + count) of its tile list (``lists``:
+        :meth:`tile_lists`; the whole lists by default), then each slot
+        whose survivors overflow ``cap`` rerun at its exact count.
+        planes/thr (planes_j/thr_j: the column operand, default the same)
+        are per-slot replicas (:meth:`replicate`).
 
         -> None when a slot of more than one tile found more than
         ``max_pairs`` survivors (the caller halves its round), else (a list
         of per-slot (rc (cap_s, 2) int32, n_s) on the slots' devices, None
-        for an empty block; the (K,) int32 per-tile survivor counts of
-        bcoords on the host), after each slot's stream finished its
-        sweep."""
+        for a slot without tiles in the range; the per-tile survivor counts
+        of the swept tiles on the host, int32, slot after slot: the lists'
+        order), after each slot's stream finished its sweep."""
         planes_j = planes if planes_j is None else planes_j
         thr_j = thr if thr_j is None else thr_j
-        blocks, _ = self._pad(bcoords)
+        stop = None if count is None else first + count
+        parts = {s: tiles[first:stop] for s, tiles in enumerate(lists)
+                 if tiles is not None}
+        live = [s for s, tiles in parts.items() if len(tiles)]
         m = self.mesh
-        live = [s for s in range(m.size) if len(blocks[s])]
 
         def launch(s, c):
             with m.slot(s):
                 return pw.sweep_extract(planes[s], thr[s], planes_j[s],
-                                        thr_j[s], blocks[s], tile, c,
+                                        thr_j[s], parts[s], tile, c,
                                         mask_self, d, diag_offset)
 
         runs = {s: launch(s, cap) for s in live}
@@ -131,7 +135,7 @@ class MeshSweepOps:
                 totals[s] = int(runs[s][2].item())
                 counts.append(runs[s][1].cpu().numpy())
         if any(totals[s] > cap and totals[s] > max_pairs
-               and len(blocks[s]) > 1 for s in live):
+               and len(parts[s]) > 1 for s in live):
             return None
         over = [s for s in live if totals[s] > cap]
         reruns = {s: launch(s, totals[s]) for s in over}
@@ -202,8 +206,3 @@ class MeshSweepOps:
         padded = np.zeros(k_pad, dtype=np.int64)
         padded[:len(c)] = c
         return int(padded.reshape(n, -1).sum(axis=1).max())
-
-    def max_tiles_scale(self) -> int:
-        """A round may hold n_devices times a single launch's tiles: kernel
-        S's 32-bit counts and the survivor buffer are both per slot."""
-        return self.n_devices

@@ -3,8 +3,8 @@
 
 Each slot of the mesh owns a row block. The column side is gathered: across
 the process's slots onto each slot's device, across processes with the
-mesh's ``torch.distributed`` all-gather. The sweep statistic runs kernel S
-(APPEND epilogue, self-pairs kept) on each slot's rows against every row
+mesh's ``torch.distributed`` all-gather. The sweep statistic runs kernel
+APPEND (self-pairs kept) on each slot's rows against every row
 and counts each row's survivors with ``torch.bincount``: the per-row count
 the JAX program takes with a masked sum. The top-k's local stage is a
 plain float32 ``torch.matmul`` with TF32 off (outside any Pallas kernel in
@@ -19,7 +19,6 @@ mesh's first slot.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ann.flat_index import fp32_matmul
@@ -30,7 +29,8 @@ from ..ops import pairwise_math as pm
 from .mesh import Mesh, row_sharding
 
 # first capacity (pairs) of a count sweep's survivor buffer; a launch that
-# finds more is rerun at its exact count (kernel S counts past its cap)
+# finds more is rerun at its exact count (kernel APPEND counts past its
+# cap)
 COUNT_CAP_START = 1 << 20
 # index of a candidate that is no row (a masked pad): ranks after every
 # row among equal scores and decodes to -1
@@ -49,7 +49,7 @@ def _blocks(mesh: Mesh, x, dim: int) -> list:
 
 
 def _count_tile(n: int, dev: torch.device) -> int:
-    """Tile edge of a count sweep over n rows: a multiple of kernel S's
+    """Tile edge of a count sweep over n rows: a multiple of the kernels'
     block on CUDA, at most 1,024."""
     return min(1024, pw.pad_rows(max(1, n), dev))
 
@@ -72,7 +72,7 @@ class _CountSweep:
     """Per-row survivor counts of the rows of one limb block against the
     columns of another under the retention test with slack_rel/slack_abs
     (self-pairs kept), in two steps so that a mesh launches every slot
-    before it waits for any: :meth:`launch` enqueues kernel S (APPEND),
+    before it waits for any: :meth:`launch` enqueues kernel APPEND,
     :meth:`finish` reads the survivor total, reruns at the exact capacity
     when the buffer overflowed, and counts the survivors' rows."""
 
@@ -86,16 +86,16 @@ class _CountSweep:
         nt_c = -(-n_c // self.tile)
         self.a = _sweep_operand(limbs_r, thr_r, nt_r * self.tile)
         self.b = _sweep_operand(limbs_c.to(dev), thr_c, nt_c * self.tile)
-        self.coords = np.array([(r, c) for r in range(nt_r)
-                                for c in range(nt_c)], dtype=np.int32)
-        if len(self.coords) * self.tile ** 2 >= 2 ** 31:
+        if nt_r * nt_c * self.tile ** 2 >= 2 ** 31:
             raise ValueError(f"{self.n} x {n_c} pairs exceed one count "
-                             "sweep (kernel S counts in 32 bits)")
+                             "sweep (kernel APPEND counts in 32 bits)")
+        self.tiles = pw.TileList([(r, c) for r in range(nt_r)
+                                  for c in range(nt_c)], dev)
         self.d, self.slack = d, (slack_rel, slack_abs)
         self.run = None
 
     def launch(self, cap: int = COUNT_CAP_START):
-        self.run = pw.sweep_extract(*self.a, *self.b, self.coords, self.tile,
+        self.run = pw.sweep_extract(*self.a, *self.b, self.tiles, self.tile,
                                     cap, False, self.d, 0, *self.slack)
         return self
 

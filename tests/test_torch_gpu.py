@@ -773,6 +773,149 @@ def test_count_kernel_refuses_bad_input(cuda):
     assert _build.launch_counts()["count"] == 0
 
 
+def _same_append(got, want):
+    """APPEND's (rc, counts, total) equal the plain version's: the same
+    total and per-tile counts, the same survivor set (the kernel's order
+    is unspecified)."""
+    n = int(want[2].item())
+    assert int(got[2].item()) == n
+    assert torch.equal(got[1], want[1])
+    assert _survivors(got[0], n) == _survivors(want[0], n)
+    return n
+
+
+@pytest.mark.parametrize("edge", [128, 384, 2048])
+@pytest.mark.parametrize("P", [1, 3, 6, 10])
+def test_append_kernel_matches_plain(cuda, P, edge):
+    """Kernel APPEND equals its plain version exactly at tile edges 128 (a
+    work item with three dead quarters), 384 (odd: dead halves) and 2048,
+    P = 1, 3, 6 and 10, every tile in a shuffled order, self-pairs masked
+    and kept; pad rows (t = 1e30) never pass; with the mask off its
+    per-tile counts equal kernel COUNT's on the same TileList."""
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
+    n, d = 2 * max(edge, 768), 200
+    planes, thr = _count_state(cuda, P, n, d, seed=P)
+    nt = n // edge
+    coords = np.array([(r, c) for r in range(nt) for c in range(nt)])
+    coords = coords[np.random.default_rng(edge).permutation(len(coords))]
+    tiles = pw.TileList(coords, cuda)
+    cap = 1 << 22
+    for mask in (True, False):
+        _build.reset_launch_counts()
+        got = pw.sweep_extract(planes, thr, planes, thr, tiles, edge, cap,
+                               mask, d)
+        assert _build.launch_counts()["sweep"] == 1
+        want = pw.sweep_extract_plain(planes, thr, planes, thr, coords, edge,
+                                      cap, mask, d)
+        assert _same_append(got, want) > 0
+        rows = got[0][:int(got[2].item())]
+        assert bool((rows < n - 100).all())          # no pad row passes
+    assert torch.equal(got[1], pp.count_tiles(planes, thr, planes, thr,
+                                              tiles, edge, d))
+
+
+def test_append_kernel_cap_overflow(cuda):
+    """Past its capacity APPEND writes exactly `cap` survivors, all of
+    them survivors and none twice, and still returns the exact total and
+    per-tile counts (the engine's rerun at the exact total)."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    planes, thr = _count_state(cuda, 3, 1024, 200, seed=8)
+    coords = [(r, c) for r in range(4) for c in range(r, 4)]
+    want = pw.sweep_extract_plain(planes, thr, planes, thr, coords, 256,
+                                  1 << 20, True, 200)
+    n = int(want[2].item())
+    everyone = _survivors(want[0], n)
+    for cap in (0, 1, n // 3, n - 1, n):
+        rc, counts, total = pw.sweep_extract(planes, thr, planes, thr,
+                                             coords, 256, cap, True, 200)
+        assert int(total.item()) == n and torch.equal(counts, want[1])
+        assert rc.shape == (cap, 2)
+        got = _survivors(rc, cap)
+        assert len(got) == cap and got <= everyone
+
+
+def test_append_kernel_two_operands_many_items(cuda):
+    """The streaming engine's operands (a row tile, a window that starts
+    elsewhere) with the self mask at their diagonal offset, and 600 tiles
+    of a two-operand list (repeats included; swept as two ranges of one
+    TileList on the card): equal to the plain version."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    planes, thr = _count_state(cuda, 3, 2048, 128, seed=4)
+    pi, ti = planes[:, 256:512].contiguous(), thr[256:512].contiguous()
+    pj, tj = planes[:, 128:].contiguous(), thr[128:].contiguous()
+    win = pw.TileList([(0, j) for j in range(7)], cuda)
+    for _ in range(2):                     # one list, several sweeps
+        _same_append(pw.sweep_extract(pi, ti, pj, tj, win, 256, 1 << 20,
+                                      True, 128, -128),
+                     pw.sweep_extract_plain(pi, ti, pj, tj, win.host, 256,
+                                            1 << 20, True, 128, -128))
+    rng = np.random.default_rng(5)
+    coords = rng.integers(0, 7, size=(600, 2))
+    pb = planes[:, 128:].contiguous()
+    tb = thr[128:].contiguous()
+    tiles = pw.TileList(coords, cuda)
+    for a, b in ((0, 250), (250, 600)):
+        _same_append(pw.sweep_extract(planes, thr, pb, tb, tiles[a:b], 256,
+                                      1 << 22, True, 128, 128),
+                     pw.sweep_extract_plain(planes, thr, pb, tb, coords[a:b],
+                                            256, 1 << 22, True, 128, 128))
+
+
+def test_append_kernel_two_streams(cuda):
+    """Two APPEND launches on two streams at once (each its own list,
+    operands and buffers; one stream behind a sleep) both equal the plain
+    version."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    a = _count_state(cuda, 3, 2048, 256, seed=6)
+    b = _count_state(cuda, 6, 1024, 256, seed=7)
+    ca = pw.TileList([(r, c) for r in range(4) for c in range(r, 4)], cuda)
+    cb = pw.TileList([(r, c) for r in range(2) for c in range(2)], cuda)
+    want_a = pw.sweep_extract_plain(*a, *a, ca.host, 512, 1 << 20, True, 256)
+    want_b = pw.sweep_extract_plain(*b, *b, cb.host, 512, 1 << 20, False,
+                                    256)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        torch.cuda._sleep(50_000_000)
+        got_a = pw.sweep_extract(*a, *a, ca, 512, 1 << 20, True, 256)
+    with torch.cuda.stream(s2):
+        got_b = pw.sweep_extract(*b, *b, cb, 512, 1 << 20, False, 256)
+    torch.cuda.synchronize()
+    _same_append(got_a, want_a)
+    _same_append(got_b, want_b)
+
+
+def test_append_kernel_refuses_bad_input(cuda):
+    """Tiles that are not multiples of 128, tiles outside the planes, a
+    list on another device than the planes, a negative capacity, planes
+    of another P or d_pad and a d past d_pad raise; no launch counted."""
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    planes, thr = _count_state(cuda, 3, 512, 64)
+    other, other_thr = _count_state(cuda, 6, 512, 64)
+    wide, wide_thr = _count_state(cuda, 3, 512, 200)
+    _build.reset_launch_counts()
+    bad = [
+        dict(coords=[(0, 0)], tile=192),
+        dict(coords=[(2, 0)], tile=256),
+        dict(coords=pw.TileList([(0, 0)], "cpu"), tile=256),
+        dict(coords=[(0, 0)], tile=256, cap=-1),
+        dict(coords=[(0, 0)], tile=256, d=65),
+        dict(coords=[(0, 0)], tile=256, j=(other, other_thr)),
+        dict(coords=[(0, 0)], tile=256, j=(wide, wide_thr)),
+        dict(coords=[(0, 0)], tile=256, j=(planes, thr[:256])),
+    ]
+    for case in bad:
+        pj, tj = case.get("j", (planes, thr))
+        with pytest.raises(ValueError):
+            pw.sweep_extract(planes, thr, pj, tj, case["coords"],
+                             case["tile"], case.get("cap", 16), True,
+                             case.get("d", 64))
+    assert _build.launch_counts()["sweep"] == 0
+
+
 @pytest.mark.parametrize("case", ["host", "device", "streaming", "2 slots",
                                   "tile 384", "tile 256", "int16"])
 def test_two_phase_cuda_shard_equals_fused(cuda, tmp_path, case):

@@ -138,20 +138,55 @@ def test_sweep_counts_plain_is_the_cpu_path():
         sweep_counts(planes, thr_t, D, row_t0=2, row_t1=5, block=64)
 
 
+def _tiles_as(coords, call):
+    """The tiles ``coords`` as sweep_extract takes them: the (K, 2) array,
+    a TileList, or the range of a longer TileList that holds them between
+    other tiles."""
+    if call == "array":
+        return coords
+    if call == "tile_list":
+        return pw.TileList(coords, "cpu")
+    pad = np.array([(0, 0), (1, 2)], dtype=np.int32)
+    longer = pw.TileList(np.concatenate([pad, coords, pad]), "cpu")
+    return longer[len(pad):len(pad) + len(coords)]
+
+
+def _fused_ij_pairs(jplanes_i, thr_i, jplanes_j, thr_j, coords, bases, tile,
+                    L):
+    """JAX sweep_extract_fused_ij's survivors -> ({operand-local (row,
+    column): partials}, per-tile counts)."""
+    jcoords = np.concatenate([coords, np.ones((len(coords), 1), np.int32)],
+                             1)
+    cand, parts, jcounts = ref.sweep_extract_fused_ij(
+        jnp.asarray(jplanes_i), jnp.asarray(thr_i), jnp.asarray(jplanes_j),
+        jnp.asarray(thr_j), jnp.asarray(jcoords), jnp.asarray(bases), tile,
+        L, tile * tile)
+    cand, parts = np.asarray(cand), np.asarray(parts)
+    want = {}
+    for k, (r, c) in enumerate(coords):
+        ok = cand[k] >= 0
+        for idx, p in zip(cand[k][ok], parts[k][ok]):
+            want[(r * tile + idx // tile, c * tile + idx % tile)] = tuple(p)
+    return want, np.asarray(jcounts)
+
+
+@pytest.mark.parametrize("call", ["array", "tile_list", "range"])
 @pytest.mark.parametrize("max_abs", [300, 30000])
-def test_sweep_extract_matches_fused_ij(max_abs):
+def test_sweep_extract_matches_fused_ij(max_abs, call):
     """Survivor sets, per-tile counts and partials equal
-    sweep_extract_fused_ij's (self-pairs masked) on a triangle grid."""
+    sweep_extract_fused_ij's (self-pairs masked) on a triangle grid, at
+    P = 3 and 6 (an int16-range max_abs), the tiles given as an array, a
+    TileList and a range of a longer one."""
     V, L, jplanes, thr, planes, thr_t = _db(max_abs, seed=11)
     tile = 32
     nt = N // tile
     coords = np.array([(r, c) for r in range(nt) for c in range(r, nt)],
                       dtype=np.int32)
-    cap_tile = tile * tile
-    jcoords = np.concatenate([coords, np.ones((len(coords), 1), np.int32)], 1)
     cand, parts, jcounts = ref.sweep_extract_fused(
-        jnp.asarray(jplanes), jnp.asarray(thr), jnp.asarray(jcoords), tile,
-        L, cap_tile)
+        jnp.asarray(jplanes), jnp.asarray(thr),
+        jnp.asarray(np.concatenate([coords, np.ones((len(coords), 1),
+                                                    np.int32)], 1)),
+        tile, L, tile * tile)
     cand, parts, jcounts = (np.asarray(cand), np.asarray(parts),
                             np.asarray(jcounts))
     want = {}
@@ -161,13 +196,47 @@ def test_sweep_extract_matches_fused_ij(max_abs):
             want[(r * tile + idx // tile, c * tile + idx % tile)] = tuple(p)
 
     rc, counts, total = pw.sweep_extract(planes, thr_t, planes, thr_t,
-                                         coords, tile, 100000, True, D)
+                                         _tiles_as(coords, call), tile,
+                                         100000, True, D)
     n = int(total.item())
     np.testing.assert_array_equal(counts.numpy(), jcounts)
     assert n == len(want) == int(jcounts.sum()) and n > 500
     got_pairs = [tuple(x) for x in rc[:n].tolist()]
     assert set(got_pairs) == set(want)
     got_parts = pw.pair_partials(planes, rc[:n], L).numpy()
+    for pair, p in zip(got_pairs, got_parts):
+        assert tuple(p) == want[pair]
+
+
+@pytest.mark.parametrize("call", ["tile_list", "range"])
+@pytest.mark.parametrize("offset", [32, -32])
+@pytest.mark.parametrize("max_abs", [300, 30000])
+def test_sweep_extract_two_operands_match_fused_ij(max_abs, offset, call):
+    """Two windows of one db (rows 32.. and 32 + offset..) as the sweep's
+    two operands, the self mask at diag_offset = offset: survivor sets,
+    per-tile counts and two-operand partials equal sweep_extract_fused_ij's
+    with the windows' global bases, at P = 3 and 6."""
+    V, L, jplanes, thr, planes, thr_t = _db(max_abs, seed=13)
+    tile, w, a = 32, 64, 32
+    b = a + offset
+    coords = np.array([(r, c) for r in range(w // tile)
+                       for c in range(w // tile)], dtype=np.int32)
+    want, jcounts = _fused_ij_pairs(
+        jplanes[:, a:a + w], thr[a:a + w], jplanes[:, b:b + w],
+        thr[b:b + w], coords, coords * tile + np.array([a, b], np.int32),
+        tile, L)
+    pi, ti = planes[:, a:a + w].contiguous(), thr_t[a:a + w].contiguous()
+    pj, tj = planes[:, b:b + w].contiguous(), thr_t[b:b + w].contiguous()
+    rc, counts, total = pw.sweep_extract(pi, ti, pj, tj,
+                                         _tiles_as(coords, call), tile,
+                                         10000, True, D, offset)
+    n = int(total.item())
+    np.testing.assert_array_equal(counts.numpy(), jcounts)
+    assert n == len(want) == int(jcounts.sum()) and n > 0
+    got_pairs = [tuple(x) for x in rc[:n].tolist()]
+    assert set(got_pairs) == set(want)
+    assert not any(r + a == c + b for r, c in got_pairs)
+    got_parts = pw.pair_partials(pi, rc[:n], L, pj).numpy()
     for pair, p in zip(got_pairs, got_parts):
         assert tuple(p) == want[pair]
 

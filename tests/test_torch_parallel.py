@@ -131,7 +131,8 @@ def test_mesh_slots_split_and_replicate(tmesh8):
     counts = np.arange(11)
     assert ops.block_total_max(counts) == max(
         counts[s * 2:(s + 1) * 2].sum() for s in range(8))
-    assert ops.max_tiles_scale() == 8
+    lists = ops.tile_lists(np.arange(22).reshape(11, 2))
+    assert [0 if t is None else len(t) for t in lists] == [2] * 5 + [1, 0, 0]
 
 
 # ---------------------------------------------------------------------------
