@@ -1,0 +1,8 @@
+"""shard.extract_ms: the program's LAST_STAGES["extract_ms"] of each shard
+(matrix.compute, synchronised stage walls), the mean over the window's
+shards."""
+
+
+def read(ctx):
+    vals = [c["stages"]["extract_ms"] for c in ctx.calls if c["kind"] == "shard"]
+    return sum(vals) / len(vals) if vals else None

@@ -1,0 +1,8 @@
+"""shard.sweep_ms: the program's LAST_STAGES["sweep_ms"] of each shard
+(matrix.compute, synchronised stage walls), the mean over the window's
+shards."""
+
+
+def read(ctx):
+    vals = [c["stages"]["sweep_ms"] for c in ctx.calls if c["kind"] == "shard"]
+    return sum(vals) / len(vals) if vals else None
