@@ -1757,7 +1757,7 @@ def phase_stream(N, work):
 
     def printable(stages):
         return {k: (round(v, 1) if isinstance(v, float) else v)
-                for k, v in stages.items() if k != "dispatch_walls_ms"}
+                for k, v in stages.items()}
 
     # the resident wall on the warm card, for comparison
     t0 = time.perf_counter()
@@ -2276,8 +2276,7 @@ def phase_mesh(N, ann_n, work, card):
                               device="cuda", verbose=False)
     w_single_shard = time.perf_counter() - t0
     single_stages = {k: (round(v, 1) if isinstance(v, float) else v)
-                     for k, v in mc.LAST_STAGES.items()
-                     if k != "dispatch_walls_ms"}
+                     for k, v in mc.LAST_STAGES.items()}
     mc.clear_device_cache()
     torch.cuda.synchronize()
     say(f"[mesh] set-up {t_setup:.1f} s: phase 4's {ann_n} x {D} vectors, "
@@ -2292,8 +2291,7 @@ def phase_mesh(N, ann_n, work, card):
                               device="cuda", verbose=False, mesh=mesh)
     walls["shard"] = time.perf_counter() - t0
     mesh_stages = {k: (round(v, 1) if isinstance(v, float) else v)
-                   for k, v in mc.LAST_STAGES.items()
-                   if k != "dispatch_walls_ms"}
+                   for k, v in mc.LAST_STAGES.items()}
     t0 = time.perf_counter()
     mc.compute_pairwise_shard(db_path, os.path.join(work, "mesh_stream"),
                               device_budget_bytes=budget, device="cuda",

@@ -23,7 +23,6 @@ partials.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -34,16 +33,29 @@ from ..io.hashes import parse_query_hashes_file
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
 from ..parallel.mesh import serving_mesh
+from ..utils.profiling import entry_span, stage
 from .flat_index import FlatIPIndex, normalize_l2
 
 INITIAL_NB_SEARCHES = 50
 MAX_LEVELS = 20  # 50 * 3^19 hard cap (jaccard.py:129)
 
-# per-stage wall split of the LAST adaptive_search call (the JAX keys):
-# rounds, prep_ms (query staging/upload), dispatch_ms (scan enqueue),
-# stats_ms (the per-round signal copy, which waits for the scan),
-# collect_ms (final-level hit filter + copy + exact host recombine),
-# host_ms (the frontier bookkeeping)
+# per-stage wall split (ms) of the LAST adaptive_search call (the JAX keys),
+# each wall with the profiler span that times the same block
+# (utils.profiling.stage):
+# - total_ms (mvs.search.adaptive): the whole call;
+# - prep_ms (mvs.search.prep): the queries' staging and upload;
+# - dispatch_ms (mvs.search.enqueue, one span a round): the ENQUEUE of the
+#   round's scan, selection and signals; it returns before the device ends;
+# - stats_ms (mvs.search.wait, one span a round): the round's signal copy,
+#   which holds the wait for the scan to end;
+# - host_ms (mvs.search.frontier, one span a round): the frontier
+#   bookkeeping;
+# - collect_ms (mvs.search.collect): the final-level hit filter, copy and
+#   exact host recombine;
+# and rounds, the count of shared scans. search_index's other stages are
+# spans only, inside the call's span mvs.search#<n>: mvs.search.db_norms,
+# mvs.search.parse_queries, mvs.search.project, mvs.search.index,
+# mvs.search.rescore.
 LAST_ADAPTIVE_STAGES: dict = {}
 
 
@@ -102,31 +114,38 @@ def adaptive_search(index, queries_f64: np.ndarray, j: float,
     rounds with float32 scores."""
     LAST_ADAPTIVE_STAGES.clear()
     LAST_ADAPTIVE_STAGES.update(rounds=0, prep_ms=0.0, dispatch_ms=0.0,
-                                stats_ms=0.0, collect_ms=0.0, host_ms=0.0)
-    t_all = time.perf_counter()
-    t0 = t_all
-    dev = index.device
-    queries = queries_f64.astype(np.float32)
-    query_norms = np.linalg.norm(queries, axis=1)
-    queries = normalize_l2(queries)
-    min_ip = np.float32(2 * j / (1 + j))
-    min_ip_dev = torch.tensor(min_ip, device=dev)
-    int_dev = queries_int is not None and hasattr(index, "_pool") \
-        and index.ntotal > 0
-    if int_dev:
-        from .int_index import gather_rows, query_planes
-        Qi = np.ascontiguousarray(queries_int, dtype=np.int32)
-        index.validate_queries(Qi)
-        qp_all = query_planes(Qi, index.L, dev)          # ONE upload
-        qns_int = np.einsum("ij,ij->i", Qi.astype(np.int64),
-                            Qi.astype(np.int64))         # exact |q|^2
-        with np.errstate(divide="ignore"):
-            invq_all = torch.from_numpy(np.where(
-                qns_int > 0, 1.0 / np.sqrt(qns_int.astype(np.float64)),
-                0.0).astype(np.float32)).to(dev)
-    else:
-        q_dev = torch.from_numpy(queries).to(dev)
-    LAST_ADAPTIVE_STAGES["prep_ms"] = (time.perf_counter() - t0) * 1e3
+                                stats_ms=0.0, collect_ms=0.0, host_ms=0.0,
+                                total_ms=0.0)
+    with stage("mvs.search.adaptive", LAST_ADAPTIVE_STAGES, "total_ms"):
+        return _adaptive_search(index, queries_f64, j, verbose, db_norms,
+                                queries_int)
+
+
+def _adaptive_search(index, queries_f64, j, verbose, db_norms, queries_int):
+    """:func:`adaptive_search`'s rounds, its stages timed into
+    LAST_ADAPTIVE_STAGES."""
+    with stage("mvs.search.prep", LAST_ADAPTIVE_STAGES, "prep_ms"):
+        dev = index.device
+        queries = queries_f64.astype(np.float32)
+        query_norms = np.linalg.norm(queries, axis=1)
+        queries = normalize_l2(queries)
+        min_ip = np.float32(2 * j / (1 + j))
+        min_ip_dev = torch.tensor(min_ip, device=dev)
+        int_dev = queries_int is not None and hasattr(index, "_pool") \
+            and index.ntotal > 0
+        if int_dev:
+            from .int_index import gather_rows, query_planes
+            Qi = np.ascontiguousarray(queries_int, dtype=np.int32)
+            index.validate_queries(Qi)
+            qp_all = query_planes(Qi, index.L, dev)          # ONE upload
+            qns_int = np.einsum("ij,ij->i", Qi.astype(np.int64),
+                                Qi.astype(np.int64))         # exact |q|^2
+            with np.errstate(divide="ignore"):
+                invq_all = torch.from_numpy(np.where(
+                    qns_int > 0, 1.0 / np.sqrt(qns_int.astype(np.float64)),
+                    0.0).astype(np.float32)).to(dev)
+        else:
+            q_dev = torch.from_numpy(queries).to(dev)
     nn_all = None if db_norms is None else torch.from_numpy(
         np.asarray(db_norms, dtype=np.float32)).to(dev)
     thr = torch.tensor(np.float32(j) * np.float32(1.0 - 1e-3)
@@ -184,55 +203,50 @@ def adaptive_search(index, queries_f64: np.ndarray, j: float,
         B = len(qidx)
         parts_round = None
         LAST_ADAPTIVE_STAGES["rounds"] += 1
-        t0 = time.perf_counter()
-        sel = torch.from_numpy(qidx).to(dev)
-        if int_dev:
-            flag = pw.range_flag(dev)
-            s_dev, I_dev, parts_round = index._pool(
-                gather_rows(qp_all, sel), B, k, flag)
-            D_dev = s_dev * invq_all[sel][:, None]
-        else:
-            D_dev, I_dev = index.search_device(q_dev[sel], k)
-        sig = _level_stats(D_dev, min_ip_dev,
-                           torch.from_numpy(nb_eff).to(dev))
-        LAST_ADAPTIVE_STAGES["dispatch_ms"] += \
-            (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        sig_h = sig.cpu().numpy()        # the round's one mandatory copy
-        if int_dev:
-            pw.check_range_flag(flag)
-        any_above = sig_h[0] > 0
-        kth = sig_h[1]
-        LAST_ADAPTIVE_STAGES["stats_ms"] += (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        stopped_rows = []
-        frontier = []
-        for row, q in enumerate(qidx):
-            level = int(levels[row])
-            deeper = bool(any_above[row]) and kth[row] > min_ip \
-                and nbs[row] < index.ntotal  # full-db result cannot expand
-            if deeper:
-                # estimate how much deeper to go (jaccard.py:162-167)
-                if kth[row] - 0.05 > min_ip and level <= MAX_LEVELS - 3:
-                    level_of[q] = level + 2
-                    frontier.append(int(q))
-                elif level <= MAX_LEVELS - 2:
-                    level_of[q] = level + 1
-                    frontier.append(int(q))
+        with stage("mvs.search.enqueue", LAST_ADAPTIVE_STAGES,
+                   "dispatch_ms"):
+            sel = torch.from_numpy(qidx).to(dev)
+            if int_dev:
+                flag = pw.range_flag(dev)
+                s_dev, I_dev, parts_round = index._pool(
+                    gather_rows(qp_all, sel), B, k, flag)
+                D_dev = s_dev * invq_all[sel][:, None]
+            else:
+                D_dev, I_dev = index.search_device(q_dev[sel], k)
+            sig = _level_stats(D_dev, min_ip_dev,
+                               torch.from_numpy(nb_eff).to(dev))
+        with stage("mvs.search.wait", LAST_ADAPTIVE_STAGES, "stats_ms"):
+            sig_h = sig.cpu().numpy()    # the round's one mandatory copy
+            if int_dev:
+                pw.check_range_flag(flag)
+            any_above = sig_h[0] > 0
+            kth = sig_h[1]
+        with stage("mvs.search.frontier", LAST_ADAPTIVE_STAGES, "host_ms"):
+            stopped_rows = []
+            frontier = []
+            for row, q in enumerate(qidx):
+                level = int(levels[row])
+                deeper = bool(any_above[row]) and kth[row] > min_ip \
+                    and nbs[row] < index.ntotal  # a full-db result stops
+                if deeper:
+                    # estimate how much deeper to go (jaccard.py:162-167)
+                    if kth[row] - 0.05 > min_ip and level <= MAX_LEVELS - 3:
+                        level_of[q] = level + 2
+                        frontier.append(int(q))
+                    elif level <= MAX_LEVELS - 2:
+                        level_of[q] = level + 1
+                        frontier.append(int(q))
+                    else:
+                        stopped_rows.append(row)
                 else:
                     stopped_rows.append(row)
-            else:
-                stopped_rows.append(row)
-        LAST_ADAPTIVE_STAGES["host_ms"] += (time.perf_counter() - t0) * 1e3
         if stopped_rows:
-            t0 = time.perf_counter()
-            rows = np.asarray(stopped_rows)
-            rsel = torch.from_numpy(rows).to(dev)
-            collect(D_dev[rsel], I_dev[rsel], qidx[rows], nb_eff[rows],
-                    None if parts_round is None else parts_round[rsel])
-            LAST_ADAPTIVE_STAGES["collect_ms"] += \
-                (time.perf_counter() - t0) * 1e3
-    LAST_ADAPTIVE_STAGES["total_ms"] = (time.perf_counter() - t_all) * 1e3
+            with stage("mvs.search.collect", LAST_ADAPTIVE_STAGES,
+                       "collect_ms"):
+                rows = np.asarray(stopped_rows)
+                rsel = torch.from_numpy(rows).to(dev)
+                collect(D_dev[rsel], I_dev[rsel], qidx[rows], nb_eff[rows],
+                        None if parts_round is None else parts_round[rsel])
     return hits, query_norms
 
 
@@ -293,6 +307,7 @@ def _artifact_stat(path: str):
     return (os.path.abspath(path), st.st_mtime_ns, st.st_size)
 
 
+@entry_span("search")
 def search_index(index_folder: str, query_file: str, j: float,
                  verbose: bool = True, recall_target: float = 1.0,
                  engine: str = "f32", mesh_devices: int = 1, *, device):
@@ -309,47 +324,57 @@ def search_index(index_folder: str, query_file: str, j: float,
     local device of ``device``'s type, n the first n) above one device
     serves every adaptive level through the distributed indexes (rows or
     chunks split over the devices, candidate pools merged;
-    ann/distributed.py); the results are the single-device ones."""
+    ann/distributed.py); the results are the single-device ones.
+
+    Each call is the profiler span mvs.search#<n>, holding the stage spans
+    named beside LAST_ADAPTIVE_STAGES."""
     dev = resolve_device(device)
     mesh = serving_mesh(mesh_devices, device=dev)
-    db = DbFolder(index_folder)
-    d = db.dimension
-    sample_names, hash_sets = parse_query_hashes_file(query_file)
-    q_int, queries = project_queries(hash_sets, d, device=dev)
-    names, norms = db.names_and_norms()
+    with stage("mvs.search.db_norms"):
+        db = DbFolder(index_folder)
+        d = db.dimension
+        names, norms = db.names_and_norms()
+    with stage("mvs.search.parse_queries"):
+        sample_names, hash_sets = parse_query_hashes_file(query_file)
+    with stage("mvs.search.project"):
+        q_int, queries = project_queries(hash_sets, d, device=dev)
     where = mesh.key if mesh is not None else str(dev)
-    if engine in ("int8", "int8_approx"):
-        from .int_index import IntExactIndex
-        rt = recall_target if recall_target < 1.0 else 0.95
-        approx = engine == "int8_approx" or recall_target < 1.0
-        mode = "approx" if approx else "exact"
-        key = (_artifact_stat(os.path.join(index_folder, "vectors.bin")),
-               "int8", mode, rt, where)
-        if mesh is not None:
-            # staged straight into the split layout: splitting a
-            # single-device index would hold the whole stack on one card
-            from .distributed import DistributedIntExactIndex
-            index = _cached_index(key, lambda: (
-                DistributedIntExactIndex.from_dbfolder(
-                    index_folder, mesh=mesh, mode=mode, recall_target=rt)))
+    int8 = engine in ("int8", "int8_approx")
+    with stage("mvs.search.index"):
+        if int8:
+            from .int_index import IntExactIndex
+            rt = recall_target if recall_target < 1.0 else 0.95
+            approx = engine == "int8_approx" or recall_target < 1.0
+            mode = "approx" if approx else "exact"
+            key = (_artifact_stat(os.path.join(index_folder, "vectors.bin")),
+                   "int8", mode, rt, where)
+            if mesh is not None:
+                # staged straight into the split layout: splitting a
+                # single-device index would hold the whole stack on one card
+                from .distributed import DistributedIntExactIndex
+                index = _cached_index(key, lambda: (
+                    DistributedIntExactIndex.from_dbfolder(
+                        index_folder, mesh=mesh, mode=mode,
+                        recall_target=rt)))
+            else:
+                index = _cached_index(key, lambda: (
+                    IntExactIndex.from_dbfolder(index_folder, mode=mode,
+                                                recall_target=rt,
+                                                device=dev)))
         else:
-            index = _cached_index(key, lambda: IntExactIndex.from_dbfolder(
-                index_folder, mode=mode, recall_target=rt, device=dev))
-        hits, query_norms = adaptive_search(index, queries, j, verbose,
-                                            db_norms=norms,
-                                            queries_int=q_int)
-    else:
-        fpath = os.path.join(index_folder, "faiss.index")
-        key = (_artifact_stat(fpath), "f32", where)
-        if mesh is not None:
-            from .distributed import DistributedFlatIPIndex
-            index = _cached_index(key, lambda: (
-                DistributedFlatIPIndex.from_flat(
-                    FlatIPIndex.load(fpath, device=dev), mesh=mesh)))
-        else:
-            index = _cached_index(key, lambda: FlatIPIndex.load(fpath,
-                                                                device=dev))
-        index.recall_target = recall_target
-        hits, query_norms = adaptive_search(index, queries, j, verbose,
-                                            db_norms=norms)
-    return rescore(hits, query_norms, names, norms, j, verbose)
+            fpath = os.path.join(index_folder, "faiss.index")
+            key = (_artifact_stat(fpath), "f32", where)
+            if mesh is not None:
+                from .distributed import DistributedFlatIPIndex
+                index = _cached_index(key, lambda: (
+                    DistributedFlatIPIndex.from_flat(
+                        FlatIPIndex.load(fpath, device=dev), mesh=mesh)))
+            else:
+                index = _cached_index(key, lambda: FlatIPIndex.load(
+                    fpath, device=dev))
+            index.recall_target = recall_target
+    hits, query_norms = adaptive_search(index, queries, j, verbose,
+                                        db_norms=norms,
+                                        queries_int=q_int if int8 else None)
+    with stage("mvs.search.rescore"):
+        return rescore(hits, query_norms, names, norms, j, verbose)

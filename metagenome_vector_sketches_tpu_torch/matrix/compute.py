@@ -79,25 +79,44 @@ from ..parallel.engine import MeshSweepOps
 from ..parallel.mesh import Mesh
 from ..io.hashes import parse_hashes_file
 from ..utils.log import log
+from ..utils.profiling import entry_span, stage
 from .writer import write_shard
 from ..ops import minhash
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
 
-# per-shard stage timing of the LAST compute_pairwise_shard call (the keys
-# of the JAX engine's LAST_STAGES). sweep_ms is kernel APPEND
-# (synchronised), extract_ms kernel X plus the device->host copy,
-# finalize_ms the host's exact combine and filter. The streaming engine
-# adds stage_read_ms (the memmap reads, the windows' on the worker thread),
-# stage_wait_ms (time spent waiting for a prefetched window), row_groups,
-# windows and tiles_swept. The two-phase engine's sweep_ms is its counts sweep (plus,
-# streaming, the row tile's staging), its extract_ms the extraction net of
-# the finalize nested in it, whose exact dots finalize_ms includes; it
-# adds hot_tiles (tiles the counts sweep found survivors in, which the
-# extraction sweeps again), reruns (slot blocks whose APPEND total
-# exceeded the capacity their counts gave) and, streaming, windows.
-# compute_minhash_shard replaces them with the MinHash stages
-# (ops.minhash.LAST_STAGES, write_ms, pairs_written).
+# per-shard stage walls (ms) and counters of the LAST compute_pairwise_shard
+# call (the JAX engine's keys, and four of its own), each wall with the
+# profiler span that times the same block (utils.profiling.stage; the call
+# itself is the span mvs.shard#<n>):
+# - entry_ms (mvs.shard.entry): the checks, the db's metadata, the norms
+#   parse and scan_max_abs, before total_ms starts; norms_parse_ms
+#   (mvs.shard.norms_parse) the vector_norms.txt parse inside it;
+# - total_ms (no span): from the end of the entry to the end of the write;
+# - stage_ms (mvs.shard.stage), with stage_h2d_ms (mvs.shard.stage_h2d)
+#   and stage_decompose_ms (mvs.shard.decompose) inside it, synchronised;
+# - sweep_ms (mvs.shard.sweep, one span a round): kernel APPEND,
+#   synchronised;
+# - extract_ms (mvs.shard.extract): kernel X plus the device->host copy,
+#   and the self-pairs' combine;
+# - combine_ms (mvs.shard.combine): the int64 combine of kernel X's
+#   partials of the sweep's survivors;
+# - mirror_ms (mvs.shard.mirror): the fused resident engine's selection of
+#   the survivors to emit again transposed (their finalize is finalize_ms);
+# - finalize_ms (mvs.shard.finalize): the host's exact filter;
+# - write_ms (mvs.shard.write): the writer.
+# Counters: candidates, emitted, pairs_written, mode. The streaming engine
+# adds stage_read_ms (mvs.shard.stage_read: the memmap reads, the windows'
+# on the worker thread, outside the call's span), stage_wait_ms
+# (mvs.shard.stage_wait: time spent waiting for a prefetched window, inside
+# stage_ms), row_groups, windows and tiles_swept. The two-phase engine's
+# sweep_ms is its counts sweep (plus, streaming, the row tile's staging),
+# its extract_ms the extraction net of the finalize nested in it, whose
+# exact dots finalize_ms includes; it adds hot_tiles (tiles the counts
+# sweep found survivors in, which the extraction sweeps again), reruns
+# (slot blocks whose APPEND total exceeded the capacity their counts gave)
+# and, streaming, windows. compute_minhash_shard replaces them with the
+# MinHash stages (ops.minhash.LAST_STAGES, write_ms, pairs_written).
 LAST_STAGES: dict = {}
 
 # int32 bytes of vectors per host->device staging chunk
@@ -107,8 +126,6 @@ SWEEP_CAP_START = 1 << 22
 # bound on the survivor buffer plus its partials (bytes) before a chunk of
 # tiles is halved instead of rerun at its exact size
 CANDIDATE_BUDGET_BYTES = 4 << 30
-
-_MAX_DISPATCH_WALLS = 50
 
 # tile edges already reported as rounded (each is logged once a process)
 _ROUNDED_TILES: set = set()
@@ -175,14 +192,8 @@ def _reset_stages():
                        # mirror twins included
                        candidates=0, emitted=0, pairs_written=0,
                        stage_decompose_ms=0.0, stage_h2d_ms=0.0,
-                       # wall of each sweep round (kernel APPEND,
-                       # synchronised)
-                       dispatch_walls_ms=[])
-
-
-def _acc(key: str, t0: float) -> None:
-    if LAST_STAGES:
-        LAST_STAGES[key] += (time.perf_counter() - t0) * 1e3
+                       entry_ms=0.0, norms_parse_ms=0.0, combine_ms=0.0,
+                       mirror_ms=0.0)
 
 
 def _sync(dev: torch.device) -> None:
@@ -212,6 +223,7 @@ def shard_is_complete(output_folder: str, shard_idx: int) -> bool:
                                        "neighbor_start.bin"))
 
 
+@entry_span("shard")
 def compute_pairwise_shard(db_folder: str, output_folder: str,
                            num_shards: int = 1, shard_idx: int = 0,
                            tile_rows: int = 2048, tile_cols: int = 2048,
@@ -252,46 +264,50 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
     package. gate changes nothing: kernel APPEND emits nothing for an empty
     tile.
     """
-    if finalize not in (None, "host", "device"):
-        raise ValueError(f"finalize={finalize!r}: expected None, 'host' or "
-                         "'device'")
-    if engine not in ("fused", "two_phase"):
-        raise ValueError(f"engine={engine!r}: expected 'fused' or "
-                         "'two_phase'")
-    dev = resolve_device(device)
-    if mesh is None:
-        mesh = Mesh([dev])
-    elif mesh.device_type != dev.type:
-        raise ValueError(f"mesh {mesh} does not run on device {str(dev)!r}")
-    if finalize is None:
-        finalize = "device" if dev.type == "cuda" else "host"
-    ops = MeshSweepOps(mesh)
-    dev = mesh.lead
     _reset_stages()
-    shard_folder = os.path.join(output_folder, f"shard_{shard_idx}")
-    if resume and shard_is_complete(output_folder, shard_idx):
+    with stage("mvs.shard.entry", LAST_STAGES, "entry_ms"):
+        if finalize not in (None, "host", "device"):
+            raise ValueError(f"finalize={finalize!r}: expected None, 'host' "
+                             "or 'device'")
+        if engine not in ("fused", "two_phase"):
+            raise ValueError(f"engine={engine!r}: expected 'fused' or "
+                             "'two_phase'")
+        dev = resolve_device(device)
+        if mesh is None:
+            mesh = Mesh([dev])
+        elif mesh.device_type != dev.type:
+            raise ValueError(f"mesh {mesh} does not run on device "
+                             f"{str(dev)!r}")
+        if finalize is None:
+            finalize = "device" if dev.type == "cuda" else "host"
+        ops = MeshSweepOps(mesh)
+        dev = mesh.lead
+        shard_folder = os.path.join(output_folder, f"shard_{shard_idx}")
+        if resume and shard_is_complete(output_folder, shard_idx):
+            if verbose:
+                log(f"Shard {shard_idx} already complete, skipping (resume)")
+            return shard_folder
+        tile = sweep_tile(tile_rows, dev)
+        db = DbFolder(db_folder)
+        d = db.dimension
+        with stage("mvs.shard.norms_parse", LAST_STAGES, "norms_parse_ms"):
+            _, norms = db.names_and_norms()
+            # float64, text round-tripped — reference :900
+            norms_sq = norms * norms
+
+        total = db.total_vectors_from_bin()
+        rows_per_shard = (total + num_shards - 1) // num_shards
+        begin_row = shard_idx * rows_per_shard
+        end_row = min(begin_row + rows_per_shard, total)
         if verbose:
-            log(f"Shard {shard_idx} already complete, skipping (resume)")
-        return shard_folder
-    tile = sweep_tile(tile_rows, dev)
-    db = DbFolder(db_folder)
-    d = db.dimension
-    _, norms = db.names_and_norms()
-    norms_sq = norms * norms  # float64, text round-tripped — reference :900
+            log(f"Shard {shard_idx} processing rows {begin_row} to {end_row} "
+                f"of {total} (d={d}, dtype={db.dtype}, device={dev})")
 
-    total = db.total_vectors_from_bin()
-    rows_per_shard = (total + num_shards - 1) // num_shards
-    begin_row = shard_idx * rows_per_shard
-    end_row = min(begin_row + rows_per_shard, total)
-    if verbose:
-        log(f"Shard {shard_idx} processing rows {begin_row} to {end_row} "
-            f"of {total} (d={d}, dtype={db.dtype}, device={dev})")
-
-    max_abs = scan_max_abs(db)
-    pm.check_exact_dot_range(d, max(1, max_abs))
-    L = pm.pick_limbs(max(1, max_abs))
-    exact_filter = pm.exact_filter_int16 if db.dtype == "int16" \
-        else pm.exact_filter_int32
+        max_abs = scan_max_abs(db)
+        pm.check_exact_dot_range(d, max(1, max_abs))
+        L = pm.pick_limbs(max(1, max_abs))
+        exact_filter = pm.exact_filter_int16 if db.dtype == "int16" \
+            else pm.exact_filter_int32
 
     if begin_row >= end_row:
         # shard beyond the row space (num_shards > N): empty-but-valid folder
@@ -299,33 +315,33 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
         write_shard(shard_folder, e, e, e, norms_sq, d)
         return shard_folder
 
-    t0 = time.perf_counter()
-    key = _resident_key(db, total, tile, L, d, max_abs, mesh)
-    held = _keep_only(key)
-    budget = device_budget_bytes
-    if budget is None and dev.type == "cuda":
-        # a kept slot's planes count as free: the run re-uses them; every
-        # card of the mesh holds one replica, so the least card decides
-        budget = min(int(0.8 * (torch.cuda.mem_get_info(c)[0] + held))
-                     for c in mesh.distinct_devices())
-    npad = (total + tile - 1) // tile * tile
-    args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
-            exact_filter, max_abs, ops)
-    if budget is not None and pm.num_planes(L) * npad * d > budget:
-        rows, cols, vals = _compute_streaming(*args, budget, engine,
-                                              finalize)
-    else:
-        rows, cols, vals = _compute_device_resident(*args, key, engine,
-                                                    finalize)
-    if verbose:
-        dt = (time.perf_counter() - t0) * 1000
-        log(f"Total computation time: {dt:.0f} ms ({len(rows)} surviving pairs)")
+    with stage(None, LAST_STAGES, "total_ms") as t0:
+        key = _resident_key(db, total, tile, L, d, max_abs, mesh)
+        held = _keep_only(key)
+        budget = device_budget_bytes
+        if budget is None and dev.type == "cuda":
+            # a kept slot's planes count as free: the run re-uses them;
+            # every card of the mesh holds one replica, so the least card
+            # decides
+            budget = min(int(0.8 * (torch.cuda.mem_get_info(c)[0] + held))
+                         for c in mesh.distinct_devices())
+        npad = (total + tile - 1) // tile * tile
+        args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
+                exact_filter, max_abs, ops)
+        if budget is not None and pm.num_planes(L) * npad * d > budget:
+            rows, cols, vals = _compute_streaming(*args, budget, engine,
+                                                  finalize)
+        else:
+            rows, cols, vals = _compute_device_resident(*args, key, engine,
+                                                        finalize)
+        if verbose:
+            dt = (time.perf_counter() - t0) * 1000
+            log(f"Total computation time: {dt:.0f} ms ({len(rows)} "
+                "surviving pairs)")
 
-    tw = time.perf_counter()
-    write_shard(shard_folder, rows, cols, vals, norms_sq, d)
-    _acc("write_ms", tw)
-    LAST_STAGES["pairs_written"] = len(rows)
-    LAST_STAGES["total_ms"] = (time.perf_counter() - t0) * 1e3
+        with stage("mvs.shard.write", LAST_STAGES, "write_ms"):
+            write_shard(shard_folder, rows, cols, vals, norms_sq, d)
+        LAST_STAGES["pairs_written"] = len(rows)
     return shard_folder
 
 
@@ -336,22 +352,20 @@ def _upload_rows(planes, block, row0, L, max_abs, db, dev):
     decomposition. The one stager of both engines."""
     chunk = max(1, STAGE_CHUNK_BYTES // (4 * block.shape[1]))
     for s in range(0, len(block), chunk):
-        t0 = time.perf_counter()
-        part = torch.from_numpy(block[s:s + chunk]).to(dev)
-        _sync(dev)
-        _acc("stage_h2d_ms", t0)
-        t0 = time.perf_counter()
-        lo, hi = (int(x) for x in torch.aminmax(part))
-        if max(hi, -lo) > max_abs:
-            raise ValueError(
-                f"max_component.txt ({max_abs}) is stale: vectors.bin holds "
-                f"|component| up to {max(hi, -lo)}. Delete "
-                f"{os.path.join(db.path, 'max_component.txt')} or rebuild "
-                "the db folder.")
-        pw.planes_update(planes, pw.decompose_limbs(part, L), row0 + s)
-        del part
-        _sync(dev)
-        _acc("stage_decompose_ms", t0)
+        with stage("mvs.shard.stage_h2d", LAST_STAGES, "stage_h2d_ms"):
+            part = torch.from_numpy(block[s:s + chunk]).to(dev)
+            _sync(dev)
+        with stage("mvs.shard.decompose", LAST_STAGES, "stage_decompose_ms"):
+            lo, hi = (int(x) for x in torch.aminmax(part))
+            if max(hi, -lo) > max_abs:
+                raise ValueError(
+                    f"max_component.txt ({max_abs}) is stale: vectors.bin "
+                    f"holds |component| up to {max(hi, -lo)}. Delete "
+                    f"{os.path.join(db.path, 'max_component.txt')} or "
+                    "rebuild the db folder.")
+            pw.planes_update(planes, pw.decompose_limbs(part, L), row0 + s)
+            del part
+            _sync(dev)
 
 
 def _vectors(db, total, d):
@@ -411,35 +425,32 @@ def _make_finalizer(norms_sq, begin_row, end_row, total, d, exact_filter):
     parts: list = []
 
     def finalize_dots(r_glob, c_glob, dots, count: bool = True):
-        t0 = time.perf_counter()
-        if count:
-            LAST_STAGES["candidates"] += len(r_glob)
-        keep_range = ((r_glob >= begin_row) & (r_glob < end_row)
-                      & (c_glob < total))
-        if not keep_range.all():
-            r_glob, c_glob = r_glob[keep_range], c_glob[keep_range]
-            dots = dots[keep_range]
-        LAST_STAGES["emitted"] += len(r_glob)
-        if len(r_glob):
-            thr_exact = 0.05 * (norms_sq[r_glob] + norms_sq[c_glob])
-            keep = exact_filter(dots, thr_exact, d)
-            if keep.any():
-                parts.append((r_glob[keep], c_glob[keep], dots[keep]))
-        _acc("finalize_ms", t0)
+        with stage("mvs.shard.finalize", LAST_STAGES, "finalize_ms"):
+            if count:
+                LAST_STAGES["candidates"] += len(r_glob)
+            keep_range = ((r_glob >= begin_row) & (r_glob < end_row)
+                          & (c_glob < total))
+            if not keep_range.all():
+                r_glob, c_glob = r_glob[keep_range], c_glob[keep_range]
+                dots = dots[keep_range]
+            LAST_STAGES["emitted"] += len(r_glob)
+            if len(r_glob):
+                thr_exact = 0.05 * (norms_sq[r_glob] + norms_sq[c_glob])
+                keep = exact_filter(dots, thr_exact, d)
+                if keep.any():
+                    parts.append((r_glob[keep], c_glob[keep], dots[keep]))
 
     def finalize_globals(r_glob, c_glob, exact_dots):
-        t0 = time.perf_counter()
-        keep_range = ((r_glob >= begin_row) & (r_glob < end_row)
-                      & (c_glob < total))
-        kept_r, kept_c = r_glob[keep_range], c_glob[keep_range]
-        dropped = len(r_glob) - len(kept_r)
-        LAST_STAGES["candidates"] += dropped
-        LAST_STAGES["emitted"] += dropped
-        if len(kept_r) == 0:
-            _acc("finalize_ms", t0)
-            return
-        dots = exact_dots(kept_r, kept_c)
-        _acc("finalize_ms", t0)
+        with stage("mvs.shard.finalize", LAST_STAGES, "finalize_ms"):
+            keep_range = ((r_glob >= begin_row) & (r_glob < end_row)
+                          & (c_glob < total))
+            kept_r, kept_c = r_glob[keep_range], c_glob[keep_range]
+            dropped = len(r_glob) - len(kept_r)
+            LAST_STAGES["candidates"] += dropped
+            LAST_STAGES["emitted"] += dropped
+            if len(kept_r) == 0:
+                return
+            dots = exact_dots(kept_r, kept_c)
         finalize_dots(kept_r, kept_c, dots)
 
     return parts, finalize_dots, finalize_globals
@@ -472,12 +483,11 @@ def _self_pairs(ops, planes, lo, hi, row_base, L, finalize_dots):
     emitted from their exact self dots through kernel X, on the first slot
     (O(N) work); the reference keeps them
     (pairwise_comp_optimized.cpp:659)."""
-    t0 = time.perf_counter()
-    local = torch.arange(lo, hi, dtype=torch.int32, device=ops.mesh.lead)
-    rc = torch.stack([local, local], 1).contiguous()
-    swept = [(rc, hi - lo)] + [None] * (ops.n_devices - 1)
-    r, c, dots = _combine(ops.pair_partials(planes, swept, L)[0], L)
-    _acc("extract_ms", t0)
+    with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
+        local = torch.arange(lo, hi, dtype=torch.int32, device=ops.mesh.lead)
+        rc = torch.stack([local, local], 1).contiguous()
+        swept = [(rc, hi - lo)] + [None] * (ops.n_devices - 1)
+        r, c, dots = _combine(ops.pair_partials(planes, swept, L)[0], L)
     finalize_dots(r + row_base, c + row_base, dots)
 
 
@@ -497,11 +507,10 @@ def _compute_device_resident(db, norms_sq, total, begin_row, end_row, tile,
 def _compute_device_resident_fused(db, norms_sq, total, begin_row, end_row,
                                    tile, L, d, exact_filter, max_abs, ops,
                                    key):
-    ts = time.perf_counter()
-    planes, thr = _stage_database(db, norms_sq, total, tile, L, d, max_abs,
-                                  ops, key)
-    _sync(ops.mesh.lead)
-    _acc("stage_ms", ts)
+    with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
+        planes, thr = _stage_database(db, norms_sq, total, tile, L, d,
+                                      max_abs, ops, key)
+        _sync(ops.mesh.lead)
     LAST_STAGES["mode"] = "fused"
 
     nt = planes[0].shape[1] // tile
@@ -523,10 +532,12 @@ def _compute_device_resident_fused(db, norms_sq, total, begin_row, end_row,
         finalize_dots(r_glob, c_glob, dots)
         # mirror the candidates whose transposed tile was not swept;
         # diagonal tiles already carry both orders
-        ct = c_glob // tile
-        m = (ct > r_glob // tile) & (ct >= rt0) & (ct < rt1)
-        if m.any():
-            finalize_dots(c_glob[m], r_glob[m], dots[m], count=False)
+        with stage("mvs.shard.mirror", LAST_STAGES, "mirror_ms"):
+            ct = c_glob // tile
+            m = (ct > r_glob // tile) & (ct >= rt0) & (ct < rt1)
+            twins = (c_glob[m], r_glob[m], dots[m]) if m.any() else None
+        if twins is not None:
+            finalize_dots(*twins, count=False)
 
     _self_pairs(ops, planes, begin_row, end_row, 0, L, finalize_dots)
     _sweep(ops, planes, thr, planes, thr, tile, L, d, coords, fin_dots)
@@ -583,9 +594,12 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
                                               total, d, exact_filter)
 
     def read(start, end):
-        t0 = time.perf_counter()
-        block = np.array(V[start:end], dtype=np.int32)
-        return block, (time.perf_counter() - t0) * 1e3
+        """-> (the rows as int32, the read's ms): the caller adds the ms, as
+        a window is read on the worker thread."""
+        rec: dict = {}
+        with stage("mvs.shard.stage_read", rec, "stage_read_ms"):
+            block = np.array(V[start:end], dtype=np.int32)
+        return block, rec["stage_read_ms"]
 
     bytes_per_tile = P * tile * d
     share = max(budget // 4, 2 * bytes_per_tile)
@@ -606,29 +620,29 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
             if rg != cur_rg:
                 rg_end = min(rg + rg_tiles * tile, end_row)
                 n_r = (rg_end - rg + tile - 1) // tile
-                ts = time.perf_counter()
-                planes_r = thr_r = None       # free the last group first
-                block, read_ms = read(rg, rg_end)
-                LAST_STAGES["stage_read_ms"] += read_ms
-                planes_r, thr_r = _stage_block(block, thr_all, rg,
-                                               n_r * tile, L, max_abs, db,
-                                               ops)
-                _acc("stage_ms", ts)
+                with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
+                    planes_r = thr_r = None       # free the last group first
+                    block, read_ms = read(rg, rg_end)
+                    LAST_STAGES["stage_read_ms"] += read_ms
+                    planes_r, thr_r = _stage_block(block, thr_all, rg,
+                                                   n_r * tile, L, max_abs,
+                                                   db, ops)
                 _self_pairs(ops, planes_r, 0, rg_end - rg, rg, L,
                             finalize_dots)
                 cur_rg = rg
-            ts = time.perf_counter()
-            block, read_ms = fut.result()
-            _acc("stage_wait_ms", ts)
-            LAST_STAGES["stage_read_ms"] += read_ms
-            fut = pool.submit(read, *schedule[si + 1][1]) \
-                if si + 1 < len(schedule) else None
-            n_w = (we - ws + tile - 1) // tile
-            planes_w = thr_w = None           # free the last window first
-            planes_w, thr_w = _stage_block(block, thr_all, ws, n_w * tile,
-                                           L, max_abs, db, ops)
-            del block
-            _acc("stage_ms", ts)
+            with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
+                with stage("mvs.shard.stage_wait", LAST_STAGES,
+                           "stage_wait_ms"):
+                    block, read_ms = fut.result()
+                LAST_STAGES["stage_read_ms"] += read_ms
+                fut = pool.submit(read, *schedule[si + 1][1]) \
+                    if si + 1 < len(schedule) else None
+                n_w = (we - ws + tile - 1) // tile
+                planes_w = thr_w = None       # free the last window first
+                planes_w, thr_w = _stage_block(block, thr_all, ws,
+                                               n_w * tile, L, max_abs, db,
+                                               ops)
+                del block
             coords = np.array([(ri, wj) for ri in range(n_r)
                                for wj in range(n_w)], dtype=np.int32)
             LAST_STAGES["tiles_swept"] += len(coords)
@@ -657,31 +671,30 @@ def _sweep(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
     s = 0
     while s < per_slot:
         e = min(s + chunk, per_slot)
-        t0 = time.perf_counter()
-        res = ops.sweep_extract_fused(planes_i, thr_i, lists, tile, cap, d,
-                                      CANDIDATE_BUDGET_BYTES // per_pair,
-                                      planes_j, thr_j, diag, first=s,
-                                      count=e - s)
+        with stage("mvs.shard.sweep", LAST_STAGES, "sweep_ms"):
+            res = ops.sweep_extract_fused(planes_i, thr_i, lists, tile, cap,
+                                          d,
+                                          CANDIDATE_BUDGET_BYTES // per_pair,
+                                          planes_j, thr_j, diag, first=s,
+                                          count=e - s)
+            if res is not None:
+                # the next round's capacity: this round's largest slot
+                # total
+                cap = max([cap] + [run[1] for run in res[0]
+                                   if run is not None])
         if res is None:
             # a slot's exact buffer would break the budget: fewer tiles a
             # slot, same start
             chunk = max(1, (e - s) // 2)
-            _acc("sweep_ms", t0)
             continue
-        swept, _ = res
-        # the next round's capacity: this round's largest slot total
-        cap = max([cap] + [run[1] for run in swept if run is not None])
-        _acc("sweep_ms", t0)
-        walls = LAST_STAGES["dispatch_walls_ms"]
-        if len(walls) < _MAX_DISPATCH_WALLS:
-            walls.append(round((time.perf_counter() - t0) * 1e3, 1))
-        t0 = time.perf_counter()
-        hosts = ops.pair_partials(planes_i, swept, L, planes_j)
-        _acc("extract_ms", t0)
+        with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
+            hosts = ops.pair_partials(planes_i, res[0], L, planes_j)
         for host in hosts:
             if host is not None:
-                r, c, dots = _combine(host, L)
-                fin_dots(r + row_base, c + col_base, dots)
+                with stage("mvs.shard.combine", LAST_STAGES, "combine_ms"):
+                    r, c, dots = _combine(host, L)
+                    r, c = r + row_base, c + col_base
+                fin_dots(r, c, dots)
         s = e
 
 
@@ -694,30 +707,29 @@ def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
     rectangle of the shard's row tiles x every column tile (kernel COUNT),
     then :func:`_extract_tiles` with the finalize's exact dots. extract_ms
     is net of the finalize nested in it."""
-    ts = time.perf_counter()
-    planes, thr = _stage_database(db, norms_sq, total, tile, L, d, max_abs,
-                                  ops, key)
-    _sync(ops.mesh.lead)
-    _acc("stage_ms", ts)
+    with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
+        planes, thr = _stage_database(db, norms_sq, total, tile, L, d,
+                                      max_abs, ops, key)
+        _sync(ops.mesh.lead)
     LAST_STAGES.update(mode="two_phase", reruns=0, hot_tiles=0)
 
     nt = planes[0].shape[1] // tile
     rt0, rt1 = begin_row // tile, (end_row - 1) // tile + 1
     coords = np.array([(r, c) for r in range(rt0, rt1) for c in range(nt)],
                       dtype=np.int32).reshape(-1, 2)
-    tsw = time.perf_counter()
-    counts = ops.sweep_counts(planes, thr, ops.tile_lists(coords), tile, d)
-    _acc("sweep_ms", tsw)
+    with stage("mvs.shard.sweep", LAST_STAGES, "sweep_ms"):
+        counts = ops.sweep_counts(planes, thr, ops.tile_lists(coords), tile,
+                                  d)
 
     exact = _exact_dots(finalize, _vectors(db, total, d), max_abs, L,
                         planes[0])
     parts, _, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
                                                  total, d, exact_filter)
-    te = time.perf_counter()
     fin0 = LAST_STAGES["finalize_ms"]
-    _extract_tiles(ops, planes, thr, planes, thr, tile, L, d, coords, counts,
-                   0, 0, lambda r, c: finalize_globals(r, c, exact))
-    _acc("extract_ms", te)
+    with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
+        _extract_tiles(ops, planes, thr, planes, thr, tile, L, d, coords,
+                       counts, 0, 0,
+                       lambda r, c: finalize_globals(r, c, exact))
     LAST_STAGES["extract_ms"] -= LAST_STAGES["finalize_ms"] - fin0
     return _concat(parts)
 
@@ -750,30 +762,27 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
     for ws in windows:
         we = min(ws + window_tiles * tile, total)
         n_w = (we - ws + tile - 1) // tile
-        ts = time.perf_counter()
-        planes_w, thr_w = _stage_block(np.array(V[ws:we], dtype=np.int32),
-                                       thr_all, ws, n_w * tile, L, max_abs,
-                                       db, ops)
-        _acc("stage_ms", ts)
+        with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
+            planes_w, thr_w = _stage_block(
+                np.array(V[ws:we], dtype=np.int32), thr_all, ws, n_w * tile,
+                L, max_abs, db, ops)
         coords = np.array([(0, j) for j in range(n_w)], dtype=np.int32)
         lists = ops.tile_lists(coords)
         for bi in range(begin_row, end_row, tile):
-            tsw = time.perf_counter()
-            planes_r = thr_r = None           # free the last row tile first
-            planes_r, thr_r = _stage_block(
-                np.array(V[bi:min(bi + tile, end_row)], dtype=np.int32),
-                thr_all, bi, tile, L, max_abs, db, ops)
-            counts = ops.sweep_counts(planes_r, thr_r, lists, tile, d,
-                                      planes_w, thr_w)
-            _acc("sweep_ms", tsw)
+            with stage("mvs.shard.sweep", LAST_STAGES, "sweep_ms"):
+                planes_r = thr_r = None       # free the last row tile first
+                planes_r, thr_r = _stage_block(
+                    np.array(V[bi:min(bi + tile, end_row)], dtype=np.int32),
+                    thr_all, bi, tile, L, max_abs, db, ops)
+                counts = ops.sweep_counts(planes_r, thr_r, lists, tile, d,
+                                          planes_w, thr_w)
             exact = _exact_dots(finalize, V, max_abs, L, planes_r[0], bi,
                                 planes_w[0], ws)
-            te = time.perf_counter()
             fin0 = LAST_STAGES["finalize_ms"]
-            _extract_tiles(ops, planes_r, thr_r, planes_w, thr_w, tile, L, d,
-                           coords, counts, bi, ws,
-                           lambda r, c: finalize_globals(r, c, exact))
-            _acc("extract_ms", te)
+            with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
+                _extract_tiles(ops, planes_r, thr_r, planes_w, thr_w, tile,
+                               L, d, coords, counts, bi, ws,
+                               lambda r, c: finalize_globals(r, c, exact))
             LAST_STAGES["extract_ms"] -= LAST_STAGES["finalize_ms"] - fin0
         planes_w = thr_w = None               # free the last window first
     return _concat(parts)
@@ -875,24 +884,22 @@ def compute_minhash_shard(hashes_file: str, output_folder: str,
         log(f"Total computation time: {(time.perf_counter()-t0)*1000:.0f} ms "
             f"({len(r)} surviving pairs)")
 
-    tw = time.perf_counter()
-    if not db_folder:
-        mdb = os.path.join(output_folder, "minhash_db")
-        os.makedirs(mdb, exist_ok=True)
-        with open(os.path.join(mdb, "vector_norms.txt"), "w") as f:
-            for n, s in zip(names, sizes):
-                f.write(f"{n} {np.sqrt(float(s)):.6g}\n")
-        with open(os.path.join(mdb, "dimension.txt"), "w") as f:
-            f.write("1\n")
-        with open(os.path.join(mdb, "dtype.txt"), "w") as f:
-            f.write("minhash\n")
-
     shard_folder = os.path.join(output_folder, f"shard_{shard_idx}")
-    # dimension=1 and norms_sq=|A| make the writer's J = inter/(|A|+|B|-inter)
-    # the exact set Jaccard
-    write_shard(shard_folder, r, c, inter.astype(np.int64),
-                sizes.astype(np.float64), dimension=1)
-    LAST_STAGES["write_ms"] = (time.perf_counter() - tw) * 1e3
+    with stage("mvs.minhash.write", LAST_STAGES, "write_ms"):
+        if not db_folder:
+            mdb = os.path.join(output_folder, "minhash_db")
+            os.makedirs(mdb, exist_ok=True)
+            with open(os.path.join(mdb, "vector_norms.txt"), "w") as f:
+                for n, s in zip(names, sizes):
+                    f.write(f"{n} {np.sqrt(float(s)):.6g}\n")
+            with open(os.path.join(mdb, "dimension.txt"), "w") as f:
+                f.write("1\n")
+            with open(os.path.join(mdb, "dtype.txt"), "w") as f:
+                f.write("minhash\n")
+        # dimension=1 and norms_sq=|A| make the writer's
+        # J = inter/(|A|+|B|-inter) the exact set Jaccard
+        write_shard(shard_folder, r, c, inter.astype(np.int64),
+                    sizes.astype(np.float64), dimension=1)
     LAST_STAGES["pairs_written"] = len(r)
     return shard_folder
 

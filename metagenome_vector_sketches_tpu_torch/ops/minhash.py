@@ -15,18 +15,19 @@ the device and copied to the host once.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from .. import _build
 from .._device import resolve_device
+from ..utils.profiling import stage
 from .pairwise import D_ALIGN, SWEEP_BLOCK, pad_rows
 
-# stage walls (ms) of the LAST pairwise_intersections call: universe_ms the
-# host universe build, gram_ms the device scatter + kernel G over every chunk
-# (synchronised), copy_ms the mirror and the one device->host copy
+# stage walls (ms) of the LAST pairwise_intersections call, each with the
+# profiler span of the same block (utils.profiling.stage): universe_ms
+# (mvs.minhash.universe) the host universe build, gram_ms (mvs.minhash.gram)
+# the device scatter + kernel G over every chunk (synchronised), copy_ms
+# (mvs.minhash.copy) the mirror and the one device->host copy
 LAST_STAGES: dict = {}
 
 
@@ -106,39 +107,38 @@ def pairwise_intersections(hash_sets, chunk: int = 1 << 14, *,
     LAST_STAGES.clear()
     LAST_STAGES.update(universe_ms=0.0, gram_ms=0.0, copy_ms=0.0, chunks=0)
     n = len(hash_sets)
-    t0 = time.perf_counter()
-    universe, positions = build_universe(hash_sets)
-    LAST_STAGES["universe_ms"] = (time.perf_counter() - t0) * 1e3
+    with stage("mvs.minhash.universe", LAST_STAGES, "universe_ms"):
+        universe, positions = build_universe(hash_sets)
     U = len(universe)
     if U == 0:
         return np.zeros((n, n), dtype=np.int64)
 
-    t0 = time.perf_counter()
-    lens = torch.tensor([len(p) for p in positions], dtype=torch.int64)
-    pos = torch.from_numpy(np.concatenate(positions).astype(np.int64)).to(dev)
-    rows = torch.repeat_interleave(torch.arange(n, dtype=torch.int64),
-                                   lens).to(dev)
-    # sorted by position, every chunk's entries are one contiguous slice
-    pos, order = torch.sort(pos)
-    rows = rows[order]
-    edges = np.append(np.arange(0, U, chunk), U)
-    bounds = torch.searchsorted(pos, torch.from_numpy(edges).to(dev)).tolist()
-    n_pad = pad_rows(n, dev)
-    u_pad = (min(chunk, U) + D_ALIGN - 1) // D_ALIGN * D_ALIGN
-    M = torch.empty((n_pad, u_pad), dtype=torch.int8, device=dev)
-    C = torch.zeros((n_pad, n_pad), dtype=torch.int32, device=dev)
-    for k, s in enumerate(edges[:-1].tolist()):
-        lo, hi = bounds[k], bounds[k + 1]
-        M.zero_()
-        M.view(-1)[rows[lo:hi] * u_pad + (pos[lo:hi] - s)] = 1
-        gram_accumulate(C, M)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    LAST_STAGES["gram_ms"] = (time.perf_counter() - t0) * 1e3
+    with stage("mvs.minhash.gram", LAST_STAGES, "gram_ms"):
+        lens = torch.tensor([len(p) for p in positions], dtype=torch.int64)
+        pos = torch.from_numpy(np.concatenate(positions).astype(np.int64)) \
+            .to(dev)
+        rows = torch.repeat_interleave(torch.arange(n, dtype=torch.int64),
+                                       lens).to(dev)
+        # sorted by position, every chunk's entries are one contiguous slice
+        pos, order = torch.sort(pos)
+        rows = rows[order]
+        edges = np.append(np.arange(0, U, chunk), U)
+        bounds = torch.searchsorted(pos,
+                                    torch.from_numpy(edges).to(dev)).tolist()
+        n_pad = pad_rows(n, dev)
+        u_pad = (min(chunk, U) + D_ALIGN - 1) // D_ALIGN * D_ALIGN
+        M = torch.empty((n_pad, u_pad), dtype=torch.int8, device=dev)
+        C = torch.zeros((n_pad, n_pad), dtype=torch.int32, device=dev)
+        for k, s in enumerate(edges[:-1].tolist()):
+            lo, hi = bounds[k], bounds[k + 1]
+            M.zero_()
+            M.view(-1)[rows[lo:hi] * u_pad + (pos[lo:hi] - s)] = 1
+            gram_accumulate(C, M)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     LAST_STAGES["chunks"] = len(edges) - 1
-    t0 = time.perf_counter()
-    out = mirror_upper(C)[:n, :n].cpu().numpy().astype(np.int64)
-    LAST_STAGES["copy_ms"] = (time.perf_counter() - t0) * 1e3
+    with stage("mvs.minhash.copy", LAST_STAGES, "copy_ms"):
+        out = mirror_upper(C)[:n, :n].cpu().numpy().astype(np.int64)
     return out
 
 

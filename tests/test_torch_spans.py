@@ -1,0 +1,184 @@
+"""The stage spans of the port's shard and search entries
+(utils.profiling.stage). Under torch.profiler every stage of a call is a
+profiler span nested in the call's own span, mvs.shard#<n> or
+mvs.search#<n>, with n one more each call; without a profiler no
+record_function is entered; the shard's stage keys of its own (entry,
+norms parse, combine, mirror) time only work that no other key timed."""
+
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from metagenome_vector_sketches_tpu_torch.ann import search as tsearch
+from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+from metagenome_vector_sketches_tpu_torch.io.hashes import (
+    parse_hashes_file, write_hashes_file)
+from metagenome_vector_sketches_tpu_torch.matrix import compute as tmc
+from metagenome_vector_sketches_tpu_torch.ops import minhash as tmh
+from metagenome_vector_sketches_tpu_torch.utils import profiling
+
+TILE = 32
+# the stage spans each engine's first shard of a fresh db opens
+SHARD_SPANS = {
+    "resident": {"entry", "norms_parse", "stage", "stage_h2d", "decompose",
+                 "sweep", "extract", "combine", "mirror", "finalize",
+                 "write"},
+    "streaming": {"entry", "norms_parse", "stage", "stage_read",
+                  "stage_wait", "stage_h2d", "decompose", "sweep", "extract",
+                  "combine", "finalize", "write"},
+    "two_phase": {"entry", "norms_parse", "stage", "stage_h2d", "decompose",
+                  "sweep", "extract", "finalize", "write"},
+}
+SEARCH_SPANS = {"db_norms", "parse_queries", "project", "index", "adaptive",
+                "prep", "enqueue", "wait", "frontier", "collect", "rescore"}
+WALLS = ("stage_ms", "sweep_ms", "extract_ms", "finalize_ms", "write_ms")
+
+
+def _db(path, n=160, d=64, seed=3):
+    """L = 2 rows with a group of near-duplicates across the first three
+    tiles, so that the sweep keeps pairs off the diagonal tiles too."""
+    rng = np.random.default_rng(seed)
+    V = rng.integers(-3000, 3001, size=(n, d)).astype(np.int32)
+    V[20:80] = np.clip(V[5] + rng.integers(-3, 4, size=(60, d)), -3000,
+                       3000)
+    return DbFolder.write(str(path), [f"S{i}" for i in range(n)], V, d)
+
+
+def _shard(db, out, engine):
+    kw = {"device_budget_bytes": 0} if engine == "streaming" else {}
+    tmc.compute_pairwise_shard(
+        db.path, str(out), num_shards=2, shard_idx=0, tile_rows=TILE,
+        verbose=False, device="cpu",
+        engine="two_phase" if engine == "two_phase" else "fused", **kw)
+    return dict(tmc.LAST_STAGES)
+
+
+@pytest.fixture(scope="module")
+def toy_search(tmp_path_factory, ref_toy_dir):
+    """toy_db_2048 and a query file of 6 of its own accessions."""
+    root = tmp_path_factory.mktemp("spans_toy")
+    db = root / "db"
+    shutil.copytree(str(ref_toy_dir / "toy_db_2048"), db)
+    named = dict(parse_hashes_file(str(ref_toy_dir / "all_hashes_toy.txt")))
+    names, _ = DbFolder(str(db)).names_and_norms()
+    qf = str(root / "q.txt")
+    write_hashes_file(qf, [(n, named[n]) for n in names[:30:5]])
+    return str(db), qf
+
+
+def _search(toy):
+    return tsearch.search_index(*toy, 0.1, verbose=False, engine="int8",
+                                device="cpu")
+
+
+def _profiled(run, tmp_path):
+    """-> [(name, start us, end us, thread)] of the mvs.* spans of run()
+    under torch.profiler, from its Chrome trace."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+             e["tid"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+            and e["name"].startswith("mvs.")]
+
+
+def _by_call(spans, kind):
+    """-> [(call number, {stage names})], the calls in order: every stage
+    span lies inside exactly one call span of its thread."""
+    calls = sorted((s for s in spans if "#" in s[0]), key=lambda s: s[1])
+    assert calls and all(c[0].startswith(f"mvs.{kind}#") for c in calls)
+    inside = [set() for _ in calls]
+    for name, b, e, tid in spans:
+        if "#" in name:
+            continue
+        assert name.startswith(f"mvs.{kind}."), name
+        home = [i for i, c in enumerate(calls)
+                if c[3] == tid and c[1] <= b + 1 and e <= c[2] + 1]
+        assert len(home) == 1, (name, b, e)
+        inside[home[0]].add(name[len(f"mvs.{kind}."):])
+    return [(int(c[0].split("#")[1]), st) for c, st in zip(calls, inside)]
+
+
+@pytest.mark.parametrize("engine", sorted(SHARD_SPANS))
+def test_shard_stages_are_spans_of_their_call(tmp_path, engine):
+    db = _db(tmp_path / "db")
+    tmc.clear_device_cache()
+
+    def run():
+        _shard(db, tmp_path / "a", engine)
+        _shard(db, tmp_path / "b", engine)
+    (n1, first), (n2, second) = _by_call(_profiled(run, tmp_path), "shard")
+    assert n2 == n1 + 1
+    assert first == SHARD_SPANS[engine]
+    # a resident shard of the same db re-uses the staged planes
+    assert second == (first - {"stage_h2d", "decompose"}
+                      if engine != "streaming" else first)
+
+
+def test_search_stages_are_spans_of_their_call(tmp_path, toy_search):
+    tsearch.clear_index_cache()
+    hits = []
+
+    def run():
+        hits.append(_search(toy_search))
+        hits.append(_search(toy_search))
+    (n1, first), (n2, second) = _by_call(_profiled(run, tmp_path), "search")
+    assert n2 == n1 + 1
+    assert first == second == SEARCH_SPANS
+    assert hits[0] == hits[1] and hits[0]
+    assert tsearch.LAST_ADAPTIVE_STAGES["rounds"] >= 1
+
+
+def test_minhash_stages_are_spans(tmp_path):
+    sets = [np.arange(i, i + 50, dtype=np.uint64) for i in range(0, 200, 10)]
+    spans = _profiled(lambda: tmh.pairwise_intersections(sets, device="cpu"),
+                      tmp_path)
+    assert {s[0] for s in spans} == {"mvs.minhash.universe",
+                                     "mvs.minhash.gram", "mvs.minhash.copy"}
+    assert set(tmh.LAST_STAGES) == {"universe_ms", "gram_ms", "copy_ms",
+                                    "chunks"}
+
+
+def test_no_record_function_without_a_profiler(tmp_path, monkeypatch,
+                                               toy_search):
+    """Tracing off, the stages enter no record_function; on, they do."""
+    entered = []
+    real = profiling.record_function
+
+    def counting(name):
+        entered.append(name)
+        return real(name)
+    monkeypatch.setattr(profiling, "record_function", counting)
+    db = _db(tmp_path / "db")
+    _shard(db, tmp_path / "m", "resident")
+    _search(toy_search)
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        _shard(db, tmp_path / "m2", "resident")
+    assert "mvs.shard.sweep" in entered
+    assert any(n.startswith("mvs.shard#") for n in entered)
+
+
+@pytest.mark.parametrize("engine", ["resident", "streaming"])
+def test_new_stage_keys_time_only_untimed_work(tmp_path, engine):
+    """combine_ms and mirror_ms come out of what total_ms holds beyond the
+    stage walls; the norms parse is part of the entry, before total_ms."""
+    db = _db(tmp_path / "db")
+    tmc.clear_device_cache()
+    st = _shard(db, tmp_path / "m", engine)
+    assert "dispatch_walls_ms" not in st
+    assert st["combine_ms"] > 0
+    assert (st["mirror_ms"] > 0) == (engine == "resident")
+    assert st["combine_ms"] + st["mirror_ms"] \
+        <= st["total_ms"] - sum(st[k] for k in WALLS)
+    assert 0 < st["norms_parse_ms"] <= st["entry_ms"]

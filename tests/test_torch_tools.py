@@ -26,7 +26,6 @@ from metagenome_vector_sketches_tpu.cli import (  # noqa: E402
 from metagenome_vector_sketches_tpu.io.dbfolder import DbFolder  # noqa: E402
 from metagenome_vector_sketches_tpu.matrix import compute as j_compute  # noqa: E402
 from metagenome_vector_sketches_tpu.matrix import legacy as j_legacy  # noqa: E402
-from metagenome_vector_sketches_tpu.utils import profiling as j_profiling  # noqa: E402
 from metagenome_vector_sketches_tpu.utils import zstdio as j_zstdio  # noqa: E402
 from metagenome_vector_sketches_tpu_torch import (  # noqa: E402
     read_pc_mat_module as t_rpc)
@@ -546,43 +545,24 @@ def test_pairwise_oracle_equals_jax(dtype, row_range):
         np.testing.assert_array_equal(a, b)
 
 
-def _fake_chain(times):
-    """A deterministic chain: the wall of n iterations is fixed by n and
-    the call's position."""
-    calls = []
-
-    def run_chain(n):
-        calls.append(n)
-        return times[len(calls) - 1] * n + 0.5
-    return run_chain, calls
-
-
-@pytest.mark.parametrize("band", [False, True])
-def test_marginal_time_equals_jax(band):
-    times = [0.9, 0.010, 0.012, 0.011, 0.013, 0.009, 0.014]
-    got_chain, got_calls = _fake_chain(times)
-    want_chain, want_calls = _fake_chain(times)
-    got = t_profiling.marginal_time(got_chain, reps=4, rounds=3, band=band)
-    assert got == j_profiling.marginal_time(want_chain, reps=4, rounds=3,
-                                            band=band)
-    assert got_calls == want_calls == [1, 1, 4, 1, 4, 1, 4]
-
-
-def test_stage_timers_and_device_trace(tmp_path, capsys):
-    """StageTimers accumulates spans; device_trace writes a torch.profiler
-    trace under its folder on the CPU, which names the ops it ran."""
-    timers = t_profiling.StageTimers()
+def test_stage_timers_and_device_trace(tmp_path):
+    """stage adds each block's wall to its key and, inside a profiler, is
+    the block's span; device_trace writes a torch.profiler trace under its
+    folder on the CPU, which names the ops it ran and the stage's span."""
+    record = {}
     for _ in range(2):
-        with timers.stage("a"):
+        with t_profiling.stage("mvs.test.outside", record, "a_ms"):
             pass
-    assert set(timers.totals) == {"a"} and timers.totals["a"] >= 0
-    timers.report()
-    assert "  a: " in capsys.readouterr().out
+    assert set(record) == {"a_ms"} and record["a_ms"] >= 0
     x = torch.arange(64, dtype=torch.float32)
     with t_profiling.device_trace(str(tmp_path / "trace")):
-        y = torch.mm(x[None, :], x[:, None])
+        with t_profiling.stage("mvs.test.inside", record, "b_ms") as t0:
+            y = torch.mm(x[None, :], x[:, None])
     assert float(y) == float((x * x).sum())
+    assert record["b_ms"] > 0 and t0 > 0
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
     with open(tmp_path / "trace" / files[0]) as f:
-        assert "aten::mm" in f.read()
+        text = f.read()
+    assert "aten::mm" in text and "mvs.test.inside" in text
+    assert "mvs.test.outside" not in text
