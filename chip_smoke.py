@@ -143,10 +143,11 @@ REPLACES = {
     "gram": "metagenome_vector_sketches_tpu/ops/minhash.py:47",
     "select": "metagenome_vector_sketches_tpu/ann/int_index.py:155",
     "count": "metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55",
+    "keep": "metagenome_vector_sketches_tpu/matrix/compute.py:881",
 }
 SOURCES = {"projection": "projection.cu", "sweep": "count.cu",
            "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu",
-           "select": "select.cu", "count": "count.cu"}
+           "select": "select.cu", "count": "count.cu", "keep": "partials.cu"}
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
 # the card's published rates (H100 SXM, dense, at 700 W): int8 tensor cores,
 # the rate outside the tensor cores (float32; kernel X's integer work is
@@ -159,9 +160,9 @@ HBM_RATE = 3.35e12
 # no design of P avoids, issued at 4 schedulers x 32 lanes per SM and clock
 SPLITMIX_SASS = 22
 # the kernels each counted path must launch
-MAIN_KERNELS = ("projection", "sweep", "partials")
+MAIN_KERNELS = ("projection", "sweep", "keep")
 ANN_KERNELS = ("scan", "partials", "select")
-STREAM_KERNELS = ("sweep", "partials")
+STREAM_KERNELS = ("sweep", "keep")
 MINHASH_KERNELS = ("gram",)
 
 
@@ -630,6 +631,13 @@ def phase_kernels(errs):
         check(np.array_equal(pm.combine_plane_partials(
             xk.cpu().numpy().T, L), exact), "X partials do not combine to "
                                             "the exact dots")
+        # X's retention epilogue on the same pairs, both tests, with twins
+        # on a shard that starts inside a tile
+        # thresholds 0.05 (ns_r + ns_c) about the typical |dot| / d
+        ns = rng.uniform(0, 20 * float(np.abs(exact).mean()) / d, N)
+        for int16 in (False, True):
+            errs["keep"] = max(errs["keep"], _check_keep(
+                planes, cand, L, ns, d, int16, N, tile))
         # APPEND on two windows of the db with the self mask at a nonzero
         # diagonal offset (the streaming engine's operands)
         w = N // 2
@@ -777,6 +785,64 @@ def _time_partials(x, rc, L, y=None):
     return t, alone
 
 
+def _check_keep(planes, rc, L, ns, d, int16, total, tile, cap=None):
+    """Kernel X's retention epilogue against its plain version on the card
+    (a shard of rows [total / 5, 3 total / 5), twins on ``tile``): the
+    same kept set and counters, the first buffer a third of the kept
+    count and then the exact size -> 0 (the error; raises otherwise)."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    keep = pw.Retention(torch.from_numpy(ns).cuda(), d, int16, total // 5,
+                        3 * total // 5, total)
+    b, e = keep.begin_row // tile, (keep.end_row - 1) // tile + 1
+    twins = (tile, b, e)
+    out_p, cnt_p = pw.pair_keep_plain(planes, rc, L, keep, len(rc) * 2,
+                                      twins=twins)
+    want = cnt_p.cpu().numpy()
+    small = max(1, int(want[0]) // 3)
+    out_k, cnt_k = pw.pair_keep(planes, rc, L, keep, small, twins=twins)
+    check(np.array_equal(cnt_k.cpu().numpy(), want),
+          f"keep counters {cnt_k.tolist()} != plain {want.tolist()}")
+    out_k, cnt_k = pw.pair_keep(planes, rc, L, keep, int(want[0]),
+                                twins=twins)
+
+    def records(out):       # the kept pairs as a multiset: rc may repeat
+        a = out[:int(want[0])].cpu().numpy()
+        return a[np.lexsort((a[:, 1], a[:, 0]))]
+    check(np.array_equal(records(out_k), records(out_p)),
+          f"keep's kept pairs differ from plain (int16={int16})")
+    say(f"[kernels] X keep int16={int16}: {len(rc)} pairs, {want[0]} kept, "
+        f"{want[1]} emitted: exact (first buffer {small}, then exact)")
+    return 0
+
+
+def _time_keep(planes, rc, L, ns, d, int16, total, tile):
+    """Kernel X's retention epilogue on candidate pairs, each call from a
+    cold L2 (the rows come from device memory, as on the path): equal to
+    the plain version -> (timings entry of the wrapper call, kernel-alone
+    ms). Bound: the partials' multiply-adds at the non-tensor rate, or the
+    distinct rows' limb bytes, their norms and the pairs in and the kept
+    pairs out."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    _check_keep(planes, rc, L, ns, d, int16, total, tile)
+    keep = pw.Retention(torch.from_numpy(ns).cuda(), d, int16, total // 5,
+                        3 * total // 5, total)
+    twins = (tile, keep.begin_row // tile, (keep.end_row - 1) // tile + 1)
+    kept = int(pw.pair_keep(planes, rc, L, keep, 0, twins=twins)[1][0])
+    d_pad = planes.shape[2]
+    rows = int(torch.unique(rc).numel())
+
+    def call():
+        return pw.pair_keep(planes, rc, L, keep, kept, twins=twins)
+    t = timed(cold_ms(call),
+              cold_ms(lambda: pw.pair_keep_plain(planes, rc, L, keep, kept,
+                                                 twins=twins), reps=3),
+              2 * len(rc) * L * L * d_pad, CORE_PEAK,
+              rows * (L * d_pad + 8) + 8 * len(rc) + pw.KEPT_BYTES * kept)
+    return t, kernel_ms(call, "partials_kernel", cold=True)
+
+
 def phase_main(N, work, timings):
     import torch
     from metagenome_vector_sketches_tpu_torch import _build
@@ -922,17 +988,22 @@ def phase_main(N, work, timings):
     self_rc = torch.arange(4 * tile, dtype=torch.int32, device="cuda")
     cand = torch.cat([rc_k[:n], self_rc[:, None].expand(-1, 2)]).contiguous()
     timings["partials"], x_alone = _time_partials(planes, cand, L)
+    ns = norms64[:4 * tile] ** 2
+    timings["keep"], keep_alone = _time_keep(planes, cand, L, ns, D, False,
+                                             4 * tile, tile)
     say(f"[main] timed shapes: P {len(named)} sets ({int(sizes.sum())} "
         f"hashes) at d={D}; S {len(coords)} tiles of {tile}^2 "
         f"({pairs} pairs, P={P}, {n} survivors); "
         f"X {len(cand)} pairs at L={L}")
-    for k in ("projection", "sweep", "partials"):
+    for k in ("projection", "sweep", "partials", "keep"):
         t = timings[k]
         say(f"[main] {k}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']})")
     say(f"[main] X wrapper {timings['partials']['ms']:.4f} ms, kernel alone "
         f"(profiler) {alone_str(x_alone)}")
+    say(f"[main] X keep wrapper {timings['keep']['ms']:.4f} ms, kernel alone "
+        f"(profiler) {alone_str(keep_alone)}")
     rate_line("main", "APPEND (10 tiles of 2048^2, P=3)", timings["sweep"])
     say(f"[main] APPEND P={P}: wrapper {timings['sweep']['ms']:.4f} ms, "
         f"kernel alone (profiler) {alone_str(alone)}"
@@ -1220,7 +1291,7 @@ def phase_cli(work):
 # conformance, the residency cache and the device trace
 # ---------------------------------------------------------------------------
 
-TOOLS_KERNELS = ("projection", "sweep", "partials")
+TOOLS_KERNELS = ("projection", "sweep", "keep")
 
 
 def _stdout_of(main, argv):
@@ -2118,7 +2189,7 @@ def phase_minhash(work, errs, timings):
 # phase 8: the multi-device layer on two slots of the one card
 # ---------------------------------------------------------------------------
 
-MESH_KERNELS = ("projection", "sweep", "partials", "scan", "select")
+MESH_KERNELS = ("projection", "sweep", "keep", "partials", "scan", "select")
 PIPE_B = 4096           # phase 2's first sets: its planted groups of 4
 
 

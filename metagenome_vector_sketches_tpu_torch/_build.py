@@ -39,11 +39,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launch counters: "sweep" counts kernel APPEND (the sweep with survivor
 # compaction), "count" kernel COUNT (the two-phase engine's counts sweep;
-# both csrc/count.cu), "scan" kernel S (its SCORE epilogue: the int8 ANN
+# both csrc/count.cu), "partials" kernel X's partials, "keep" kernel X with
+# its retention epilogue (the fused engine's exact test; both
+# csrc/partials.cu), "scan" kernel S (its SCORE epilogue: the int8 ANN
 # engine), "gram" kernel G (the MinHash incidence Gram), "select" kernel K
 # (the ANN top-k selection)
 KERNELS = ("projection", "sweep", "partials", "scan", "gram", "select",
-           "count")
+           "count", "keep")
 _launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -75,6 +77,11 @@ _SIGNATURES = {
     # xs, x_stride, ys, y_stride, L, d_pad, nx, ny, rc, n, out, bad, stream
     "mvs_partials": [_P, _LL, _P, _LL, _I, _I, _LL, _LL, _P, _LL, _P, _P,
                      _P],
+    # xs, x_stride, ys, y_stride, L, d_pad, nx, ny, rc, n, ns, row_base,
+    # col_base, begin_row, end_row, total, d, int16, tile, rt0, rt1, out,
+    # cap, counters, stream
+    "mvs_keep": [_P, _LL, _P, _LL, _I, _I, _LL, _LL, _P, _LL, _P, _LL, _LL,
+                 _LL, _LL, _LL, _LL, _I, _LL, _LL, _LL, _P, _LL, _P, _P],
     # a, n, ld, c, ldc, stream
     "mvs_gram": [_P, _I, _I, _P, _LL, _P],
     # scores, keys, ld, rows, width, base, valid, none, kc, regime, work,

@@ -43,6 +43,32 @@
 // [0, nx) x [0, ny) is counted into *bad (device int32) and writes
 // nothing; the caller reads the count where it synchronises anyway
 // (ops/pairwise.py check_range_flag).
+//
+// Retention epilogue (mvs_keep, the fused engine's path): the same core,
+// then lane 0 of each sub-warp combines the partials into the exact int64
+// dot, applies the shard's range filter and the reference's exact
+// retention test (int32: C++ truncating int64 division; int16: double
+// division; both against 0.05 * (ns_i + ns_j) in float64, every step with
+// a rounding intrinsic, so no FMA contraction separates it from numpy's
+// answer), and, for the resident engine's triangle grid, the mirror twin
+// (c, r) of a candidate whose transposed tile was not swept. It replaces
+// the host's combine, exact filter and mirror selection
+// (matrix/compute.py; in the JAX package the host's finalize_dots and
+// _mirror_mask, metagenome_vector_sketches_tpu/matrix/compute.py:881-912
+// and :468-490, on the fused engine's candidates), which read
+// every candidate's partials through a pageable device->host copy (20 B a
+// candidate at L = 2, 32 B at L = 3) to keep 0.02-0.7% of them. Fused
+// into kernel X because the test needs the exact dot and nothing else:
+// the core's reduction leaves it in lane 0's registers, so a kept pair
+// costs 16 B of output and a dropped one nothing. What bounds it is the
+// core's (the scattered row reads); the epilogue adds two 8-byte norm
+// reads and O(L^2) integer and double operations a candidate in one lane.
+// Kept pairs (row, column, dot; global rows) are compacted with one warp
+// ballot and one atomic a warp; the kept count is exact past the buffer's
+// capacity, so the wrapper reruns at the exact size
+// (ops/pairwise.py pair_keep). Pairs that pass the range filter (twins
+// included) and the out-of-range candidates are counted per thread and
+// added once a warp.
 #include "common.cuh"
 
 namespace {
@@ -51,33 +77,77 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 16;  // lanes per candidate
 constexpr int kMaxLimbs = 5;
 
-template <int L>
+// The retention epilogue's operands (mvs_keep); unused by the partials
+// epilogue.
+struct KeepArgs {
+  const double* ns;          // float64 squared norms of global rows [0, total)
+  long long row_base;        // global row of xs's first row
+  long long col_base;        // global row of ys's first row
+  long long begin_row, end_row, total;  // the shard's rows; the db's rows
+  long long d;               // the sketch dimension (the test's divisor)
+  int int16;                 // 1: double division; 0: truncating division
+  long long tile;            // > 0: emit mirror twins on this tile grid
+  long long rt0, rt1;        // the shard's row tiles [rt0, rt1)
+  longlong2* out;            // kept (row | column << 32, dot) records
+  long long cap;             // records out holds
+  unsigned long long* counters;  // kept, emitted, out of range
+};
+
+// The reference's exact retention of an exact dot (ops/pairwise_math
+// exact_filter_int32 / exact_filter_int16 against
+// 0.05 * (ns_i + ns_j)), one rounded double operation at a time.
+__device__ __forceinline__ bool exact_keep(long long dot, double ni,
+                                           double nj, long long d,
+                                           int int16) {
+  const double thr = __dmul_rn(0.05, __dadd_rn(ni, nj));
+  const double q = int16 ? __ddiv_rn(__ll2double_rn(dot), __ll2double_rn(d))
+                         : __ll2double_rn(dot / d);  // truncates toward 0
+  return q > thr;
+}
+
+// kKeep: false writes the partials (out, bad); true runs the retention
+// epilogue (keep). The candidate loop is uniform across the warp (its two
+// sub-warps take candidates w0 and w0 + 1), so the epilogue's ballot sees
+// all 32 lanes.
+template <int L, bool kKeep>
 __global__ void __launch_bounds__(kThreads)
 partials_kernel(const int8_t* __restrict__ xs, long long x_stride,
                 const int8_t* __restrict__ ys, long long y_stride, int d_pad,
                 long long nx, long long ny, const int32_t* __restrict__ rc,
                 long long n, int32_t* __restrict__ out,
-                int* __restrict__ bad) {
+                int* __restrict__ bad, KeepArgs keep) {
   constexpr int U = L == 1 ? 4 : (L == 2 ? 2 : 1);
+  const int lane = threadIdx.x & 31;
   const int sub = threadIdx.x & (kLanes - 1);
   const unsigned mask = (kLanes == 32 ? kFullMask : (1u << kLanes) - 1u)
-                        << (threadIdx.x & 31 & ~(kLanes - 1));
+                        << (lane & ~(kLanes - 1));
   const long long stride = (long long)gridDim.x * (kThreads / kLanes);
-  for (long long w = ((long long)blockIdx.x * kThreads + threadIdx.x) / kLanes;
-       w < n; w += stride) {
-    const long long r = rc[2 * w], c = rc[2 * w + 1];
-    if (r < 0 || r >= nx || c < 0 || c >= ny) {  // uniform in the sub-warp
-      if (sub == 0) atomicAdd(bad, 1);
-      continue;
+  unsigned long long emitted = 0, outside = 0;  // kKeep: per thread
+  for (long long w0 =
+           ((long long)blockIdx.x * kThreads + (threadIdx.x & ~31)) / kLanes;
+       w0 < n; w0 += stride) {
+    const long long w = w0 + lane / kLanes;
+    bool live = w < n;                           // uniform in the sub-warp
+    long long r = 0, c = 0;
+    if (live) {
+      r = rc[2 * w];
+      c = rc[2 * w + 1];
+      if (r < 0 || r >= nx || c < 0 || c >= ny) {
+        if (sub == 0) {
+          if constexpr (kKeep) ++outside;
+          else atomicAdd(bad, 1);
+        }
+        live = false;
+      }
     }
-    const int8_t* xr = xs + r * d_pad;
-    const int8_t* yc = ys + c * d_pad;
     int D[L][L];
 #pragma unroll
     for (int a = 0; a < L; ++a)
 #pragma unroll
       for (int b = 0; b < L; ++b) D[a][b] = 0;
-    for (int k0 = sub * 16; k0 < d_pad; k0 += U * kLanes * 16) {
+    const int8_t* xr = xs + r * d_pad;
+    const int8_t* yc = ys + c * d_pad;
+    for (int k0 = sub * 16; live && k0 < d_pad; k0 += U * kLanes * 16) {
       int4 x[U][L], y[U][L];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -113,23 +183,85 @@ partials_kernel(const int8_t* __restrict__ xs, long long x_stride,
 #pragma unroll
         for (int off = kLanes / 2; off > 0; off >>= 1)
           D[a][b] += __shfl_xor_sync(mask, D[a][b], off);
-    if (sub == 0) {
-      int32_t* o = out + w * (L * (L + 1) / 2);
+    if constexpr (!kKeep) {
+      if (live && sub == 0) {
+        int32_t* o = out + w * (L * (L + 1) / 2);
 #pragma unroll
-      for (int a = 0; a < L; ++a) o[a] = D[a][a];
-      int idx = L;
+        for (int a = 0; a < L; ++a) o[a] = D[a][a];
+        int idx = L;
 #pragma unroll
-      for (int a = 0; a < L; ++a)
+        for (int a = 0; a < L; ++a)
 #pragma unroll
-        for (int b = a + 1; b < L; ++b) o[idx++] = D[a][b] + D[b][a];
+          for (int b = a + 1; b < L; ++b) o[idx++] = D[a][b] + D[b][a];
+      }
+    } else {
+      // the exact dot: 2^(14a) D_aa + 2^(7(a+b)) (D_ab + D_ba), the weights
+      // of pairwise_math.combine_plane_partials
+      long long dot = 0, gr = 0, gc = 0;
+      bool kp0 = false, kp1 = false;    // the pair, its twin: kept
+      if (live && sub == 0) {
+#pragma unroll
+        for (int a = 0; a < L; ++a)
+          dot += (long long)D[a][a] * (1LL << (14 * a));
+#pragma unroll
+        for (int a = 0; a < L; ++a)
+#pragma unroll
+          for (int b = a + 1; b < L; ++b)
+            dot += (long long)(D[a][b] + D[b][a]) * (1LL << (7 * (a + b)));
+        gr = r + keep.row_base;
+        gc = c + keep.col_base;
+        const bool in0 = gr >= keep.begin_row && gr < keep.end_row &&
+                         gc < keep.total;
+        bool twin = false;
+        if (keep.tile > 0) {
+          const long long ct = gc / keep.tile;
+          twin = ct > gr / keep.tile && ct >= keep.rt0 && ct < keep.rt1;
+        }
+        const bool in1 = twin && gc >= keep.begin_row && gc < keep.end_row &&
+                         gr < keep.total;
+        emitted += (unsigned)in0 + (unsigned)in1;
+        if (in0 || in1) {               // then gr and gc are both < total
+          const bool pass =
+              exact_keep(dot, keep.ns[gr], keep.ns[gc], keep.d, keep.int16);
+          kp0 = in0 && pass;
+          kp1 = in1 && pass;
+        }
+      }
+      const unsigned b0 = __ballot_sync(kFullMask, kp0);
+      const unsigned b1 = __ballot_sync(kFullMask, kp1);
+      const int kept = __popc(b0) + __popc(b1);
+      if (kept) {                       // uniform in the warp
+        unsigned long long base = 0;
+        if (lane == 0)
+          base = atomicAdd(&keep.counters[0], (unsigned long long)kept);
+        base = __shfl_sync(kFullMask, base, 0);
+        const unsigned below = (1u << lane) - 1u;
+        const unsigned long long p0 = base + __popc(b0 & below);
+        const unsigned long long p1 = base + __popc(b0) + __popc(b1 & below);
+        if (kp0 && p0 < (unsigned long long)keep.cap)
+          keep.out[p0] = make_longlong2(
+              (long long)(unsigned)gr | ((long long)gc << 32), dot);
+        if (kp1 && p1 < (unsigned long long)keep.cap)
+          keep.out[p1] = make_longlong2(
+              (long long)(unsigned)gc | ((long long)gr << 32), dot);
+      }
     }
+  }
+  if constexpr (kKeep) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      emitted += __shfl_xor_sync(kFullMask, emitted, off);
+      outside += __shfl_xor_sync(kFullMask, outside, off);
+    }
+    if (lane == 0 && emitted) atomicAdd(&keep.counters[1], emitted);
+    if (lane == 0 && outside) atomicAdd(&keep.counters[2], outside);
   }
 }
 
-// CTAs of partials_kernel<L> that stay resident on all SMs at once of the
-// current device (mvs_set_device), kept per device and L: two cards of one
-// process may differ in SM count
-template <int L>
+// CTAs of partials_kernel<L, kKeep> that stay resident on all SMs at once
+// of the current device (mvs_set_device), kept per device and instance:
+// two cards of one process may differ in SM count
+template <int L, bool kKeep>
 int resident_ctas() {
   static int cache[kMaxDevices] = {};
   int dev = 0;
@@ -138,23 +270,39 @@ int resident_ctas() {
   if (slot && *slot) return *slot;
   int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, partials_kernel<L>,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                partials_kernel<L, kKeep>,
                                                 kThreads, 0);
   const int n = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   if (slot) *slot = n;
   return n;
 }
 
-template <int L>
+template <int L, bool kKeep>
 void launch(const int8_t* x, long long x_stride, const int8_t* y,
             long long y_stride, int d_pad, long long nx, long long ny,
             const int32_t* rc, long long n, int32_t* out, int* bad,
-            cudaStream_t s) {
+            const KeepArgs& keep, cudaStream_t s) {
   const long long need = (n + kThreads / kLanes - 1) / (kThreads / kLanes);
-  const unsigned grid = (unsigned)(need < resident_ctas<L>()
-                                       ? need : resident_ctas<L>());
-  partials_kernel<L><<<grid, kThreads, 0, s>>>(x, x_stride, y, y_stride,
-                                               d_pad, nx, ny, rc, n, out, bad);
+  const int ctas = resident_ctas<L, kKeep>();
+  const unsigned grid = (unsigned)(need < ctas ? need : ctas);
+  partials_kernel<L, kKeep><<<grid, kThreads, 0, s>>>(
+      x, x_stride, y, y_stride, d_pad, nx, ny, rc, n, out, bad, keep);
+}
+
+template <bool kKeep>
+void launch_limbs(int L, const int8_t* x, long long x_stride,
+                  const int8_t* y, long long y_stride, int d_pad,
+                  long long nx, long long ny, const int32_t* rc, long long n,
+                  int32_t* out, int* bad, const KeepArgs& keep,
+                  cudaStream_t s) {
+  switch (L) {
+    case 1: launch<1, kKeep>(x, x_stride, y, y_stride, d_pad, nx, ny, rc, n, out, bad, keep, s); break;
+    case 2: launch<2, kKeep>(x, x_stride, y, y_stride, d_pad, nx, ny, rc, n, out, bad, keep, s); break;
+    case 3: launch<3, kKeep>(x, x_stride, y, y_stride, d_pad, nx, ny, rc, n, out, bad, keep, s); break;
+    case 4: launch<4, kKeep>(x, x_stride, y, y_stride, d_pad, nx, ny, rc, n, out, bad, keep, s); break;
+    case 5: launch<5, kKeep>(x, x_stride, y, y_stride, d_pad, nx, ny, rc, n, out, bad, keep, s); break;
+  }
 }
 
 }  // namespace
@@ -172,18 +320,42 @@ MVS_EXPORT int mvs_partials(const void* xs, long long x_stride,
   if (L < 1 || L > kMaxLimbs || d_pad % 16 || n < 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return mvs_launch_status();
-  auto s = (cudaStream_t)stream;
-  const int8_t* x = (const int8_t*)xs;
-  const int8_t* y = (const int8_t*)ys;
-  const int32_t* p = (const int32_t*)rc;
-  int32_t* o = (int32_t*)out;
-  int* f = (int*)bad;
-  switch (L) {
-    case 1: launch<1>(x, x_stride, y, y_stride, d_pad, nx, ny, p, n, o, f, s); break;
-    case 2: launch<2>(x, x_stride, y, y_stride, d_pad, nx, ny, p, n, o, f, s); break;
-    case 3: launch<3>(x, x_stride, y, y_stride, d_pad, nx, ny, p, n, o, f, s); break;
-    case 4: launch<4>(x, x_stride, y, y_stride, d_pad, nx, ny, p, n, o, f, s); break;
-    case 5: launch<5>(x, x_stride, y, y_stride, d_pad, nx, ny, p, n, o, f, s); break;
-  }
+  launch_limbs<false>(L, (const int8_t*)xs, x_stride, (const int8_t*)ys,
+                      y_stride, d_pad, nx, ny, (const int32_t*)rc, n,
+                      (int32_t*)out, (int*)bad, KeepArgs{},
+                      (cudaStream_t)stream);
+  return mvs_launch_status();
+}
+
+// The retention epilogue over the same operands: rc's candidates are
+// operand-local (global rows row_base + r, col_base + c); ns: (total,)
+// float64 squared norms of the global rows; a pair is kept when its global
+// row lies in [begin_row, end_row), its column below total and the exact
+// test of the db's dtype (int16 != 0: double division) passes; tile > 0
+// also emits the twin (c, r) of every candidate whose column tile c / tile
+// lies in [rt0, rt1) above its row tile, through the same filter. out:
+// (cap, 2) int64 records (row | column << 32, dot), the first min(kept,
+// cap) written; counters: three zeroed uint64 (kept, exact past cap; the
+// pairs that passed the range filter, twins included; the candidates
+// outside [0, nx) x [0, ny), which write nothing).
+MVS_EXPORT int mvs_keep(const void* xs, long long x_stride, const void* ys,
+                        long long y_stride, int L, int d_pad, long long nx,
+                        long long ny, const void* rc, long long n,
+                        const void* ns, long long row_base,
+                        long long col_base, long long begin_row,
+                        long long end_row, long long total, long long d,
+                        int int16, long long tile, long long rt0,
+                        long long rt1, void* out, long long cap,
+                        void* counters, void* stream) {
+  if (L < 1 || L > kMaxLimbs || d_pad % 16 || n < 0 || d <= 0 || tile < 0 ||
+      cap < 0 || row_base < 0 || col_base < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return mvs_launch_status();
+  const KeepArgs keep{(const double*)ns, row_base, col_base, begin_row,
+                      end_row, total, d, int16, tile, rt0, rt1,
+                      (longlong2*)out, cap, (unsigned long long*)counters};
+  launch_limbs<true>(L, (const int8_t*)xs, x_stride, (const int8_t*)ys,
+                     y_stride, d_pad, nx, ny, (const int32_t*)rc, n, nullptr,
+                     nullptr, keep, (cudaStream_t)stream);
   return mvs_launch_status();
 }

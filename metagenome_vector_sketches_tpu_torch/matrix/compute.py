@@ -12,16 +12,19 @@ The fused engine:
    pad rows.
 2. Sweep: kernel APPEND over the shard's TRIANGLE tile grid (only column
    tiles c >= r inside the shard's own row-tile range; mirrors are
-   re-emitted on the host) with self-pairs masked, over a tile list on the
+   re-emitted by kernel X) with self-pairs masked, over a tile list on the
    card, one range of it at a time. When a range's survivor total exceeds
    the buffer's capacity, the range is rerun at exactly that capacity
    (kernel APPEND counts past its cap); when the exact size would break
    the buffer budget, the range is halved instead.
-3. Partials: kernel X computes the survivors' exact int32 limb-pair
-   partials; self-pairs go through kernel X on (i, i).
-4. One device->host copy per chunk; the host combines the partials into
-   exact int64 dots, applies the reference's exact retention (int32 or
-   int16 semantics) and writes the shard with the shared writer.
+3. Retention: kernel X's retention epilogue (ops.pairwise.pair_keep)
+   combines each survivor's exact int64 dot on the card, applies the
+   shard's range filter and the reference's exact retention (int32 or
+   int16 semantics), and emits the mirror twin of each survivor whose
+   transposed tile was not swept; self-pairs go through it on (i, i).
+4. One small device->host copy per round (the kept pairs and three
+   counters); the host appends them and writes the shard with the shared
+   writer.
 
 The staged planes stay in a one-slot residency cache (JAX ``_RESIDENT``,
 ``:273-388``), so the next shard of the same db skips step 1;
@@ -97,15 +100,17 @@ from ..ops import pairwise_math as pm
 #   and stage_decompose_ms (mvs.shard.decompose) inside it, synchronised;
 # - sweep_ms (mvs.shard.sweep, one span a round): kernel APPEND,
 #   synchronised;
-# - extract_ms (mvs.shard.extract): kernel X plus the device->host copy,
-#   and the self-pairs' combine;
-# - combine_ms (mvs.shard.combine): the int64 combine of kernel X's
-#   partials of the sweep's survivors;
-# - mirror_ms (mvs.shard.mirror): the fused resident engine's selection of
-#   the survivors to emit again transposed (their finalize is finalize_ms);
-# - finalize_ms (mvs.shard.finalize): the host's exact filter;
+# - extract_ms (mvs.shard.extract): the fused engines' kernel X with its
+#   retention epilogue, the wait for it and the copy of the kept pairs;
+# - combine_ms (mvs.shard.combine) and mirror_ms (mvs.shard.mirror): no
+#   engine enters them since kernel X combines and mirrors on the card
+#   (they read 0.0);
+# - finalize_ms (mvs.shard.finalize): the fused engines' append of the kept
+#   pairs; the two-phase engine's exact filter on the host;
 # - write_ms (mvs.shard.write): the writer.
-# Counters: candidates, emitted, pairs_written, mode. The streaming engine
+# Counters: candidates, emitted, pairs_written, mode, readback_bytes (the
+# bytes the fused engines copy device->host from kernel X: kept pairs and
+# counters). The streaming engine
 # adds stage_read_ms (mvs.shard.stage_read: the memmap reads, the windows'
 # on the worker thread, outside the call's span), stage_wait_ms
 # (mvs.shard.stage_wait: time spent waiting for a prefetched window, inside
@@ -123,8 +128,13 @@ LAST_STAGES: dict = {}
 STAGE_CHUNK_BYTES = 256 << 20
 # first capacity (pairs) of the survivor buffer; grows to the exact size
 SWEEP_CAP_START = 1 << 22
-# bound on the survivor buffer plus its partials (bytes) before a chunk of
-# tiles is halved instead of rerun at its exact size
+# first capacity (pairs) of kernel X's kept-pair buffer, which also holds
+# at least 1/KEEP_SHARE of a round's candidates; grows to the largest kept
+# count of the shard's rounds (a round that keeps more reruns exactly)
+KEEP_CAP_START = 1 << 16
+KEEP_SHARE = 32
+# bound on the candidate buffers (bytes) before a chunk of tiles is halved
+# instead of rerun at its exact size
 CANDIDATE_BUDGET_BYTES = 4 << 30
 
 # tile edges already reported as rounded (each is logged once a process)
@@ -186,14 +196,14 @@ def _reset_stages():
     LAST_STAGES.clear()
     LAST_STAGES.update(stage_ms=0.0, sweep_ms=0.0, extract_ms=0.0,
                        finalize_ms=0.0, write_ms=0.0,
-                       # candidates = survivors read back from the device
-                       # (self-pairs included); emitted = pairs handed to
-                       # the exact filter inside this shard's row range,
-                       # mirror twins included
+                       # candidates = survivors of the sweep (self-pairs
+                       # included); emitted = pairs handed to the exact
+                       # test inside this shard's row range, mirror twins
+                       # included
                        candidates=0, emitted=0, pairs_written=0,
                        stage_decompose_ms=0.0, stage_h2d_ms=0.0,
                        entry_ms=0.0, norms_parse_ms=0.0, combine_ms=0.0,
-                       mirror_ms=0.0)
+                       mirror_ms=0.0, readback_bytes=0)
 
 
 def _sync(dev: torch.device) -> None:
@@ -260,8 +270,8 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
     two-phase engine's exact-dot site: "host" gathers the candidates' rows
     from the vectors memmap, "device" runs kernel X on the staged planes;
     None is "device" on CUDA and "host" on the CPU. The fused engine
-    ignores it (it combines exact in-kernel partials), as in the JAX
-    package. gate changes nothing: kernel APPEND emits nothing for an empty
+    ignores it (kernel X tests its candidates' exact dots on the device),
+    as in the JAX package. gate changes nothing: kernel APPEND emits nothing for an empty
     tile.
     """
     _reset_stages()
@@ -306,8 +316,6 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
         max_abs = scan_max_abs(db)
         pm.check_exact_dot_range(d, max(1, max_abs))
         L = pm.pick_limbs(max(1, max_abs))
-        exact_filter = pm.exact_filter_int16 if db.dtype == "int16" \
-            else pm.exact_filter_int32
 
     if begin_row >= end_row:
         # shard beyond the row space (num_shards > N): empty-but-valid folder
@@ -326,8 +334,8 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
             budget = min(int(0.8 * (torch.cuda.mem_get_info(c)[0] + held))
                          for c in mesh.distinct_devices())
         npad = (total + tile - 1) // tile * tile
-        args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
-                exact_filter, max_abs, ops)
+        args = (db, norms_sq, total, begin_row, end_row, tile, L, d, max_abs,
+                ops)
         if budget is not None and pm.num_planes(L) * npad * d > budget:
             rows, cols, vals = _compute_streaming(*args, budget, engine,
                                                   finalize)
@@ -409,25 +417,21 @@ def _stage_database(db, norms_sq, total, tile, L, d, max_abs, ops, key):
     return _RESIDENT["replicas"]
 
 
-def _make_finalizer(norms_sq, begin_row, end_row, total, d, exact_filter):
-    """-> (parts, finalize_dots(r, c, dots, count=True),
-    finalize_globals(r, c, exact_dots)): the exact retention of candidate
-    pairs; survivors inside this shard's row range are appended to parts
-    as (rows, cols, dots).
-
-    finalize_dots takes exact int64 dots (the fused engine's); count=False
-    marks a host re-emission (a mirror twin) that was not read from the
-    device. finalize_globals takes pairs without dots (the two-phase
-    engine's, JAX ``:914-931``): the range filter first, then
-    exact_dots(rows, cols) of the pairs kept (:func:`_exact_dots`), timed
-    under finalize_ms; every pair counts under candidates and emitted, the
-    dropped ones too."""
+def _make_finalizer(norms_sq, begin_row, end_row, total, d, dtype):
+    """-> (parts, finalize_globals(r, c, exact_dots)): the two-phase
+    engine's exact retention on the host (JAX ``:914-931``) of candidate
+    pairs without dots: the range filter first, then exact_dots(rows,
+    cols) of the pairs kept (:func:`_exact_dots`) and the reference's test
+    of the db's ``dtype``, timed under finalize_ms; survivors are appended
+    to parts as (rows, cols, dots). Every pair counts under candidates and
+    emitted, the dropped ones too."""
     parts: list = []
+    exact_filter = pm.exact_filter_int16 if dtype == "int16" \
+        else pm.exact_filter_int32
 
-    def finalize_dots(r_glob, c_glob, dots, count: bool = True):
+    def finalize_dots(r_glob, c_glob, dots):
         with stage("mvs.shard.finalize", LAST_STAGES, "finalize_ms"):
-            if count:
-                LAST_STAGES["candidates"] += len(r_glob)
+            LAST_STAGES["candidates"] += len(r_glob)
             keep_range = ((r_glob >= begin_row) & (r_glob < end_row)
                           & (c_glob < total))
             if not keep_range.all():
@@ -453,7 +457,7 @@ def _make_finalizer(norms_sq, begin_row, end_row, total, d, exact_filter):
             dots = exact_dots(kept_r, kept_c)
         finalize_dots(kept_r, kept_c, dots)
 
-    return parts, finalize_dots, finalize_globals
+    return parts, finalize_globals
 
 
 def _exact_dots(finalize, V, max_abs, L, planes_i, row_base=0,
@@ -470,46 +474,67 @@ def _exact_dots(finalize, V, max_abs, L, planes_i, row_base=0,
                                              c - col_base, planes_j)
 
 
-def _combine(host, L):
-    """Host (n, 2 + P) int32 rows (row, column, kernel X's partials) ->
-    (rows int64, cols int64, exact int64 dots)."""
-    dots = pm.combine_plane_partials(host[:, 2:].T, L)
-    return host[:, 0].astype(np.int64), host[:, 1].astype(np.int64), dots
+def _retentions(ops, norms_sq, dtype, d, begin_row, end_row, total):
+    """-> per slot the shard's :class:`~..ops.pairwise.Retention`, the
+    squared norms staged once a call on the lead card (8 B a row) and
+    replicated."""
+    ns = torch.from_numpy(np.ascontiguousarray(norms_sq, dtype=np.float64))
+    slots = ops.replicate(ns.to(ops.mesh.lead))
+    return [pw.Retention(n, d, dtype == "int16", begin_row, end_row, total)
+            for n in slots]
 
 
-def _self_pairs(ops, planes, lo, hi, row_base, L, finalize_dots):
+def _keep(ops, planes_i, swept, L, keeps, cap, parts, planes_j=None,
+          row_base=0, col_base=0, twins=None) -> int:
+    """Kernel X's retention (:meth:`MeshSweepOps.pair_keep`) of the per-slot
+    survivors ``swept`` under extract_ms; the kept pairs appended to parts
+    and the counters added under finalize_ms -> the largest kept count of
+    a slot."""
+    with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
+        kept, emitted, nbytes = ops.pair_keep(planes_i, swept, L, keeps, cap,
+                                              planes_j, row_base, col_base,
+                                              twins)
+    with stage("mvs.shard.finalize", LAST_STAGES, "finalize_ms"):
+        LAST_STAGES["candidates"] += sum(run[1] for run in swept
+                                         if run is not None)
+        LAST_STAGES["emitted"] += emitted
+        LAST_STAGES["readback_bytes"] += nbytes
+        parts.extend(k for k in kept if k is not None and len(k[0]))
+    return max((len(k[0]) for k in kept if k is not None), default=0)
+
+
+def _self_pairs(ops, planes, lo, hi, row_base, L, keeps, parts):
     """Self-pairs of the planes' rows [lo, hi) (global rows row_base + lo
     ..): masked out of the sweep (diagonal tiles keep ordinary density) and
-    emitted from their exact self dots through kernel X, on the first slot
+    tested from their exact self dots through kernel X, on the first slot
     (O(N) work); the reference keeps them
     (pairwise_comp_optimized.cpp:659)."""
-    with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
-        local = torch.arange(lo, hi, dtype=torch.int32, device=ops.mesh.lead)
-        rc = torch.stack([local, local], 1).contiguous()
-        swept = [(rc, hi - lo)] + [None] * (ops.n_devices - 1)
-        r, c, dots = _combine(ops.pair_partials(planes, swept, L)[0], L)
-    finalize_dots(r + row_base, c + row_base, dots)
+    local = torch.arange(lo, hi, dtype=torch.int32, device=ops.mesh.lead)
+    rc = torch.stack([local, local], 1).contiguous()
+    swept = [(rc, hi - lo)] + [None] * (ops.n_devices - 1)
+    _keep(ops, planes, swept, L, keeps, hi - lo, parts, row_base=row_base,
+          col_base=row_base)
 
 
 def _compute_device_resident(db, norms_sq, total, begin_row, end_row, tile,
-                             L, d, exact_filter, max_abs, ops, key, engine,
-                             finalize):
+                             L, d, max_abs, ops, key, engine, finalize):
     """The resident engines' router (JAX ``:391-401``): fused when asked
     for and tile^2 % 32 == 0 (the JAX fused engine packs 32-bit mask words;
     a CUDA tile, a multiple of 128, always qualifies), else two-phase."""
-    args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
-            exact_filter, max_abs, ops, key)
+    args = (db, norms_sq, total, begin_row, end_row, tile, L, d, max_abs,
+            ops, key)
     if engine == "fused" and tile * tile % 32 == 0:
         return _compute_device_resident_fused(*args)
     return _compute_device_resident_two_phase(*args, finalize)
 
 
 def _compute_device_resident_fused(db, norms_sq, total, begin_row, end_row,
-                                   tile, L, d, exact_filter, max_abs, ops,
-                                   key):
+                                   tile, L, d, max_abs, ops, key):
     with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
         planes, thr = _stage_database(db, norms_sq, total, tile, L, d,
                                       max_abs, ops, key)
+        keeps = _retentions(ops, norms_sq, db.dtype, d, begin_row, end_row,
+                            total)
         _sync(ops.mesh.lead)
     LAST_STAGES["mode"] = "fused"
 
@@ -517,39 +542,27 @@ def _compute_device_resident_fused(db, norms_sq, total, begin_row, end_row,
     rt0, rt1 = begin_row // tile, (end_row - 1) // tile + 1
     # TRIANGLE tile grid: inside the shard's row-tile range [rt0, rt1) tiles
     # (r, c) and (c, r) carry the same unordered pairs and every per-pair
-    # quantity is symmetric, so only c >= r is swept and each off-diagonal
-    # survivor is emitted in both directions on the host. Column tiles
+    # quantity is symmetric, so only c >= r is swept and kernel X emits each
+    # off-diagonal survivor in both directions (twins). Column tiles
     # outside the range keep the full rectangle (their mirror rows belong
-    # to other shards).
+    # to other shards); diagonal tiles already carry both orders.
     coords = np.array([(r, c) for r in range(rt0, rt1) for c in range(nt)
                        if c >= r or not rt0 <= c < rt1],
                       dtype=np.int32).reshape(-1, 2)
 
-    parts, finalize_dots, _ = _make_finalizer(norms_sq, begin_row, end_row,
-                                              total, d, exact_filter)
-
-    def fin_dots(r_glob, c_glob, dots):
-        finalize_dots(r_glob, c_glob, dots)
-        # mirror the candidates whose transposed tile was not swept;
-        # diagonal tiles already carry both orders
-        with stage("mvs.shard.mirror", LAST_STAGES, "mirror_ms"):
-            ct = c_glob // tile
-            m = (ct > r_glob // tile) & (ct >= rt0) & (ct < rt1)
-            twins = (c_glob[m], r_glob[m], dots[m]) if m.any() else None
-        if twins is not None:
-            finalize_dots(*twins, count=False)
-
-    _self_pairs(ops, planes, begin_row, end_row, 0, L, finalize_dots)
-    _sweep(ops, planes, thr, planes, thr, tile, L, d, coords, fin_dots)
+    parts: list = []
+    _self_pairs(ops, planes, begin_row, end_row, 0, L, keeps, parts)
+    _sweep(ops, planes, thr, planes, thr, tile, L, d, coords, keeps, parts,
+           twins=(tile, rt0, rt1))
     return _concat(parts)
 
 
 def _compute_streaming(db, norms_sq, total, begin_row, end_row, tile, L, d,
-                       exact_filter, max_abs, ops, budget, engine, finalize):
+                       max_abs, ops, budget, engine, finalize):
     """The streaming engines' router (JAX ``:1098-1104``), as
     :func:`_compute_device_resident`'s."""
-    args = (db, norms_sq, total, begin_row, end_row, tile, L, d,
-            exact_filter, max_abs, ops, budget)
+    args = (db, norms_sq, total, begin_row, end_row, tile, L, d, max_abs,
+            ops, budget)
     if engine == "fused" and tile * tile % 32 == 0:
         return _compute_streaming_fused(*args)
     return _compute_streaming_two_phase(*args, finalize)
@@ -571,7 +584,7 @@ def _stage_block(block, thr_all, start, n_rows, L, max_abs, db, ops):
 
 
 def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
-                             L, d, exact_filter, max_abs, ops, budget):
+                             L, d, max_abs, ops, budget):
     """The beyond-memory engine (JAX ``_compute_streaming_fused``, with its
     schedule): a ROW GROUP of the shard's row tiles is staged once and a
     WINDOW of column tiles at a time streams past it; kernel APPEND sweeps
@@ -590,8 +603,10 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
     V = _vectors(db, total, d)
     thr_all = _thresholds(norms_sq, L, max_abs, d)
     P = pm.num_planes(L)
-    parts, finalize_dots, _ = _make_finalizer(norms_sq, begin_row, end_row,
-                                              total, d, exact_filter)
+    parts: list = []
+    with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
+        keeps = _retentions(ops, norms_sq, db.dtype, d, begin_row, end_row,
+                            total)
 
     def read(start, end):
         """-> (the rows as int32, the read's ms): the caller adds the ms, as
@@ -627,8 +642,8 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
                     planes_r, thr_r = _stage_block(block, thr_all, rg,
                                                    n_r * tile, L, max_abs,
                                                    db, ops)
-                _self_pairs(ops, planes_r, 0, rg_end - rg, rg, L,
-                            finalize_dots)
+                _self_pairs(ops, planes_r, 0, rg_end - rg, rg, L, keeps,
+                            parts)
                 cur_rg = rg
             with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
                 with stage("mvs.shard.stage_wait", LAST_STAGES,
@@ -647,26 +662,30 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
                                for wj in range(n_w)], dtype=np.int32)
             LAST_STAGES["tiles_swept"] += len(coords)
             _sweep(ops, planes_r, thr_r, planes_w, thr_w, tile, L, d, coords,
-                   finalize_dots, row_base=rg, col_base=ws)
+                   keeps, parts, row_base=rg, col_base=ws)
     return _concat(parts)
 
 
-def _sweep(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
-           fin_dots, row_base=0, col_base=0):
+def _sweep(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords, keeps,
+           parts, row_base=0, col_base=0, twins=None):
     """Kernel APPEND over ``coords`` (row tiles of planes_i x column tiles
     of planes_j, per-slot replicas whose first rows are the global rows
     row_base and col_base): the tiles are split once into per-slot tile
     lists on the cards (:meth:`MeshSweepOps.tile_lists`), and round by
     round every slot sweeps the next range of its own list, then kernel X
-    runs on each slot's survivors and the host finalizes them with global
-    rows and columns, slot by slot."""
+    tests each slot's survivors on its card (:func:`_keep`; ``keeps``, the
+    per-slot retention, ``twins`` the resident triangle's mirror) and the
+    kept pairs are appended to parts, slot by slot."""
     lists = ops.tile_lists(coords)
     per_slot = max((len(t) for t in lists if t is not None), default=0)
-    per_pair = (2 + pm.num_planes(L)) * 4        # rc + partials bytes
+    # the survivors' rc bytes: kernel X's kept-pair buffer adds 1/KEEP_SHARE
+    # of a record a pair
+    per_pair = 8
     # kernel APPEND counts in 32 bits: one slot's range holds fewer than
     # 2^31 pairs
     chunk = max(1, min(per_slot, (2**31 - 1) // (tile * tile)))
     cap = SWEEP_CAP_START
+    keep_cap = KEEP_CAP_START
     diag = col_base - row_base
     s = 0
     while s < per_slot:
@@ -687,20 +706,17 @@ def _sweep(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
             # slot, same start
             chunk = max(1, (e - s) // 2)
             continue
-        with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
-            hosts = ops.pair_partials(planes_i, res[0], L, planes_j)
-        for host in hosts:
-            if host is not None:
-                with stage("mvs.shard.combine", LAST_STAGES, "combine_ms"):
-                    r, c, dots = _combine(host, L)
-                    r, c = r + row_base, c + col_base
-                fin_dots(r, c, dots)
+        most = max([0] + [run[1] for run in res[0] if run is not None])
+        keep_cap = max(keep_cap, _keep(
+            ops, planes_i, res[0], L, keeps,
+            max(keep_cap, most // KEEP_SHARE), parts, planes_j, row_base,
+            col_base, twins))
         s = e
 
 
 def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
-                                       end_row, tile, L, d, exact_filter,
-                                       max_abs, ops, key, finalize):
+                                       end_row, tile, L, d, max_abs, ops, key,
+                                       finalize):
     """The two-phase engine on the resident planes (JAX ``:788-867``): the
     residency slot's planes (shared with the fused engine: a fused and a
     two-phase shard of one db stage once), the counts sweep over the FULL
@@ -723,8 +739,8 @@ def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
 
     exact = _exact_dots(finalize, _vectors(db, total, d), max_abs, L,
                         planes[0])
-    parts, _, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
-                                                 total, d, exact_filter)
+    parts, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
+                                              total, d, db.dtype)
     fin0 = LAST_STAGES["finalize_ms"]
     with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
         _extract_tiles(ops, planes, thr, planes, thr, tile, L, d, coords,
@@ -735,8 +751,8 @@ def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
 
 
 def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
-                                 tile, L, d, exact_filter, max_abs, ops,
-                                 budget, finalize):
+                                 tile, L, d, max_abs, ops, budget,
+                                 finalize):
     """The two-phase engine beyond the device budget (JAX ``:1214-1273``):
     windows of column tiles on the outer loop, each staged once per shard
     (a third of the budget, JAX's rule), and one row tile of the shard at a
@@ -755,8 +771,8 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
     bytes_per_tile = P * tile * d
     window_tiles = max(1, int(max(budget // 3, 2 * bytes_per_tile)
                               // bytes_per_tile) - 1)
-    parts, _, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
-                                                 total, d, exact_filter)
+    parts, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
+                                              total, d, db.dtype)
     windows = range(0, total, window_tiles * tile)
     LAST_STAGES["windows"] = len(windows)
     for ws in windows:

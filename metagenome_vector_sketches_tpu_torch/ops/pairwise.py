@@ -3,7 +3,8 @@ sweep with survivor compaction over a tile list (kernel APPEND, the second
 epilogue of kernel COUNT's pipeline, csrc/count.cu; the survivor counts
 alone are kernel COUNT, ops/pallas_pairwise.py), the int8 ANN engine's
 scores of query planes against database planes (kernel S, SCORE epilogue),
-and exact limb-pair partials of candidate pairs (kernel X).
+exact limb-pair partials of candidate pairs (kernel X), and the exact
+retention of candidate pairs on the card (kernel X's retention epilogue).
 
 The database lives on the device as a (P, Npad, d_pad) int8 plane tensor
 (P = L(L+1)/2: the L balanced base-128 limbs, then the pairwise limb sums;
@@ -23,6 +24,7 @@ kernel — so kernel and plain version agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -489,3 +491,175 @@ def exact_dots_device(planes: torch.Tensor, L: int, rows: np.ndarray,
     if flag is not None:
         check_range_flag(flag)
     return combine_plane_partials(parts.T, L)
+
+
+# ---------------------------------------------------------------------------
+# Exact retention of candidate pairs on the card (kernel X, retention
+# epilogue)
+# ---------------------------------------------------------------------------
+
+KEPT_BYTES = 16       # a kept pair: row int32, column int32, dot int64
+COUNTER_BYTES = 24    # kept, emitted, out of range: int64 each
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host numpy array: a CUDA tensor is copied into page-locked
+    memory (PyTorch's caching host allocator), waiting for the current
+    stream as ``.cpu()`` does; a CPU tensor is returned as it is. The
+    fused engine's per-round reads (APPEND's totals and counts, kernel X's
+    counters and kept pairs) take this copy."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
+@dataclass(frozen=True)
+class Retention:
+    """One shard's exact retention, the host finalize's
+    (matrix.compute._make_finalizer): a pair (r, c) of global rows is kept
+    when begin_row <= r < end_row, c < total and the reference's test of
+    the db's dtype passes on its exact dot against 0.05 * (ns[r] + ns[c])
+    (int32: the truncating int64 division dot / d,
+    pairwise_math.exact_filter_int32; int16: the double division,
+    exact_filter_int16). ns: the (total,) float64 squared norms, on the
+    device of the planes it runs beside."""
+    ns: torch.Tensor
+    d: int
+    int16: bool
+    begin_row: int
+    end_row: int
+    total: int
+
+
+def pair_keep_plain(planes, rc, L: int, keep: Retention, cap: int,
+                    planes_j=None, row_base: int = 0, col_base: int = 0,
+                    twins: tuple | None = None):
+    """Plain PyTorch version of :func:`pair_keep`: the same steps in int64
+    and float64 torch ops; kept pairs in candidate order, every kept pair
+    before the kept twins."""
+    planes_j = planes if planes_j is None else planes_j
+    dev = planes.device
+    r, c = rc[:, 0].long(), rc[:, 1].long()
+    ok = (r >= 0) & (r < planes.shape[1]) & (c >= 0) & (c < planes_j.shape[1])
+    r, c = r[ok], c[ok]
+    parts = pair_partials_plain(planes, torch.stack([r, c], 1), L,
+                                planes_j).long()
+    w = [1 << (14 * a) for a in range(L)]
+    w += [1 << (7 * (a + b)) for a in range(L) for b in range(a + 1, L)]
+    dot = (parts * torch.tensor(w, dtype=torch.int64, device=dev)).sum(1)
+    gr, gc = r + row_base, c + col_base
+    in0 = (gr >= keep.begin_row) & (gr < keep.end_row) & (gc < keep.total)
+    in1 = torch.zeros_like(in0)
+    if twins is not None:
+        tile, rt0, rt1 = twins
+        ct = gc // tile
+        in1 = (ct > gr // tile) & (ct >= rt0) & (ct < rt1) \
+            & (gc >= keep.begin_row) & (gc < keep.end_row) & (gr < keep.total)
+    need = in0 | in1
+    dn, rn, cn = dot[need], gr[need], gc[need]
+    thr = 0.05 * (keep.ns[rn] + keep.ns[cn])
+    dvec = torch.full((1,), float(keep.d), dtype=torch.float64, device=dev)
+    q = dn.double() / dvec if keep.int16 else \
+        torch.div(dn, keep.d, rounding_mode="trunc").double()
+    passed = torch.zeros_like(need)
+    passed[need] = q > thr
+    k0, k1 = in0 & passed, in1 & passed
+    rows = torch.cat([gr[k0], gc[k1]])
+    cols = torch.cat([gc[k0], gr[k1]])
+    dots = torch.cat([dot[k0], dot[k1]])
+    kept = len(rows)
+    out = torch.zeros((cap, 2), dtype=torch.int64, device=dev)
+    m = min(cap, kept)
+    out[:m, 0] = rows[:m] | (cols[:m] << 32)
+    out[:m, 1] = dots[:m]
+    counters = torch.tensor([kept, int(in0.sum() + in1.sum()),
+                             int((~ok).sum())], dtype=torch.int64,
+                            device=dev)
+    return out, counters
+
+
+def pair_keep(planes: torch.Tensor, rc: torch.Tensor, L: int,
+              keep: Retention, cap: int,
+              planes_j: torch.Tensor | None = None, row_base: int = 0,
+              col_base: int = 0, twins: tuple | None = None):
+    """Kernel X with its retention epilogue: the exact int64 dots of
+    candidate pairs rc ((n, 2) int32: a row of planes, a row of planes_j —
+    planes itself when None — whose global rows are row_base + r and
+    col_base + c) tested on the card by ``keep``; with twins = (tile, rt0,
+    rt1) also the mirror twin (c, r) of each candidate whose column tile
+    lies in [rt0, rt1) above its row tile (the resident engine's triangle
+    grid), through the same filter and test. ONE launch on CUDA, the plain
+    version on the CPU.
+
+    -> (out (cap, 2) int64: kept pairs as (row | column << 32, dot),
+    global rows, the first min(kept, cap) written in no fixed order;
+    counters (3,) int64: kept, exact past cap, so the caller can rerun at
+    the exact capacity; emitted, the pairs (twins included) inside the
+    range filter; the candidates outside the planes' rows, which write
+    nothing and which :func:`read_kept` raises on), on the planes'
+    device. The call itself never waits for the device."""
+    if planes.device.type == "cpu":
+        return pair_keep_plain(planes, rc, L, keep, cap, planes_j, row_base,
+                               col_base, twins)
+    planes_j = planes if planes_j is None else planes_j
+    _check_planes(planes, "planes", 16)
+    _check_planes(planes_j, "planes_j", 16)
+    P, ni, d_pad = planes.shape
+    nj = planes_j.shape[1]
+    dev = planes.device
+    if planes_j.shape[2] != d_pad or planes_j.device != dev:
+        raise ValueError("planes and planes_j differ in d_pad or device")
+    if not 1 <= L <= 5 or num_planes(L) > min(P, planes_j.shape[0]):
+        raise ValueError(f"L={L} does not match {P} planes")
+    if rc.dtype != torch.int32 or rc.ndim != 2 or rc.shape[1] != 2 \
+            or not rc.is_contiguous() or rc.device != dev:
+        raise ValueError("rc must be a contiguous (n, 2) int32 tensor on the "
+                         "planes' device")
+    ns = keep.ns
+    if ns.dtype != torch.float64 or ns.ndim != 1 or not ns.is_contiguous() \
+            or ns.device != dev or ns.shape[0] < keep.total:
+        raise ValueError(f"keep.ns must be a contiguous ({keep.total},) "
+                         "float64 tensor on the planes' device")
+    if keep.d <= 0 or cap < 0 or row_base < 0 or col_base < 0:
+        raise ValueError("d must be positive; cap, row_base and col_base "
+                         "not negative")
+    tile, rt0, rt1 = twins if twins is not None else (0, 0, 0)
+    if twins is not None and tile <= 0:
+        raise ValueError(f"twins: tile={tile} must be positive")
+    out = torch.empty((cap, 2), dtype=torch.int64, device=dev)
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    n = rc.shape[0]
+    if n == 0:
+        return out, counters
+    lib = _build.library()
+    with _build.launch_stream(dev) as stream:
+        err = lib.mvs_keep(planes.data_ptr(), ni * d_pad, planes_j.data_ptr(),
+                           nj * d_pad, L, d_pad, ni, nj, rc.data_ptr(), n,
+                           ns.data_ptr(), int(row_base), int(col_base),
+                           int(keep.begin_row), int(keep.end_row),
+                           int(keep.total), int(keep.d), int(keep.int16),
+                           int(tile), int(rt0), int(rt1), out.data_ptr(),
+                           int(cap), counters.data_ptr(), stream)
+    _build.check(err, "keep kernel")
+    _build.count_launch("keep")
+    return out, counters
+
+
+def read_kept(out: torch.Tensor, counters) -> tuple:
+    """The host's copy of :func:`pair_keep`'s kept pairs: ``counters``, read
+    to the host already ((3,) int64 array), says how many; raises
+    ValueError on out-of-range candidates and RuntimeError when out holds
+    fewer than were kept (rerun at the exact capacity first) -> (rows,
+    cols, dots) int64 arrays, the bytes copied (the counters' included)."""
+    kept, _, bad = (int(x) for x in counters)
+    if bad:
+        raise ValueError(f"{bad} candidate pair(s) had rows/columns outside "
+                         "the planes")
+    if kept > out.shape[0]:
+        raise RuntimeError(f"{kept} kept pairs in a buffer of {out.shape[0]}")
+    rec = to_host(out[:kept])
+    rc32 = rec.view(np.int32).reshape(kept, 4)
+    return ((rc32[:, 0].astype(np.int64), rc32[:, 1].astype(np.int64),
+             rec[:, 1].copy()), kept * KEPT_BYTES + COUNTER_BYTES)

@@ -6,12 +6,13 @@ Karatsuba planes and thresholds are replicated to every slot, the tile
 coordinates are split once into one contiguous block per slot, each a tile
 list on its slot's card (:meth:`MeshSweepOps.tile_lists`), and every slot
 runs the single-device kernels on a range of its own list: kernel APPEND
-and then kernel X on its survivors. Every slot is launched before any is
-synchronised; each slot reruns its own range at its exact capacity when its
-survivors overflow the buffer (kernel APPEND counts past its cap); the
-slots' (rc, partials) come to the host in slot order, in the single-device
-layout, so matrix.compute's exact host finalize and the shard writer do
-not depend on the slot count. A 1-slot mesh is the single-device engine.
+and then kernel X with its retention epilogue on its survivors. Every slot
+is launched before any is synchronised; each slot reruns its own range at
+its exact capacity when its survivors (kernel APPEND) or its kept pairs
+(kernel X) overflow their buffer (both count past their cap); the slots'
+kept pairs come to the host in slot order, with global rows, so the shard
+writer does not depend on the slot count. A 1-slot mesh is the
+single-device engine.
 
 The two-phase engine's counts sweep is :meth:`MeshSweepOps.sweep_counts`
 (kernel COUNT on every slot's block of tiles, JAX ``_counts_fn``, over the
@@ -27,7 +28,6 @@ counterpart, nor have the fused engine's ``compact_cands_combined`` /
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..ops import pairwise as pw
 from ..ops import pallas_pairwise as pp
@@ -132,8 +132,8 @@ class MeshSweepOps:
         totals, counts = {}, []
         for s in live:
             with m.slot(s):
-                totals[s] = int(runs[s][2].item())
-                counts.append(runs[s][1].cpu().numpy())
+                totals[s] = int(pw.to_host(runs[s][2])[0])
+                counts.append(pw.to_host(runs[s][1]))
         if any(totals[s] > cap and totals[s] > max_pairs
                and len(parts[s]) > 1 for s in live):
             return None
@@ -141,7 +141,7 @@ class MeshSweepOps:
         reruns = {s: launch(s, totals[s]) for s in over}
         for s in over:
             with m.slot(s):
-                got = int(reruns[s][2].item())
+                got = int(pw.to_host(reruns[s][2])[0])
             if got != totals[s]:
                 raise RuntimeError(f"sweep rerun on slot {s} found {got} "
                                    f"survivors, the first run {totals[s]}")
@@ -151,35 +151,52 @@ class MeshSweepOps:
                 np.concatenate(counts) if counts
                 else np.zeros(0, dtype=np.int32))
 
-    def pair_partials(self, planes, swept, L: int, planes_j=None) -> list:
-        """Kernel X on every slot's survivors (``swept``: the per-slot list
-        of :meth:`sweep_extract_fused`), all slots launched first, then one
-        device->host copy per slot, in slot order -> per slot a host (n_s,
-        2 + P) int32 array: operand-local row, column, then the limb-pair
-        partials (None for an empty slot)."""
+    def pair_keep(self, planes, swept, L: int, keeps, cap: int,
+                  planes_j=None, row_base: int = 0, col_base: int = 0,
+                  twins: tuple | None = None):
+        """Kernel X with its retention epilogue
+        (:func:`~..ops.pairwise.pair_keep`) on every slot's survivors
+        (``swept``: the per-slot list of :meth:`sweep_extract_fused`), with
+        ``keeps`` the per-slot :class:`~..ops.pairwise.Retention` (its
+        norms on the slot's card): all slots launched first, then one
+        device->host copy of each slot's counters; a slot that kept more
+        than ``cap`` pairs is rerun at its exact count; then one copy of
+        each slot's kept pairs, in slot order -> (per slot the host (rows,
+        cols, dots) int64 arrays of its kept pairs, global rows, None for
+        an empty slot; the pairs inside the range filter, twins included,
+        summed over the slots; the bytes copied to the host)."""
         planes_j = planes if planes_j is None else planes_j
         m = self.mesh
-        pending = []
-        for s, run in enumerate(swept):
-            if run is None:
-                pending.append(None)
-                continue
-            rc, n = run
+
+        def launch(s, c):
+            rc, n = swept[s]
             with m.slot(s):
-                flag = pw.range_flag(m.devices[s])
-                parts = pw.pair_partials(planes[s], rc[:n], L, planes_j[s],
-                                         flag)
-                pending.append((torch.cat([rc[:n], parts], dim=1), flag))
-        out = []
-        for s, p in enumerate(pending):
-            if p is None:
-                out.append(None)
-                continue
+                return pw.pair_keep(planes[s], rc[:n], L, keeps[s], c,
+                                    planes_j[s], row_base, col_base, twins)
+
+        runs = {s: launch(s, cap) for s, run in enumerate(swept)
+                if run is not None}
+        counts = {}
+        for s in runs:
             with m.slot(s):
-                host = p[0].cpu().numpy()
-                pw.check_range_flag(p[1])
-            out.append(host)
-        return out
+                counts[s] = pw.to_host(runs[s][1])
+        over = [s for s in runs if counts[s][0] > cap]
+        for s in over:
+            runs[s] = launch(s, int(counts[s][0]))
+            with m.slot(s):
+                got = pw.to_host(runs[s][1])
+            if not np.array_equal(got, counts[s]):
+                raise RuntimeError(f"kernel X's rerun on slot {s} counted "
+                                   f"{got.tolist()}, the first run "
+                                   f"{counts[s].tolist()}")
+        out = [None] * m.size
+        emitted, nbytes = 0, pw.COUNTER_BYTES * len(over)
+        for s in runs:
+            with m.slot(s):
+                out[s], b = pw.read_kept(runs[s][0], counts[s])
+            emitted += int(counts[s][1])
+            nbytes += b
+        return out, emitted, nbytes
 
     def host_pairs(self, swept) -> list:
         """One device->host copy of every slot's survivor pairs

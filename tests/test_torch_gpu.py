@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from keep_cases import CASES as KEEP_CASES  # noqa: E402
 from metagenome_vector_sketches_tpu_torch.ops import projection as pj  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -252,6 +253,103 @@ def test_partials_kernel_range_flag(cuda):
     assert torch.equal(pw.pair_partials(planes, good, L, flag=flag),
                        pw.pair_partials_plain(planes, good, L))
     pw.check_range_flag(flag)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", KEEP_CASES)
+@pytest.mark.parametrize("L", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["int32", "int16"])
+def test_keep_kernel_matches_plain(cuda, dtype, L, case):
+    """Kernel X's retention epilogue against its plain version and the host
+    path it replaced, on the CPU tests' random and adversarial cases
+    (tests/keep_cases.py): the threshold hit exactly and one ulp off,
+    negative dots between truncation and floor, int16 quotients that round
+    onto the threshold, twins on tile edges, a shard that starts inside a
+    tile, padding columns, two operands with their own first rows."""
+    from keep_cases import host_path, keep, make_case
+    c = make_case(case, dtype == "int16", L, seed=L)
+    cap = 2 * len(c["rc"])
+    got = keep(c, cap, device=cuda)
+    assert got == keep(c, cap)
+    assert got[0] == host_path(c)[0]
+    for a, b, dot, kept in c["adversarial"]:
+        assert ((a, b, dot) in got[0]) == kept
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_keep_kernel_million_candidates(cuda, int16):
+    """10^6 random candidates and the planted near-twins of a 8,192-row
+    d = 2048 db (L = 3, int16-sized components), twins on tile 256 of a
+    shard [1000, 7000) of 8,000 rows: the kernel's kept pairs and counters
+    equal the plain version's on the card."""
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    V, L, planes, _ = _state(cuda, N=8192, d=2048, max_abs=30000, seed=4)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    rnd = torch.randint(0, 8192, (10**6, 2), generator=g, device=cuda)
+    near = torch.cartesian_prod(torch.arange(19, 40, device=cuda),
+                                torch.arange(19, 40, device=cuda))
+    rc = torch.cat([rnd, near]).to(torch.int32).contiguous()
+    dots = V[100:164].astype(np.float64) @ V[200:264].astype(np.float64).T
+    scale = float(np.abs(dots).mean()) / 2048
+    ns = torch.rand(8192, dtype=torch.float64, generator=g,
+                    device=cuda) * 20 * scale
+    keep = pw.Retention(ns, 2048, int16, 1000, 7000, 8000)
+    twins = (256, 1000 // 256, (7000 - 1) // 256 + 1)
+    out, counters = pw.pair_keep(planes, rc, L, keep, 1 << 20, twins=twins)
+    want_out, want = pw.pair_keep_plain(planes, rc, L, keep, 1 << 20,
+                                        twins=twins)
+    assert torch.equal(counters, want)
+    n = int(want[0])
+    assert 100 < n < 1 << 20
+    assert _survivors(out, n) == _survivors(want_out, n)
+
+
+def test_keep_kernel_capacity_rerun_and_range_flag(cuda):
+    """Kept counts past a short buffer, exactly (read_kept refuses it; the
+    mesh's pair_keep reruns each slot at its exact count, here on two slots
+    of one card with a first buffer of one pair); out-of-range candidates
+    are counted and write nothing; refused operands raise."""
+    from keep_cases import host_path, make_case, retention
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.parallel.engine import (
+        MeshSweepOps)
+    from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh
+    c = make_case("tile_edges", False, 2)
+    want, _, emitted = host_path(c)
+    planes, rc = c["planes"].to(cuda), c["rc"].to(cuda)
+    keep = retention(c, cuda)
+    out, counters = pw.pair_keep(planes, rc, 2, keep, 5, twins=c["twins"])
+    counts = counters.cpu().numpy()
+    assert counts.tolist() == [len(want), emitted, 0] and len(want) > 5
+    with pytest.raises(RuntimeError, match="buffer of 5"):
+        pw.read_kept(out, counts)
+    ops = MeshSweepOps(Mesh([cuda, cuda]))
+    half = len(rc) // 2
+    swept = [(rc[:half].contiguous(), half),
+             (rc[half:].contiguous(), len(rc) - half)]
+    kept, em, nbytes = ops.pair_keep((planes,) * 2, swept, 2, [keep] * 2, 1,
+                                     twins=c["twins"])
+    got = set()
+    for r, cc, dots in kept:
+        got |= set(zip(r.tolist(), cc.tolist(), dots.tolist()))
+    assert got == want and em == emitted
+    assert nbytes == len(want) * pw.KEPT_BYTES + 4 * pw.COUNTER_BYTES
+    bad = torch.cat([rc, torch.tensor([[320, 0], [0, -1], [-3, 2]],
+                                      dtype=torch.int32, device=cuda)])
+    out, counters = pw.pair_keep(planes, bad.contiguous(), 2, keep,
+                                 len(want), twins=c["twins"])
+    assert counters.tolist() == [len(want), emitted, 3]
+    with pytest.raises(ValueError, match="3 candidate pair"):
+        pw.read_kept(out, counters.cpu().numpy())
+    with pytest.raises(ValueError, match="float64"):
+        pw.pair_keep(planes, rc, 2, pw.Retention(keep.ns.float(), 200, False,
+                                                 0, 10, 300), 10)
+    with pytest.raises(ValueError, match="tile"):
+        pw.pair_keep(planes, rc, 2, keep, 10, twins=(0, 0, 1))
+    out, counters = pw.pair_keep(planes, rc, 2, keep, len(want),
+                                 twins=c["twins"])
+    (r, cc, dots), _ = pw.read_kept(out, counters.cpu().numpy())
+    assert set(zip(r.tolist(), cc.tolist(), dots.tolist())) == want
     torch.cuda.synchronize()
 
 
@@ -637,7 +735,8 @@ def test_streaming_cuda_shard_equals_resident(cuda, tmp_path):
     launches = _build.launch_counts()
     assert mc.LAST_STAGES["mode"] == "fused-streaming"
     assert mc.LAST_STAGES["row_groups"] == 8 and mc.LAST_STAGES["windows"] == 8
-    assert launches["sweep"] > 0 and launches["partials"] > 0
+    assert launches["sweep"] > 0 and launches["keep"] > 0
+    assert launches["partials"] == 0
     for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
         assert filecmp.cmp(tmp_path / "res" / "shard_0" / f,
                            tmp_path / "stream" / "shard_0" / f,
@@ -1101,7 +1200,7 @@ def _mesh_shards(tmp_path, devices, budget):
         mc.compute_pairwise_shard(db.path, str(tmp_path / "mesh"), 2, s,
                                   mesh=mesh, device=devices[0], **kw)
     launches = _build.launch_counts()
-    assert launches["sweep"] > 0 and launches["partials"] > 0
+    assert launches["sweep"] > 0 and launches["keep"] > 0
     mc.clear_device_cache()
     for s in range(2):
         mc.compute_pairwise_shard(db.path, str(tmp_path / "single"), 2, s,
@@ -1268,6 +1367,13 @@ def test_each_kernel_launches_on_the_second_card(cuda1, tmp_path):
     pw.check_range_flag(flag)
     assert parts.device == cuda1
     assert torch.equal(parts, pw.pair_partials_plain(planes, rc, L))
+    ns = torch.rand(512, dtype=torch.float64, device=cuda1) * 1e6
+    keep = pw.Retention(ns, 200, False, 100, 400, 500)
+    got = pw.pair_keep(planes, rc, L, keep, 3000, twins=(128, 0, 4))
+    want = pw.pair_keep_plain(planes, rc, L, keep, 3000, twins=(128, 0, 4))
+    n = int(want[1][0])
+    assert got[0].device == cuda1 and torch.equal(got[1], want[1])
+    assert _survivors(got[0], n) == _survivors(want[0], n)
     _, qp, db, inv = _scan_state(cuda1, 1000, 200, 3000, 37, seed=5)
     assert torch.equal(pw.scan_scores(qp, db, inv, 1000),
                        pw.scan_scores_plain(qp, db, inv, 1000))
