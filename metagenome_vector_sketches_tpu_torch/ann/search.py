@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..io import textparse
 from ..io.dbfolder import DbFolder
-from ..io.hashes import parse_query_hashes_file
 from ..ops import pairwise as pw
 from ..ops import pairwise_math as pm
 from ..parallel.mesh import serving_mesh
@@ -290,6 +290,7 @@ _INDEX_CACHE: dict = {}
 
 def clear_index_cache() -> None:
     _INDEX_CACHE.clear()
+    textparse.clear_norms()
 
 
 def _cached_index(key, build):
@@ -331,11 +332,10 @@ def search_index(index_folder: str, query_file: str, j: float,
     dev = resolve_device(device)
     mesh = serving_mesh(mesh_devices, device=dev)
     with stage("mvs.search.db_norms"):
-        db = DbFolder(index_folder)
-        d = db.dimension
-        names, norms = db.names_and_norms()
+        d = DbFolder(index_folder).dimension
+        names, norms = textparse.db_names_and_norms(index_folder)
     with stage("mvs.search.parse_queries"):
-        sample_names, hash_sets = parse_query_hashes_file(query_file)
+        _, hash_sets = textparse.parse_queries(query_file)
     with stage("mvs.search.project"):
         q_int, queries = project_queries(hash_sets, d, device=dev)
     where = mesh.key if mesh is not None else str(dev)

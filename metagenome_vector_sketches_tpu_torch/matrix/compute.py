@@ -29,7 +29,9 @@ The fused engine:
 The staged planes stay in a one-slot residency cache (JAX ``_RESIDENT``,
 ``:273-388``), so the next shard of the same db skips step 1;
 :func:`clear_device_cache` empties it, and a run on another db evicts it
-before anything is measured or staged.
+before anything is measured or staged. The db's norms are parsed once a
+process into ``io.textparse``'s slot, which :func:`clear_device_cache`
+empties too.
 
 When the planes exceed the device budget, the streaming engine
 (:func:`_compute_streaming`) keeps a group of the shard's row tiles on the
@@ -77,6 +79,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..io import textparse
 from ..io.dbfolder import DbFolder
 from ..parallel.engine import MeshSweepOps
 from ..parallel.mesh import Mesh
@@ -149,6 +152,7 @@ _RESIDENT: dict = {}
 
 def clear_device_cache() -> None:
     _RESIDENT.clear()
+    textparse.clear_norms()
 
 
 def _resident_key(db, total, tile, L, d, max_abs, mesh) -> tuple:
@@ -301,7 +305,7 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
         db = DbFolder(db_folder)
         d = db.dimension
         with stage("mvs.shard.norms_parse", LAST_STAGES, "norms_parse_ms"):
-            _, norms = db.names_and_norms()
+            norms = textparse.db_norms(db_folder)
             # float64, text round-tripped — reference :900
             norms_sq = norms * norms
 
