@@ -6,10 +6,12 @@ Port of the JAX package's fused and two-phase engines
 391-520, 788-1105, 1107-1273``) and of its MinHash shard (``:1275-1333``).
 The fused engine:
 
-1. Staging: the int32 vectors go to the device in chunks and are split into
-   (P, Npad, d_pad) int8 Karatsuba planes there; thresholds are the
-   text-parsed squared norms (+ the certified slack adjustment), 1e30 on
-   pad rows.
+1. Staging: vectors.bin is read in chunks of its own dtype by reader
+   threads into a ring of page-locked host buffers, each chunk is copied
+   to the device on a copy stream and split into (P, Npad, d_pad) int8
+   Karatsuba planes there, the reads, copies and splits overlapped
+   (:func:`_upload_rows`); thresholds are the text-parsed squared norms
+   (+ the certified slack adjustment), 1e30 on pad rows.
 2. Sweep: kernel APPEND over the shard's TRIANGLE tile grid (only column
    tiles c >= r inside the shard's own row-tile range; mirrors are
    re-emitted by kernel X) with self-pairs masked, over a tile list on the
@@ -99,8 +101,19 @@ from ..ops import pairwise_math as pm
 #   parse and scan_max_abs, before total_ms starts; norms_parse_ms
 #   (mvs.shard.norms_parse) the vector_norms.txt parse inside it;
 # - total_ms (no span): from the end of the entry to the end of the write;
-# - stage_ms (mvs.shard.stage), with stage_h2d_ms (mvs.shard.stage_h2d)
-#   and stage_decompose_ms (mvs.shard.decompose) inside it, synchronised;
+# - stage_ms (mvs.shard.stage): the staging of the rows (_upload_rows),
+#   synchronised once at its end. Inside it: stage_h2d_ms (the span
+#   mvs.shard.stage_h2d encloses the enqueue) and stage_decompose_ms
+#   (mvs.shard.decompose), on CUDA the copies' and the limb
+#   decompositions' summed device time (CUDA events, read once when the
+#   staging ends), on the CPU their walls; stage_wait_ms
+#   (mvs.shard.stage_wait): the calling thread's waits for a host buffer's
+#   fill, a buffer's copy, or the streaming engine's prefetched window;
+#   stage_read_ms: the file reads' wall, summed over chunks (the resident
+#   stager's preadv fills on its reader threads, no span; the streaming
+#   engines' memmap reads, mvs.shard.stage_read, a window's on the worker
+#   thread outside the call's span); stage_bytes: the bytes of vectors.bin
+#   read for staging. All five are 0 on a residency hit;
 # - sweep_ms (mvs.shard.sweep, one span a round): kernel APPEND,
 #   synchronised;
 # - extract_ms (mvs.shard.extract): the fused engines' kernel X with its
@@ -114,10 +127,7 @@ from ..ops import pairwise_math as pm
 # Counters: candidates, emitted, pairs_written, mode, readback_bytes (the
 # bytes the fused engines copy device->host from kernel X: kept pairs and
 # counters). The streaming engine
-# adds stage_read_ms (mvs.shard.stage_read: the memmap reads, the windows'
-# on the worker thread, outside the call's span), stage_wait_ms
-# (mvs.shard.stage_wait: time spent waiting for a prefetched window, inside
-# stage_ms), row_groups, windows and tiles_swept. The two-phase engine's
+# adds row_groups, windows and tiles_swept. The two-phase engine's
 # sweep_ms is its counts sweep (plus, streaming, the row tile's staging),
 # its extract_ms the extraction net of the finalize nested in it, whose
 # exact dots finalize_ms includes; it adds hot_tiles (tiles the counts
@@ -127,8 +137,12 @@ from ..ops import pairwise_math as pm
 # MinHash stages (ops.minhash.LAST_STAGES, write_ms, pairs_written).
 LAST_STAGES: dict = {}
 
-# int32 bytes of vectors per host->device staging chunk
-STAGE_CHUNK_BYTES = 256 << 20
+# bytes of vectors (of the rows' own dtype) per host->device staging chunk
+STAGE_CHUNK_BYTES = 64 << 20
+# host buffers of a chunk in the staging ring (page-locked on CUDA)
+STAGE_RING = 3
+# threads that fill one host buffer (vectors.bin reads, or a block's copy)
+STAGE_READERS = min(4, os.cpu_count() or 1)
 # first capacity (pairs) of the survivor buffer; grows to the exact size
 SWEEP_CAP_START = 1 << 22
 # first capacity (pairs) of kernel X's kept-pair buffer, which also holds
@@ -206,8 +220,9 @@ def _reset_stages():
                        # included
                        candidates=0, emitted=0, pairs_written=0,
                        stage_decompose_ms=0.0, stage_h2d_ms=0.0,
-                       entry_ms=0.0, norms_parse_ms=0.0, combine_ms=0.0,
-                       mirror_ms=0.0, readback_bytes=0)
+                       stage_read_ms=0.0, stage_wait_ms=0.0,
+                       stage_bytes=0, entry_ms=0.0, norms_parse_ms=0.0,
+                       combine_ms=0.0, mirror_ms=0.0, readback_bytes=0)
 
 
 def _sync(dev: torch.device) -> None:
@@ -357,34 +372,159 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
     return shard_folder
 
 
-def _upload_rows(planes, block, row0, L, max_abs, db, dev):
-    """Write the (n, d) int32 host rows ``block`` into the (P, *, d_pad)
-    int8 planes at row ``row0``, one STAGE_CHUNK_BYTES chunk at a time:
-    host->device copy, the stale-max_component check on the chunk, the limb
-    decomposition. The one stager of both engines."""
-    chunk = max(1, STAGE_CHUNK_BYTES // (4 * block.shape[1]))
-    for s in range(0, len(block), chunk):
-        with stage("mvs.shard.stage_h2d", LAST_STAGES, "stage_h2d_ms"):
-            part = torch.from_numpy(block[s:s + chunk]).to(dev)
-            _sync(dev)
-        with stage("mvs.shard.decompose", LAST_STAGES, "stage_decompose_ms"):
-            lo, hi = (int(x) for x in torch.aminmax(part))
-            if max(hi, -lo) > max_abs:
-                raise ValueError(
-                    f"max_component.txt ({max_abs}) is stale: vectors.bin "
-                    f"holds |component| up to {max(hi, -lo)}. Delete "
-                    f"{os.path.join(db.path, 'max_component.txt')} or "
-                    "rebuild the db folder.")
-            pw.planes_update(planes, pw.decompose_limbs(part, L), row0 + s)
-            del part
-            _sync(dev)
+class _FileRows:
+    """The (total, d) rows of vectors.bin, of its own dtype, behind one
+    open file: fill(out, lo, hi) reads rows lo..hi into the host array
+    ``out`` with os.preadv at their byte offset, looping on short reads.
+    preadv releases the GIL, so several threads fill one buffer at once."""
+
+    def __init__(self, db, total, d):
+        self.path = os.path.join(db.path, "vectors.bin")
+        self.dtype = _vector_dtype(db)
+        self.shape = (total, d)
+        self.row_bytes = d * self.dtype.itemsize
+        self.fd = os.open(self.path, os.O_RDONLY)
+        size = os.fstat(self.fd).st_size
+        if size < total * self.row_bytes:
+            os.close(self.fd)
+            raise ValueError(f"{self.path} holds {size} bytes: fewer than "
+                             f"{total} rows of {self.row_bytes}")
+
+    def fill(self, out, lo, hi):
+        view = memoryview(out).cast("B")
+        pos, done = lo * self.row_bytes, 0
+        while done < len(view):
+            got = os.preadv(self.fd, [view[done:]], pos + done)
+            if got <= 0:
+                raise ValueError(f"{self.path} ends at byte {pos + done}, "
+                                 f"before row {hi}")
+            done += got
+
+    def close(self):
+        os.close(self.fd)
+
+
+class _BlockRows:
+    """(n, d) host rows already in memory (the streaming engines' windows),
+    with _FileRows' fill."""
+
+    def __init__(self, block):
+        self.block, self.shape, self.dtype = block, block.shape, block.dtype
+
+    def fill(self, out, lo, hi):
+        np.copyto(out, self.block[lo:hi])
+
+
+def _timed_fill(rows, out, lo, hi):
+    t0 = time.perf_counter()
+    rows.fill(out, lo, hi)
+    return t0, time.perf_counter()
+
+
+def _upload_rows(planes, rows, row0, L, max_abs, db, dev) -> float:
+    """Write the (n, d) host rows ``rows`` (:class:`_FileRows` or
+    :class:`_BlockRows`) into the (P, *, d_pad) int8 planes at row
+    ``row0``, one STAGE_CHUNK_BYTES chunk at a time, through a pipeline:
+    STAGE_READERS threads fill the next of STAGE_RING host buffers
+    (page-locked on CUDA) while the last chunk is copied to one of two
+    device buffers on a copy stream and split into limbs on the current
+    stream. A host buffer is refilled once its copy's event has completed,
+    a device buffer once the decomposition that read it has; the one host
+    sync is the stale-max_component check at the end (each chunk's min and
+    max stay on the device until then). On the CPU the same loop runs
+    without streams. The one stager of every engine. -> the fills' wall
+    (ms), summed over the chunks."""
+    n, d = rows.shape
+    if n == 0:
+        return 0.0
+    chunk = min(n, max(1, STAGE_CHUNK_BYTES // (rows.dtype.itemsize * d)))
+    starts = range(0, n, chunk)
+    cuda = dev.type == "cuda"
+    dt = torch.int16 if rows.dtype == np.int16 else torch.int32
+    ring = [torch.empty((chunk, d), dtype=dt, pin_memory=cuda)
+            for _ in range(min(STAGE_RING, len(starts)))]
+    bufs = [torch.empty((chunk, d), dtype=dt, device=dev)
+            for _ in range(min(2, len(starts)))]
+    if cuda:
+        copies = torch.cuda.Stream(dev)
+        compute = torch.cuda.current_stream(dev)
+        for b in bufs:
+            b.record_stream(copies)
+        h2d = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+               for _ in starts]
+        dec = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+               for _ in starts]
+    walls: dict = {}
+    fill_ms = 0.0
+    bounds = []
+    with ThreadPoolExecutor(STAGE_READERS) as pool:
+        def read(k):
+            """Fill host buffer k % STAGE_RING with chunk k, in parts."""
+            m = min(chunk, n - starts[k])
+            out = ring[k % len(ring)][:m].numpy()
+            cuts = [m * i // min(STAGE_READERS, m)
+                    for i in range(min(STAGE_READERS, m) + 1)]
+            return [pool.submit(_timed_fill, rows, out[a:b], starts[k] + a,
+                                starts[k] + b)
+                    for a, b in zip(cuts, cuts[1:])]
+
+        pending = read(0)
+        for k, s in enumerate(starts):
+            m = min(chunk, n - s)
+            with stage("mvs.shard.stage_wait", LAST_STAGES, "stage_wait_ms"):
+                spans = [f.result() for f in pending]
+                if cuda and len(ring) <= k + 1 < len(starts):
+                    h2d[k + 1 - len(ring)][1].synchronize()
+            fill_ms += 1e3 * (max(t[1] for t in spans)
+                              - min(t[0] for t in spans))
+            if k + 1 < len(starts):
+                pending = read(k + 1)
+            host, buf = ring[k % len(ring)][:m], bufs[k % 2][:m]
+            with stage("mvs.shard.stage_h2d", walls, "stage_h2d_ms"):
+                if cuda:
+                    if k >= 2:
+                        copies.wait_event(dec[k - 2][1])
+                    h2d[k][0].record(copies)
+                    with torch.cuda.stream(copies):
+                        buf.copy_(host, non_blocking=True)
+                    h2d[k][1].record(copies)
+                else:
+                    buf.copy_(host)
+            with stage("mvs.shard.decompose", walls, "stage_decompose_ms"):
+                if cuda:
+                    compute.wait_event(h2d[k][1])
+                    dec[k][0].record(compute)
+                v = buf.to(torch.int32)
+                bounds.append(torch.stack(torch.aminmax(v)))
+                pw.planes_update(planes, pw.decompose_limbs(v, L), row0 + s)
+                del v
+                if cuda:
+                    dec[k][1].record(compute)
+    mins, maxs = torch.stack(bounds).T.tolist()
+    worst = max(max(maxs), -min(mins))
+    if worst > max_abs:
+        raise ValueError(
+            f"max_component.txt ({max_abs}) is stale: vectors.bin holds "
+            f"|component| up to {worst}. Delete "
+            f"{os.path.join(db.path, 'max_component.txt')} or rebuild the "
+            "db folder.")
+    if cuda:
+        walls = {"stage_h2d_ms": sum(a.elapsed_time(b) for a, b in h2d),
+                 "stage_decompose_ms": sum(a.elapsed_time(b)
+                                           for a, b in dec)}
+    for key, ms in walls.items():
+        LAST_STAGES[key] += ms
+    return fill_ms
+
+
+def _vector_dtype(db) -> np.dtype:
+    return np.dtype(np.int16 if db.dtype == "int16" else np.int32)
 
 
 def _vectors(db, total, d):
     """vectors.bin as a read-only (total, d) memmap of its own dtype."""
-    vec_dt = np.int16 if db.dtype == "int16" else np.int32
-    return np.memmap(os.path.join(db.path, "vectors.bin"), dtype=vec_dt,
-                     mode="r", shape=(total, d))
+    return np.memmap(os.path.join(db.path, "vectors.bin"),
+                     dtype=_vector_dtype(db), mode="r", shape=(total, d))
 
 
 def _thresholds(norms_sq, L, max_abs, d):
@@ -399,20 +539,24 @@ def _stage_database(db, norms_sq, total, tile, L, d, max_abs, ops, key):
     it holds ``key`` (the stale-max check ran when it was filled, and the
     key holds max_abs and the files' mtimes), else staged on the lead
     device, replicated and kept in the slot (``value``: the lead device's
-    (planes, thr); ``replicas``: the slots'). Peak device memory is the
-    planes plus one int32 chunk on the lead card, the planes on the
-    others."""
+    (planes, thr); ``replicas``: the slots'). The rows are read from
+    vectors.bin afresh (:class:`_FileRows`, :func:`_upload_rows`); the
+    reads' wall goes to stage_read_ms and their bytes to stage_bytes. Peak
+    device memory is the planes plus two chunks on the lead card, the
+    planes on the others."""
     if _RESIDENT.get("key") == key:
         return _RESIDENT["replicas"]
     dev = ops.mesh.lead
     npad = (total + tile - 1) // tile * tile
-    V = _vectors(db, total, d)
     planes = torch.zeros((pm.num_planes(L), npad, pw.pad_dim(d)),
                          dtype=torch.int8, device=dev)
-    chunk = max(1, STAGE_CHUNK_BYTES // (4 * d))
-    for s in range(0, total, chunk):
-        _upload_rows(planes, np.array(V[s:s + chunk], dtype=np.int32), s, L,
-                     max_abs, db, dev)
+    rows = _FileRows(db, total, d)
+    try:
+        LAST_STAGES["stage_read_ms"] += _upload_rows(planes, rows, 0, L,
+                                                     max_abs, db, dev)
+    finally:
+        rows.close()
+    LAST_STAGES["stage_bytes"] += total * rows.row_bytes
     thr = np.full(npad, np.float32(1e30), dtype=np.float32)
     thr[:total] = _thresholds(norms_sq, L, max_abs, d)
     value = (planes, torch.from_numpy(thr).to(dev))
@@ -575,16 +719,33 @@ def _compute_streaming(db, norms_sq, total, begin_row, end_row, tile, L, d,
 def _stage_block(block, thr_all, start, n_rows, L, max_abs, db, ops):
     """(n, d) int32 host rows, global rows start.. -> per-slot replicas of
     their (P, n_rows, d_pad) int8 planes and (n_rows,) float32 thresholds
-    (1e30 on the pad rows past the block): the streaming engines' stager,
-    on the lead device."""
+    (1e30 on the pad rows past the block): the streaming engines' staging
+    of a block through :func:`_upload_rows`, on the lead device."""
     dev = ops.mesh.lead
     planes = torch.zeros((pm.num_planes(L), n_rows,
                           pw.pad_dim(block.shape[1])), dtype=torch.int8,
                          device=dev)
-    _upload_rows(planes, block, 0, L, max_abs, db, dev)
+    _upload_rows(planes, _BlockRows(block), 0, L, max_abs, db, dev)
     thr = np.full(n_rows, np.float32(1e30), dtype=np.float32)
     thr[:len(block)] = thr_all[start:start + len(block)]
     return ops.replicate(planes, torch.from_numpy(thr).to(dev))
+
+
+def _read_block(V, start, end):
+    """Rows start..end of the vectors memmap V as int32 -> (the rows, the
+    read's stage record: its wall, stage_read_ms, and its bytes of
+    vectors.bin, stage_bytes); :func:`_add_stages` adds the record on the
+    calling thread (a window is read on a worker thread)."""
+    rec = {"stage_bytes": (end - start) * V.strides[0]}
+    with stage("mvs.shard.stage_read", rec, "stage_read_ms"):
+        block = np.array(V[start:end], dtype=np.int32)
+    return block, rec
+
+
+def _add_stages(block, rec):
+    for key, val in rec.items():
+        LAST_STAGES[key] += val
+    return block
 
 
 def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
@@ -602,8 +763,7 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
     boundaries too; every upload and launch stays on this thread. On a
     mesh the row group and the window are staged on the lead device and
     replicated to the slots (JAX ``compute.py:1167-1259``)."""
-    LAST_STAGES.update(mode="fused-streaming", stage_wait_ms=0.0,
-                       stage_read_ms=0.0)
+    LAST_STAGES["mode"] = "fused-streaming"
     V = _vectors(db, total, d)
     thr_all = _thresholds(norms_sq, L, max_abs, d)
     P = pm.num_planes(L)
@@ -611,14 +771,6 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
     with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
         keeps = _retentions(ops, norms_sq, db.dtype, d, begin_row, end_row,
                             total)
-
-    def read(start, end):
-        """-> (the rows as int32, the read's ms): the caller adds the ms, as
-        a window is read on the worker thread."""
-        rec: dict = {}
-        with stage("mvs.shard.stage_read", rec, "stage_read_ms"):
-            block = np.array(V[start:end], dtype=np.int32)
-        return block, rec["stage_read_ms"]
 
     bytes_per_tile = P * tile * d
     share = max(budget // 4, 2 * bytes_per_tile)
@@ -633,7 +785,7 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
                        windows=len(windows), tiles_swept=0)
 
     with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(read, *schedule[0][1])
+        fut = pool.submit(_read_block, V, *schedule[0][1])
         cur_rg = None
         for si, (rg, (ws, we)) in enumerate(schedule):
             if rg != cur_rg:
@@ -641,8 +793,7 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
                 n_r = (rg_end - rg + tile - 1) // tile
                 with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
                     planes_r = thr_r = None       # free the last group first
-                    block, read_ms = read(rg, rg_end)
-                    LAST_STAGES["stage_read_ms"] += read_ms
+                    block = _add_stages(*_read_block(V, rg, rg_end))
                     planes_r, thr_r = _stage_block(block, thr_all, rg,
                                                    n_r * tile, L, max_abs,
                                                    db, ops)
@@ -652,9 +803,8 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
             with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
                 with stage("mvs.shard.stage_wait", LAST_STAGES,
                            "stage_wait_ms"):
-                    block, read_ms = fut.result()
-                LAST_STAGES["stage_read_ms"] += read_ms
-                fut = pool.submit(read, *schedule[si + 1][1]) \
+                    block = _add_stages(*fut.result())
+                fut = pool.submit(_read_block, V, *schedule[si + 1][1]) \
                     if si + 1 < len(schedule) else None
                 n_w = (we - ws + tile - 1) // tile
                 planes_w = thr_w = None       # free the last window first
@@ -784,15 +934,15 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
         n_w = (we - ws + tile - 1) // tile
         with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
             planes_w, thr_w = _stage_block(
-                np.array(V[ws:we], dtype=np.int32), thr_all, ws, n_w * tile,
-                L, max_abs, db, ops)
+                _add_stages(*_read_block(V, ws, we)), thr_all, ws,
+                n_w * tile, L, max_abs, db, ops)
         coords = np.array([(0, j) for j in range(n_w)], dtype=np.int32)
         lists = ops.tile_lists(coords)
         for bi in range(begin_row, end_row, tile):
             with stage("mvs.shard.sweep", LAST_STAGES, "sweep_ms"):
                 planes_r = thr_r = None       # free the last row tile first
                 planes_r, thr_r = _stage_block(
-                    np.array(V[bi:min(bi + tile, end_row)], dtype=np.int32),
+                    _add_stages(*_read_block(V, bi, min(bi + tile, end_row))),
                     thr_all, bi, tile, L, max_abs, db, ops)
                 counts = ops.sweep_counts(planes_r, thr_r, lists, tile, d,
                                           planes_w, thr_w)

@@ -1161,6 +1161,82 @@ def test_residency_cache_hit_on_cuda(cuda, tmp_path):
                            tmp_path / "fresh" / "shard_1" / f, shallow=False)
 
 
+def _staging_db(path, int16, n=4096, d=200):
+    """A db of five staging chunks (STAGE_CHUNK_BYTES of 900 rows) with a
+    group of near-duplicates."""
+    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
+    V, _, _, _ = _state("cpu", N=n, d=d, max_abs=30000 if int16 else 3000)
+    V[3000:3010] = V[5]
+    db = DbFolder.write(str(path), [f"S{i}" for i in range(n)], V, d,
+                        use_int16=int16)
+    return db, 900 * d * (2 if int16 else 4)
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_staged_planes_on_cuda_equal_cpu(cuda, tmp_path, monkeypatch, int16):
+    """The pipelined stager on the card (page-locked ring, copy stream,
+    five chunks of the file's own dtype) writes the CPU path's planes, byte
+    for byte; every host buffer it reads into is page-locked; the copies'
+    and the decompositions' device times are > 0; stage_bytes is the
+    file."""
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    from metagenome_vector_sketches_tpu_torch.parallel.engine import (
+        MeshSweepOps)
+    from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh
+    db, chunk_bytes = _staging_db(tmp_path / "db", int16)
+    monkeypatch.setattr(mc, "STAGE_CHUNK_BYTES", chunk_bytes)
+    pinned = []
+    real = mc._FileRows.fill
+
+    def spy(self, out, lo, hi):
+        pinned.append(torch.from_numpy(out).is_pinned())
+        return real(self, out, lo, hi)
+    monkeypatch.setattr(mc._FileRows, "fill", spy)
+    n, d = db.total_vectors_from_bin(), db.dimension
+    max_abs = mc.scan_max_abs(db)
+    L = pm.pick_limbs(max_abs)
+    planes = []
+    for dev in (torch.device("cpu"), cuda):
+        mc.clear_device_cache()
+        mc._reset_stages()
+        pinned.clear()
+        ops = MeshSweepOps(Mesh([dev]))
+        slots, _ = mc._stage_database(db, np.ones(n), n, 256, L, d,
+                                      max_abs, ops, ("staging", dev.type))
+        planes.append(slots[0].cpu())
+        assert pinned and all(pinned) == (dev.type == "cuda")
+        st = mc.LAST_STAGES
+        assert st["stage_bytes"] == n * d * (2 if int16 else 4)
+        assert st["stage_h2d_ms"] > 0 and st["stage_decompose_ms"] > 0
+        assert st["stage_read_ms"] > 0
+    mc.clear_device_cache()
+    assert len(pinned) >= 5
+    assert torch.equal(planes[0], planes[1])
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_resident_streaming_two_phase_equal_over_chunks(cuda, tmp_path,
+                                                        monkeypatch, int16):
+    """Staged through five chunks, a resident shard, a streaming shard
+    (device_budget_bytes=0) and a two-phase shard of one db are byte-equal
+    on the card."""
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    db, chunk_bytes = _staging_db(tmp_path / "db", int16)
+    monkeypatch.setattr(mc, "STAGE_CHUNK_BYTES", chunk_bytes)
+    runs = {"resident": {}, "streaming": {"device_budget_bytes": 0},
+            "two_phase": {"engine": "two_phase"}}
+    for name, kw in runs.items():
+        mc.clear_device_cache()
+        for s in range(2):
+            mc.compute_pairwise_shard(db.path, str(tmp_path / name), 2, s,
+                                      tile_rows=512, verbose=False,
+                                      device=cuda, **kw)
+    mc.clear_device_cache()
+    for name in ("streaming", "two_phase"):
+        _same_shard_files(tmp_path / "resident", tmp_path / name, (0, 1))
+
+
 # ---------------------------------------------------------------------------
 # the multi-device layer: slots of one card, and a second card
 # ---------------------------------------------------------------------------
