@@ -1,45 +1,41 @@
 #!/usr/bin/env python3
-"""GPU smoke test of the PyTorch/CUDA port (metagenome_vector_sketches_tpu_torch).
+"""GPU correctness smoke test of the PyTorch/CUDA port
+(metagenome_vector_sketches_tpu_torch).
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # N = 65,536 accessions, d = 2048
     python3 chip_smoke.py --n 262144
 
-It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
+It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and checks,
+phase by phase, that every path gives the exact answer on the card. It
+times nothing: the benchmark (BENCHMARK.json, portbench/) measures the
+port.
 
 1. kernels: each kernel against its plain PyTorch version on the card,
    with exact equality (projection P, the counts sweep COUNT over row
    ranges, rectangular tiles and a tile list on two operands, the sweep
    with survivor compaction APPEND (COUNT's second epilogue, csrc/count.cu)
    with a nonzero diagonal offset and past its cap, its counts against
-   COUNT's, partials X, incidence Gram G at ragged n and u), and the
-   TMA/wgmma cores of COUNT, APPEND and S at the edges of their contracts
-   (d_pad 64, 192, 2048; P = 1, 3, 6, 10; 128-row and 128 x 256 tiles;
-   diag_offset +-128; SCORE at B = 1 and 256 with a ragged valid count; G
-   at n = 128, 384),
-   and the selection K bit-equal (keys, lanes, merged keys, positions) in
-   each of its regimes (two-stage over one and five tiles a row, one CTA a
-   row, the multi-CTA radix select, the full sort), with valid < R, all
-   -inf rows and rows of one score (the survivor overflow), ties
-   straddling 128-lane blocks, B = 1 and 256, an empty and a full running
-   pool, strided and unaligned rows, and on its key entry;
+   COUNT's, partials X and its retention epilogue, incidence Gram G at
+   ragged n and u), and the TMA/wgmma cores of COUNT, APPEND and S at the
+   edges of their contracts (d_pad 64, 192, 2048; P = 1, 3, 6, 10; 128-row
+   and 128 x 256 tiles; diag_offset +-128; SCORE at B = 1 and 256 with a
+   ragged valid count; G at n = 128, 384), and the selection K bit-equal
+   (keys, lanes, merged keys, positions) in each of its regimes (two-stage
+   over one and five tiles a row, one CTA a row, the multi-CTA radix
+   select, the full sort), with valid < R, all -inf rows and rows of one
+   score (the survivor overflow), ties straddling 128-lane blocks, B = 1
+   and 256, an empty and a full running pool, strided and unaligned rows,
+   and on its key entry;
 2. main: the main path at N accessions x d = 2048 — synthetic hash sets
    with planted groups -> sketch (P) -> one pairwise shard (APPEND, X) ->
    top-k queries of planted rows; planted recall must be 1.0, an exact
    numpy oracle must agree on sampled rows, and every kernel's launch
-   count over that run must be > 0. The sketch's split (parse, batch
-   assembly, H2D, projection, D2H, db write) comes from host timers around
-   a copy of its steps, whose db must equal the run's. Then each kernel is timed against
-   its plain version and its bound at the main path's shapes (P also on a
-   skewed batch: the toy fixture's real set sizes, 3 to 80,772 hashes,
-   filling one project_many batch; P and X also as the kernel alone, from
-   a profiler trace; X from a cold L2), with the TOP/s and share of the
-   int8 peak of APPEND (wrapper over a tile list on the card, kernel alone,
-   host time of a call) and a torch._int_mm yardstick of the GEMM core
-   alone (printed as such: the port never calls it); the card's SM clock
-   and power draw are sampled (nvidia-smi, in a thread) through the shard
-   and printed for its sweep's windows;
+   count over that run must be > 0. Then P, APPEND and X against their
+   plain versions at the main path's shapes (P also on a skewed batch:
+   the toy fixture's real set sizes, 3 to 80,772 hashes, filling one
+   project_many batch);
 3. cli: the README walkthrough through the port's command-line tools at
    N = 2048 on an int32 and an --int16 db, every output held against an
    exact numpy oracle — sketch, pairwise_comp (also with --finalize device
@@ -54,21 +50,16 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    engine's (D, I) equal to a float64 brute force on the card, the f32
    engine within 1e-5 of it, one adaptive search per engine, the scan,
    selection and two-operand partials kernels against their plain versions
-   (S SCORE's TOP/s, bound and yardstick; K's wrapper and kernel-alone ms,
-   each of its kernels, beside its bound, torch.topk and torch.sort over
-   the packed keys, at the int8 and f32 searches' shapes, adaptive level 4
-   and kc = R), the search / adaptive walls and both engines' search
-   stages;
+   at the path's shapes (K at the int8 and f32 searches' pools, adaptive
+   level 4 and kc = R);
 5. stream: the beyond-memory streaming engine on phase 2's db with the
    device budget at half its planes' bytes (8 row groups x 8 windows at
    N = 65,536): its shard must be byte-equal to phase 2's resident shard;
-   walls of both and the streaming stages;
 6. minhash: --strategy 1 (kernel G) on the toy fixture (every pair's
    intersection against np.intersect1d) and on N = 8,192 synthetic sets
    (a universe of ~2.1M hashes): the shard equal to an exact sparse
    oracle, every planted pair and self-pair present, kernel G against its
-   plain version, its bound and torch._int_mm(A, A.t()) at the path's
-   chunk shape, the stage walls;
+   plain version at the path's chunk shape;
 7. tools (after phase 3, on its int32 db and shards): read_pc_mat
    --query_file and the port's read_pc_mat_module (query, query_sliced)
    against the exact oracle and query_pc_mat's top-5 files; the decoded
@@ -89,9 +80,9 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    num_shards=2 (byte-equal to the single-device shards 0 and 1), the f32
    distributed top-k (equal to the flat index's up to ties) and the
    pipeline step on 4,096 of phase 2's sets (survivors equal to a plain
-   count, top-k equal to a plain float32 top-k up to ties), every timed
-   call's result checked; walls beside the single-device ones. Two cards, NCCL between
-   them and launches on cuda:1 need a second card (tests/test_torch_gpu.py).
+   count, top-k equal to a plain float32 top-k up to ties), each repeated
+   call's result checked. Two cards, NCCL between them and launches on
+   cuda:1 need a second card (tests/test_torch_gpu.py).
 9. two_phase (after phase 5, on phase 2's db): compute_pairwise_shard
    with engine="two_phase" (the path of the JAX package's one Pallas
    kernel: kernel COUNT over the full rectangle, hot-tile extraction
@@ -100,35 +91,28 @@ It builds the port's CUDA kernels from csrc/ (nvcc, sm_90a) and runs:
    mesh of two slots of cuda:0, each shard byte-equal to phase 2's fused
    shard; COUNT and APPEND launched in every run, no reruns; the host
    finalize after a fused shard of the same db re-uses its staged planes;
-   walls and stages beside that fused shard, the SM clock and power draw
-   sampled through the counted shard's sweeps; COUNT and APPEND (self-pairs
-   kept) on 16 tiles of 2048^2 at P = 3 (phase 2's rows) and P = 6 (an
-   int16-like db) against their plain versions and APPEND's counts against
-   COUNT's, their wrapper, kernel-alone and host ms a call, bound and
-   torch._int_mm yardstick, and 2 s of calls of each back to back beside
-   the SM clock and power draw sampled meanwhile.
+   COUNT and APPEND (self-pairs kept) on 16 tiles of 2048^2 at P = 3
+   (phase 2's rows) and P = 6 (an int16-like db) against their plain
+   versions and APPEND's counts against COUNT's.
 
 Each path's kernels must be launched in that path's counted run (counts
 set to 0 just before it, read just after). At the end no module of jax or
 of the JAX package (metagenome_vector_sketches_tpu) may be loaded. Any
 failure raises (exit code != 0). On success the last two lines of stdout
-are a JSON object with the per-kernel results (launches, max_abs_err, ms,
-plain_ms, bound_ms, bound_by, library_ms) and {"ok": true, "device":
-{...}}. Without CUDA it exits with 1 and prints no result.
+are a JSON object with the per-kernel results (launches, max_abs_err) and
+{"ok": true, "device": {...}}. Without CUDA it exits with 1 and prints no
+result.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 
@@ -149,16 +133,6 @@ SOURCES = {"projection": "projection.cu", "sweep": "count.cu",
            "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu",
            "select": "select.cu", "count": "count.cu", "keep": "partials.cu"}
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
-# the card's published rates (H100 SXM, dense, at 700 W): int8 tensor cores,
-# the rate outside the tensor cores (float32; kernel X's integer work is
-# counted against it), device memory
-INT8_PEAK = 1979e12
-CORE_PEAK = 67e12
-HBM_RATE = 3.35e12
-# SASS instructions of splitmix64 per (hash, 64-lane block) in kernel P
-# (cuobjdump -sass of csrc/projection.cu; see its source note): the work
-# no design of P avoids, issued at 4 schedulers x 32 lanes per SM and clock
-SPLITMIX_SASS = 22
 # the kernels each counted path must launch
 MAIN_KERNELS = ("projection", "sweep", "keep")
 ANN_KERNELS = ("scan", "partials", "select")
@@ -175,122 +149,10 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device time of fn() over reps calls (CUDA events, warm)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(ops, peak, nbytes):
-    """(least ms the card could take, "operations" or "bytes"): the larger
-    of ops at peak and nbytes (each input read once, each output written
-    once) at HBM_RATE."""
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_RATE * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def timed(ms, plain_ms, ops, peak, nbytes, library_ms=None):
-    """One kernel's entry of the kernels line."""
-    b, by = bound(ops, peak, nbytes)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": library_ms, "ops": ops}
-
-
-def rate_line(tag, what, t):
-    say(f"[{tag}] {what}: {t['ops'] / (t['ms'] * 1e-3) / 1e12:.1f} TOP/s, "
-        f"{100 * t['ops'] / (t['ms'] * 1e-3) / INT8_PEAK:.1f}% of the "
-        f"{INT8_PEAK / 1e12:,.0f} TOP/s int8 peak; {t['ms']:.4f} ms against "
-        f"its bound {t['bound_ms']:.4f} ms ({t['bound_by']}): "
-        f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
-
-
-def kernel_ms(fn, name: str, reps: int = 10, cold: bool = False):
-    """Mean device time per fn() call of the port's kernels whose name holds
-    ``name``, from a torch.profiler trace (compare_kernels.kernel_ms;
-    ``cold``: the L2 flushed before each call); None if the trace holds no
-    such device time."""
-    from metagenome_vector_sketches_tpu_torch.compare_kernels import (
-        kernel_ms as traced)
-    return traced(fn, name, reps, cold)
-
-
-def cold_ms(fn, reps: int = 10) -> float:
-    """Mean time of one fn() call from an idle device with a cold L2
-    (compare_kernels.cold_ms)."""
-    from metagenome_vector_sketches_tpu_torch.compare_kernels import (
-        cold_ms as cold)
-    return cold(fn, reps)
-
-
-def issue_rate() -> float:
-    """Lane-instructions per second the card can issue: 4 schedulers x 32
-    lanes x SMs x the SM clock nvidia-smi reads as clocks.max.sm (MHz)."""
-    import torch
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 4 * 32 * sms * mhz * 1e6
-
-
-def alone_str(ms) -> str:
-    return f"{ms:.4f} ms" if ms is not None else "not measured"
-
-
 def rows_of(rc, n):
     """Survivor pairs of a (cap, 2) buffer as a sorted (n, 2) numpy array."""
     a = rc[:n].cpu().numpy().astype(np.int64)
     return a[np.lexsort((a[:, 1], a[:, 0]))]
-
-
-class SweepWindows:
-    """(start, end) time.perf_counter windows of every call of the engine's
-    sweeps (MeshSweepOps.sweep_counts: kernel COUNT; sweep_extract_fused:
-    kernel APPEND; each ends synchronised) made while the block runs."""
-
-    NAMES = ("sweep_counts", "sweep_extract_fused")
-
-    def __enter__(self):
-        from metagenome_vector_sketches_tpu_torch.parallel.engine import (
-            MeshSweepOps)
-        self.cls = MeshSweepOps
-        self.real = {k: getattr(MeshSweepOps, k) for k in self.NAMES}
-        self.windows = {k: [] for k in self.NAMES}
-
-        def timed_call(name):
-            def call(ops, *args, **kw):
-                t0 = time.perf_counter()
-                out = self.real[name](ops, *args, **kw)
-                self.windows[name].append((t0, time.perf_counter()))
-                return out
-            return call
-
-        for k in self.NAMES:
-            setattr(MeshSweepOps, k, timed_call(k))
-        return self
-
-    def __exit__(self, *exc):
-        for k, fn in self.real.items():
-            setattr(self.cls, k, fn)
-
-    def report(self, tag, clocks):
-        for k, label in zip(self.NAMES, ("COUNT sweep", "APPEND sweep")):
-            w = self.windows[k]
-            if w:
-                say(f"[{tag}] clocks during the {label} ({len(w)} calls, "
-                    f"{sum(b - a for a, b in w) * 1e3:.1f} ms): "
-                    f"{clocks.line(w)}")
-        say(f"[{tag}] clocks through the whole shard: {clocks.line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -679,113 +541,32 @@ def phase_kernels(errs):
 # phase 2: the main path at production size
 # ---------------------------------------------------------------------------
 
-def sketch_split(hashes, out, run_db):
-    """io/ingest.py::sketch's steps (and ops/projection.py::project_many's
-    batching), copied with host timers around each: -> {step: seconds}.
-    The copy's db folder must equal the run's (``run_db``)."""
-    import filecmp
-    import torch
-    from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
-    from metagenome_vector_sketches_tpu_torch.io.hashes import (
-        parse_hashes_file)
-    from metagenome_vector_sketches_tpu_torch.ops import projection as pj
-    t = dict.fromkeys(("parse", "batch assembly", "H2D", "projection",
-                       "D2H", "db write"), 0.0)
-
-    def lap(step, t0):
-        t[step] += time.perf_counter() - t0
-        return time.perf_counter()
-
-    t0 = time.perf_counter()
-    named = parse_hashes_file(hashes)
-    t0 = lap("parse", t0)
-    arrays = [pj._as_u64_array(h) for _, h in named]
-    sizes = np.array([len(a) for a in arrays], dtype=np.int64)
-    vectors = np.empty((len(arrays), D), dtype=np.int32)
-    s = 0
-    while s < len(arrays):
-        t0 = time.perf_counter()
-        e, tot = s + 1, int(sizes[s])
-        while e < len(arrays) and e - s < pj.BATCH_SETS \
-                and tot + sizes[e] <= pj.BATCH_HASHES:
-            tot += int(sizes[e])
-            e += 1
-        flat = np.concatenate(arrays[s:e])
-        offsets = np.zeros(e - s + 1, dtype=np.int64)
-        np.cumsum(sizes[s:e], out=offsets[1:])
-        t0 = lap("batch assembly", t0)
-        h = torch.from_numpy(flat.view(np.int64)).cuda()
-        torch.cuda.synchronize()
-        t0 = lap("H2D", t0)
-        v = pj.project_batch(h, offsets, D, "cuda")
-        torch.cuda.synchronize()
-        t0 = lap("projection", t0)
-        vectors[s:e] = v.cpu().numpy()
-        lap("D2H", t0)
-        s = e
-    t0 = time.perf_counter()
-    DbFolder.write(out, [n for n, _ in named], vectors, D)
-    lap("db write", t0)
-    for f in os.listdir(out):
-        check(filecmp.cmp(os.path.join(run_db, f), os.path.join(out, f),
-                          shallow=False), f"sketch split: {f} differs")
-    return t
-
-
-def _time_projection(flat, sizes, what):
+def _check_projection(flat, sizes, what):
     """Kernel P on one CSR batch (offsets on the host, as project_many
-    passes them): equal to the plain version; -> (timings entry of the
-    wrapper call, kernel-alone ms). Bound: splitmix64's SASS instructions
-    per (hash, block) at the card's issue rate, or the bytes (8 per hash
-    and offset in, 4 d per set out)."""
+    passes them) equal to the plain version."""
     import torch
     from metagenome_vector_sketches_tpu_torch.ops import projection as pj
     h = torch.from_numpy(flat).cuda()
     o = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    o_dev = torch.from_numpy(o).cuda()
     check(torch.equal(pj.project_batch(h, o, D, "cuda"),
-                      pj.project_batch_plain(h, o_dev, D)),
+                      pj.project_batch_plain(h, torch.from_numpy(o).cuda(),
+                                             D)),
           f"projection differs from plain at the {what} batch")
-    n_hashes = int(sizes.sum())
-    t = timed(cuda_ms(lambda: pj.project_batch(h, o, D, "cuda")),
-              cuda_ms(lambda: pj.project_batch_plain(h, o_dev, D), reps=3),
-              SPLITMIX_SASS * n_hashes * ((D + 63) // 64), issue_rate(),
-              8 * n_hashes + 8 * len(o) + 4 * len(sizes) * D)
-    return t, kernel_ms(lambda: pj.project_batch(h, o, D, "cuda"),
-                        "project_")
 
 
-def _time_partials(x, rc, L, y=None):
+def _check_partials(x, rc, L, y=None):
     """Kernel X on candidate pairs: equal to the plain version, range flag
-    clear; -> (timings entry of the wrapper call, kernel-alone ms), each
-    call from a cold L2 (the rows come from device memory, as on the
-    paths). Bound: its multiply-adds at the non-tensor rate, or the
-    distinct rows' limb bytes in, the pairs in and the partials out."""
+    clear."""
     import torch
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
-    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
     flag = pw.range_flag("cuda")
     check(torch.equal(pw.pair_partials(x, rc, L, y, flag),
                       pw.pair_partials_plain(x, rc, L, y)),
           f"partials differ from plain ({len(rc)} pairs)")
     pw.check_range_flag(flag)
-    d_pad = x.shape[2]
-    if y is None:
-        rows = int(torch.unique(rc).numel())
-    else:
-        rows = int(torch.unique(rc[:, 0]).numel()) \
-            + int(torch.unique(rc[:, 1]).numel())
-    t = timed(cold_ms(lambda: pw.pair_partials(x, rc, L, y, flag)),
-              cold_ms(lambda: pw.pair_partials_plain(x, rc, L, y), reps=3),
-              2 * len(rc) * L * L * d_pad, CORE_PEAK,
-              rows * L * d_pad + 8 * len(rc) + 4 * len(rc) * pm.num_planes(L))
-    alone = kernel_ms(lambda: pw.pair_partials(x, rc, L, y, flag),
-                      "partials_kernel", cold=True)
-    pw.check_range_flag(flag)
-    return t, alone
 
 
-def _check_keep(planes, rc, L, ns, d, int16, total, tile, cap=None):
+def _check_keep(planes, rc, L, ns, d, int16, total, tile):
     """Kernel X's retention epilogue against its plain version on the card
     (a shard of rows [total / 5, 3 total / 5), twins on ``tile``): the
     same kept set and counters, the first buffer a third of the kept
@@ -816,34 +597,7 @@ def _check_keep(planes, rc, L, ns, d, int16, total, tile, cap=None):
     return 0
 
 
-def _time_keep(planes, rc, L, ns, d, int16, total, tile):
-    """Kernel X's retention epilogue on candidate pairs, each call from a
-    cold L2 (the rows come from device memory, as on the path): equal to
-    the plain version -> (timings entry of the wrapper call, kernel-alone
-    ms). Bound: the partials' multiply-adds at the non-tensor rate, or the
-    distinct rows' limb bytes, their norms and the pairs in and the kept
-    pairs out."""
-    import torch
-    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
-    _check_keep(planes, rc, L, ns, d, int16, total, tile)
-    keep = pw.Retention(torch.from_numpy(ns).cuda(), d, int16, total // 5,
-                        3 * total // 5, total)
-    twins = (tile, keep.begin_row // tile, (keep.end_row - 1) // tile + 1)
-    kept = int(pw.pair_keep(planes, rc, L, keep, 0, twins=twins)[1][0])
-    d_pad = planes.shape[2]
-    rows = int(torch.unique(rc).numel())
-
-    def call():
-        return pw.pair_keep(planes, rc, L, keep, kept, twins=twins)
-    t = timed(cold_ms(call),
-              cold_ms(lambda: pw.pair_keep_plain(planes, rc, L, keep, kept,
-                                                 twins=twins), reps=3),
-              2 * len(rc) * L * L * d_pad, CORE_PEAK,
-              rows * (L * d_pad + 8) + 8 * len(rc) + pw.KEPT_BYTES * kept)
-    return t, kernel_ms(call, "partials_kernel", cold=True)
-
-
-def phase_main(N, work, timings):
+def phase_main(N, work):
     import torch
     from metagenome_vector_sketches_tpu_torch import _build
     from metagenome_vector_sketches_tpu_torch.bench_data import (
@@ -860,37 +614,22 @@ def phase_main(N, work, timings):
 
     n_groups, n_heavy = max(1, N // 64), max(1, N // 128)
     hashes = os.path.join(work, "all_hashes.txt")
-    t0 = time.perf_counter()
     synth_hashes_file(hashes, N, n_groups, n_heavy)
-    say(f"[main] synthesised {N} hash sets in "
-        f"{time.perf_counter() - t0:.1f} s (set-up)")
     db_path, mat = os.path.join(work, "db"), os.path.join(work, "mat")
 
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
     db = sketch(hashes, db_path, D, device="cuda", verbose=False)
-    t_sketch = time.perf_counter() - t0
-    from metagenome_vector_sketches_tpu_torch.compare_kernels import Clocks
-    with Clocks() as clocks, SweepWindows() as windows:
-        t0 = time.perf_counter()
-        mc.compute_pairwise_shard(db_path, mat, device="cuda", verbose=False)
-        t_pair = time.perf_counter() - t0
+    mc.compute_pairwise_shard(db_path, mat, device="cuda", verbose=False)
     names, norms = db.names_and_norms_f32()
     rng = np.random.default_rng(3)
     n_query = min(1024, n_groups * GROUP)
     qrows = sorted(int(r) for r in rng.choice(n_groups * GROUP, n_query,
                                               replace=False))
-    t0 = time.perf_counter()
     results = query_engine.query(mat, qrows, norms, names)
-    t_query = time.perf_counter() - t0
     launches = _build.launch_counts()
-
-    stages = {k: (round(v, 1) if isinstance(v, float) else v)
-              for k, v in mc.LAST_STAGES.items()}
-    say(f"[main] stages N={N} d={D}: {json.dumps(stages)}")
-    say(f"[main] sketch {t_sketch:.2f} s, pairwise {t_pair:.2f} s, "
-        f"query {n_query} rows {t_query:.3f} s, launches {launches}")
-    windows.report("main", clocks)
+    say(f"[main] N={N} d={D}: sketch, one shard ({mc.LAST_STAGES['mode']}, "
+        f"{mc.LAST_STAGES['pairs_written']} pairs), {n_query} queries; "
+        f"launches {launches}")
     found = 0
     for row, res in zip(qrows, results):
         g = row // GROUP
@@ -909,35 +648,13 @@ def phase_main(N, work, timings):
         check(launches[k] > 0, f"kernel {k} was not launched by the main "
                                "path")
 
-    # the sketch's split, from a timed copy of its steps (after the counted
-    # run: these launches are not the main path's)
-    split = sketch_split(hashes, os.path.join(work, "db_split"), db_path)
-    say(f"[main] sketch split N={N}: " + ", ".join(
-        f"{k} {v:.3f} s" for k, v in split.items())
-        + f" (sum {sum(split.values()):.2f} s of the {t_sketch:.2f} s "
-        "sketch); the copy's db equals the run's")
-
     # kernels against their plain versions at the main path's shapes
     named = parse_hashes_file(hashes)[:pj.BATCH_SETS]  # project_many's batch
     sizes = np.array([len(h) for _, h in named])
-    flat = np.concatenate([x for _, x in named]).view(np.int64)
-    timings["projection"], p_alone = _time_projection(flat, sizes, "main")
+    _check_projection(np.concatenate([x for _, x in named]).view(np.int64),
+                      sizes, "main")
     skew = skewed_set_sizes()
-    sk_flat, _ = csr_hashes(skew, seed=3)
-    t_skew, s_alone = _time_projection(sk_flat, skew, "skewed")
-    t = timings["projection"]
-    per_hash = [x / int(n.sum()) * 1e6 for x, n in ((t["ms"], sizes),
-                                                   (t_skew["ms"], skew))]
-    say(f"[main] P main batch: wrapper {t['ms']:.4f} ms, kernel alone "
-        f"{alone_str(p_alone)}; skewed batch ({len(skew)} sets, "
-        f"{int(skew.sum())} hashes, median {float(np.median(skew))}): wrapper "
-        f"{t_skew['ms']:.4f} ms, kernel alone {alone_str(s_alone)}, plain "
-        f"{t_skew['plain_ms']:.4f} ms, bound {t_skew['bound_ms']:.4f} ms "
-        f"({t_skew['bound_by']}); wrapper ns per hash {per_hash[0]:.3f} main, "
-        f"{per_hash[1]:.3f} skewed ({per_hash[1] / per_hash[0]:.2f}x)")
-    if p_alone and s_alone:
-        say(f"[main] P kernel alone ns per hash: skewed / main "
-            f"{s_alone / int(skew.sum()) / (p_alone / int(sizes.sum())):.2f}x")
+    _check_projection(csr_hashes(skew, seed=3), skew, "skewed")
 
     tile = 2048
     V = np.fromfile(os.path.join(db_path, "vectors.bin"), dtype=np.int32,
@@ -954,66 +671,23 @@ def phase_main(N, work, timings):
                       dtype=np.int32)
     tiles = pw.TileList(coords, "cuda")       # the engine's list on the card
     cap = 1 << 22
-
-    def append():
-        return pw.sweep_extract(planes, thr, planes, thr, tiles, tile, cap,
-                                True, D)
-
-    rc_k, cnt_k, tot_k = append()
+    rc_k, cnt_k, tot_k = pw.sweep_extract(planes, thr, planes, thr, tiles,
+                                          tile, cap, True, D)
     rc_p, cnt_p, tot_p = pw.sweep_extract_plain(planes, thr, planes, thr,
                                                 coords, tile, cap, True, D)
     n = int(tot_k.item())
     check(n == int(tot_p.item()) and torch.equal(cnt_k, cnt_p)
           and np.array_equal(rows_of(rc_k, n), rows_of(rc_p, n)),
           "APPEND differs from plain at main-path shapes")
-    P = planes.shape[0]
-    pairs = len(coords) * tile * tile
-    timings["sweep"] = timed(
-        cuda_ms(append),
-        cuda_ms(lambda: pw.sweep_extract_plain(planes, thr, planes, thr,
-                                               coords, tile, cap, True, D),
-                reps=1),
-        2 * pairs * D * P, INT8_PEAK,
-        planes.numel() + 4 * thr.numel() + 12 * len(coords) + 8 * n)
-    alone = kernel_ms(append, "retention_kernel")
-    from metagenome_vector_sketches_tpu_torch.compare_kernels import host_ms
-    host = host_ms(append)
-    # the GEMM core alone, as a yardstick (not a kernel of the port): one
-    # torch._int_mm per plane and tile, no combine, threshold or compaction
-    blocks = [planes[p, i * tile:(i + 1) * tile] for p in range(P)
-              for i in range(4)]
-    yard = cuda_ms(lambda: [torch._int_mm(blocks[p * 4 + r],
-                                          blocks[p * 4 + c].t())
-                            for p in range(P) for r, c in coords.tolist()])
     self_rc = torch.arange(4 * tile, dtype=torch.int32, device="cuda")
     cand = torch.cat([rc_k[:n], self_rc[:, None].expand(-1, 2)]).contiguous()
-    timings["partials"], x_alone = _time_partials(planes, cand, L)
-    ns = norms64[:4 * tile] ** 2
-    timings["keep"], keep_alone = _time_keep(planes, cand, L, ns, D, False,
-                                             4 * tile, tile)
-    say(f"[main] timed shapes: P {len(named)} sets ({int(sizes.sum())} "
-        f"hashes) at d={D}; S {len(coords)} tiles of {tile}^2 "
-        f"({pairs} pairs, P={P}, {n} survivors); "
-        f"X {len(cand)} pairs at L={L}")
-    for k in ("projection", "sweep", "partials", "keep"):
-        t = timings[k]
-        say(f"[main] {k}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']})")
-    say(f"[main] X wrapper {timings['partials']['ms']:.4f} ms, kernel alone "
-        f"(profiler) {alone_str(x_alone)}")
-    say(f"[main] X keep wrapper {timings['keep']['ms']:.4f} ms, kernel alone "
-        f"(profiler) {alone_str(keep_alone)}")
-    rate_line("main", "APPEND (10 tiles of 2048^2, P=3)", timings["sweep"])
-    say(f"[main] APPEND P={P}: wrapper {timings['sweep']['ms']:.4f} ms, "
-        f"kernel alone (profiler) {alone_str(alone)}"
-        + (f" ({100 * timings['sweep']['bound_ms'] / alone:.1f}% of its "
-           f"bound)" if alone else "")
-        + f", host {host * 1e3:.1f} us a call, plain "
-        f"{timings['sweep']['plain_ms']:.4f} ms, bound "
-        f"{timings['sweep']['bound_ms']:.4f} ms; yardstick of the GEMM core "
-        f"alone, not a kernel of the port: {P} x {len(coords)} "
-        f"torch._int_mm 2048^3 (one per plane and tile) {yard:.4f} ms")
+    _check_partials(planes, cand, L)
+    _check_keep(planes, cand, L, norms64[:4 * tile] ** 2, D, False,
+                4 * tile, tile)
+    say(f"[main] P on {len(named)} sets ({int(sizes.sum())} hashes) and the "
+        f"skewed batch ({len(skew)} sets, {int(skew.sum())} hashes); APPEND "
+        f"on {len(coords)} tiles of {tile}^2 (P={planes.shape[0]}, {n} "
+        f"survivors); X on {len(cand)} pairs at L={L}: exact")
     # the shard's planes stay in the residency slot: free them for the
     # phases that follow
     mc.clear_device_cache()
@@ -1486,21 +1160,17 @@ def _tools_cache(work, N):
     import filecmp
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
     db_path = os.path.join(work, "db")
-    walls, stages = [], []
+    stages = []
     for s in (0, 1):
-        t0 = time.perf_counter()
         mc.compute_pairwise_shard(db_path, os.path.join(work, "cache_mat"),
                                   num_shards=2, shard_idx=s, device="cuda",
                                   verbose=False)
-        walls.append(time.perf_counter() - t0)
         stages.append(dict(mc.LAST_STAGES))
     check(all(st["mode"] == "fused" for st in stages),
           "the cache check's shards must run resident")
     stage_ms = [st["stage_ms"] for st in stages]
-    say(f"[tools] residency cache N={N}: shard 0 of 2 wall {walls[0]:.3f} s "
-        f"(stage_ms {stage_ms[0]:.3f}), shard 1 of 2 wall {walls[1]:.3f} s "
-        f"(stage_ms {stage_ms[1]:.3f}, {100 * stage_ms[1] / stage_ms[0]:.2f}%"
-        " of the first)")
+    say(f"[tools] residency cache N={N}: shard 1 of 2's stage_ms "
+        f"{100 * stage_ms[1] / stage_ms[0]:.2f}% of shard 0's")
     check(stage_ms[1] < 0.05 * stage_ms[0],
           "the second shard's stage_ms is not under 5% of the first's")
     mc.clear_device_cache()
@@ -1587,17 +1257,15 @@ def _brute_force(chunks, Q, k):
     return s[:, :k + 1].cpu().numpy(), i[:, :k + 1].cpu().numpy()
 
 
-def phase_ann(N, errs, timings):
+def phase_ann(N, errs):
     import torch
     from metagenome_vector_sketches_tpu_torch import _build
-    from metagenome_vector_sketches_tpu_torch.ann import flat_index as fi
     from metagenome_vector_sketches_tpu_torch.ann import int_index as ii
     from metagenome_vector_sketches_tpu_torch.ann import search as asearch
     from metagenome_vector_sketches_tpu_torch.ann.flat_index import (
         FlatIPIndex, normalize_l2)
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
 
-    t0 = time.perf_counter()
     chunks = _ann_chunks(N)
     flat_chunks = []
     for s, v in chunks:
@@ -1605,18 +1273,13 @@ def phase_ann(N, errs, timings):
         flat_chunks.append((s, x / x.norm(dim=1, keepdim=True).clamp_(
             min=1e-30)))
         del x
-    torch.cuda.synchronize()
-    say(f"[ann] made {N} x {D} int32 vectors and their L2-normalised f32 "
-        f"copy on the card in {time.perf_counter() - t0:.1f} s (set-up)")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     index = ii.IntExactIndex.from_device_chunks(list(chunks), D)
     flat = FlatIPIndex.from_device_chunks(flat_chunks, D)
     torch.cuda.synchronize()
     check(index.L == 2 and index._stack.shape[1] == 3,
           "the ANN index must run the 2-limb (P=3) planes")
     say(f"[ann] built IntExactIndex ({tuple(index._stack.shape)} int8) and "
-        f"FlatIPIndex in {time.perf_counter() - t0:.1f} s")
+        f"FlatIPIndex from {N} x {D} int32 vectors made on the card")
 
     rng = np.random.default_rng(9)
     n_groups = N // ANN_GROUP_STRIDE
@@ -1631,33 +1294,17 @@ def phase_ann(N, errs, timings):
 
     # the counted run of the ANN path: two searches, two adaptive searches
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
     Di, Ii = index.search(V_q, ANN_K)
-    t_int = time.perf_counter() - t0
-    int_stages = dict(ii.LAST_SEARCH_STAGES)
-    t0 = time.perf_counter()
     Df, If = flat.search(Qn, ANN_K)
-    t_f32 = time.perf_counter() - t0
-    f32_stages = dict(fi.LAST_SEARCH_STAGES)
-    walls = {}
     adaptive = {}
     for name, idx, qi in (("int8", index, V_q), ("f32", flat, None)):
-        t0 = time.perf_counter()
         hits, qn = asearch.adaptive_search(idx, Qf, 0.1, verbose=False,
                                            db_norms=norms, queries_int=qi)
-        walls[name] = time.perf_counter() - t0
         adaptive[name] = (hits, dict(asearch.LAST_ADAPTIVE_STAGES))
     launches = _build.launch_counts()
     for k in ANN_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the ANN path")
-    say(f"[ann] N={N} d={D} B={ANN_B} k={ANN_K}: search walls int8 "
-        f"{t_int * 1e3:.1f} ms, f32 {t_f32 * 1e3:.1f} ms; adaptive walls "
-        f"int8 {walls['int8'] * 1e3:.1f} ms, f32 {walls['f32'] * 1e3:.1f} "
-        f"ms; launches {launches}")
-    say(f"[ann] int8 search stages {json.dumps(int_stages)}")
-    say(f"[ann] f32 search stages {json.dumps(f32_stages)}")
-    for name in ("int8", "f32"):
-        say(f"[ann] adaptive {name} stages {json.dumps(adaptive[name][1])}")
+    say(f"[ann] N={N} d={D} B={ANN_B} k={ANN_K}: launches {launches}")
 
     for name, I in (("int8", Ii), ("f32", If)):
         found = sum(len({int(r) + m for m in range(4)} & set(I[b].tolist()))
@@ -1698,21 +1345,10 @@ def phase_ann(N, errs, timings):
     # kernels against their plain versions at the path's shapes
     qp = ii.query_planes(V_q, index.L, "cuda")
     valid = min(ANN_CHUNK, N)
-    sk = pw.scan_scores(qp, index._stack[0], index._inv_n[0], valid)
-    sp = pw.scan_scores_plain(qp, index._stack[0], index._inv_n[0], valid)
-    check(torch.equal(sk, sp), "scan kernel differs from plain")
     db = index._stack[0]
-    P, R = db.shape[0], db.shape[1]
-    timings["scan"] = timed(
-        cuda_ms(lambda: pw.scan_scores(qp, db, index._inv_n[0], valid)),
-        cuda_ms(lambda: pw.scan_scores_plain(qp, db, index._inv_n[0], valid),
-                reps=1),
-        2 * qp.shape[1] * R * db.shape[2] * P, INT8_PEAK,
-        qp.numel() + db.numel() + 4 * R + 4 * qp.shape[1] * R)
-    del sk, sp
-    # the GEMM core alone, as a yardstick (not a kernel of the port)
-    yard = cuda_ms(lambda: [torch._int_mm(qp[p], db[p].t())
-                            for p in range(P)])
+    check(torch.equal(pw.scan_scores(qp, db, index._inv_n[0], valid),
+                      pw.scan_scores_plain(qp, db, index._inv_n[0], valid)),
+          "scan kernel differs from plain")
     # the pooled (query, row) pairs that fall in chunk 0
     flag = pw.range_flag("cuda")
     _, i_dev, _ = index._pool(qp, ANN_B, index.pool_for(ANN_K), flag)
@@ -1721,42 +1357,21 @@ def phase_ann(N, errs, timings):
     qrow = torch.arange(ANN_B, device="cuda")[:, None].expand_as(i_dev)
     rc = torch.stack([qrow[in0], i_dev[in0]], 1).to(torch.int32) \
         .contiguous()
-    t_x, x_alone = _time_partials(qp, rc, index.L, index._stack[0])
-    t = timings["scan"]
-    say(f"[ann] scan: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms "
-        f"({qp.shape[1]} x {R} pairs, d={D}, P={P}), bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); bit-equal")
-    rate_line("ann", f"S SCORE ({qp.shape[1]} x {R}, P={P})", t)
-    say(f"[ann] yardstick of the GEMM core alone, not a kernel of the port: "
-        f"{P} x torch._int_mm {qp.shape[1]} x {db.shape[2]} x {R} "
-        f"{yard:.4f} ms")
-    say(f"[ann] partials (two operands): wrapper {t_x['ms']:.4f} ms, kernel "
-        f"alone (profiler) {alone_str(x_alone)}, plain {t_x['plain_ms']:.4f} "
-        f"ms, bound {t_x['bound_ms']:.4f} ms ({t_x['bound_by']}) "
-        f"({len(rc)} pooled pairs); exact")
-    _time_select(index, qp, N, valid, errs, timings)
-    say(f"[ann] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
-        " GiB")
+    _check_partials(qp, rc, index.L, db)
+    say(f"[ann] scan ({qp.shape[1]} x {db.shape[1]}, P={db.shape[0]}) and "
+        f"partials on two operands ({len(rc)} pooled pairs): exact")
+    _check_select_shapes(index, qp, N, valid, errs)
     return launches
 
 
-def _time_select(index, qp, N, valid, errs, timings):
+def _check_select_shapes(index, qp, N, valid, errs):
     """Kernel K at the ANN path's shapes on chunk 0's (B, 262,144) scores,
     each bit-equal to its plain version: the int8 search's (merged into the
     pool chunk 1 leaves, kc = W0 = pool_for(k) = 114), the f32 search's (kc
     = W0 = 50), the adaptive search's level 4 (kc = W0 = pool_for(50 *
-    3^4) = 4,556) and its deepest level (kc = R, W0 = 0). For each: the
-    wrapper ms (CUDA events), the kernel alone (profiler: every kernel of
-    the call summed, and each), the bound (the scores read once, the pool
-    read and the outputs written once, at HBM_RATE) and two yardsticks over
-    the packed keys, not kernels of the port: torch.topk(keys, kc) and the
-    stable torch.sort of the rows (the one PyTorch call that computes K's
-    function at kc = R with W0 = 0). The int8 shape's numbers go into the
-    kernels line (library_ms: torch.topk), with the plain version's ms."""
+    3^4) = 4,556) and its deepest level (kc = R, W0 = 0)."""
     import torch
     from metagenome_vector_sketches_tpu_torch.ann import select as sel
-    from metagenome_vector_sketches_tpu_torch.compare_kernels import (
-        kernel_times)
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
     c1 = min(1, index._stack.shape[0] - 1)
     v1 = min(ANN_CHUNK, N - c1 * ANN_CHUNK)
@@ -1764,12 +1379,6 @@ def _time_select(index, qp, N, valid, errs, timings):
     sc1 = pw.scan_scores(qp, index._stack[c1], index._inv_n[c1], v1)[:ANN_B]
     B, R = sc0.shape
     empty = torch.empty((B, 0), dtype=torch.int64, device="cuda")
-    lane = torch.arange(R, device="cuda")
-    keys = sel.rank_keys(sc0, torch.where(lane < valid, lane, N))
-    rank_ms = cuda_ms(lambda: sel.rank_keys(
-        sc0, torch.where(lane < valid, lane, N)))
-    sort_ms = cuda_ms(lambda: torch.sort(keys, dim=1, descending=True,
-                                         stable=True), reps=3)
     shapes = (("int8", index.pool_for(ANN_K)), ("f32", ANN_K),
               ("level 4", index.pool_for(ANN_K * 3 ** 4)), ("kc = R", R))
     for name, k in shapes:
@@ -1780,33 +1389,8 @@ def _time_select(index, qp, N, valid, errs, timings):
         errs["select"] = max(errs["select"], _select_err(
             sel.select_chunk(*args), sel.select_chunk_plain(*args),
             f"phase 4's {name} shape"))
-        w0 = best.shape[1]
-        wm = min(kc, w0 + kc)
-        nbytes = 4 * B * R + 8 * B * w0 + 16 * B * (kc + wm)
-        reps = 3 if kc > sel.SMALL_K else 10
-        t = timed(cuda_ms(lambda: sel.select_chunk(*args), reps=reps),
-                  cuda_ms(lambda: sel.select_chunk_plain(*args), reps=1), 0,
-                  INT8_PEAK, nbytes,
-                  cuda_ms(lambda: torch.topk(keys, kc, dim=1), reps=reps))
-        parts = kernel_times(lambda: sel.select_chunk(*args), "select_",
-                             reps=reps)
-        alone = sum(parts.values()) if parts else None
-        each = ", ".join(f"{re.search(r'select_[a-z_]+', k).group(0)} "
-                         f"{ms:.4f}" for k, ms in sorted(parts.items()))
-        say(f"[ann] select (K) {name} (kc = {kc}, W0 = {w0}, regime "
-            f"{sel.regime(kc, R)}): wrapper {t['ms']:.4f} ms, kernel alone "
-            f"(profiler) {alone_str(alone)} ({each or 'not measured'}), "
-            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}: the {B} x {R} scores read once, the pool "
-            f"read and the outputs written once); "
-            f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound; bit-equal")
-        say(f"[ann] select yardsticks ({name}), not kernels of the port: "
-            f"torch.topk(keys, {kc}) {t['library_ms']:.4f} ms, the stable "
-            f"torch.sort of the packed keys {sort_ms:.4f} ms "
-            f"(K / sort {t['ms'] / sort_ms:.3f}); rank_keys {rank_ms:.4f} ms")
-        if name == "int8":
-            timings["select"] = t
-    del keys
+        say(f"[ann] select (K) {name} (kc = {kc}, W0 = {best.shape[1]}, "
+            f"regime {sel.regime(kc, R)}) on {B} x {R} scores: bit-equal")
 
 
 # ---------------------------------------------------------------------------
@@ -1826,40 +1410,23 @@ def phase_stream(N, work):
     # half of the JAX rule's plane bytes: the planes do not "fit"
     budget = pm.num_planes(L) * npad * D // 2
 
-    def printable(stages):
-        return {k: (round(v, 1) if isinstance(v, float) else v)
-                for k, v in stages.items()}
-
-    # the resident wall on the warm card, for comparison
-    t0 = time.perf_counter()
-    mc.compute_pairwise_shard(db_path, os.path.join(work, "mat_resident"),
-                              device="cuda", verbose=False)
-    t_res = time.perf_counter() - t0
-    res_stages = printable(mc.LAST_STAGES)
-
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
     mc.compute_pairwise_shard(db_path, os.path.join(work, "mat_stream"),
                               device_budget_bytes=budget, device="cuda",
                               verbose=False)
-    t_stream = time.perf_counter() - t0
     launches = _build.launch_counts()
-    stages = printable(mc.LAST_STAGES)
+    stages = mc.LAST_STAGES
     check(stages["mode"] == "fused-streaming",
           f"budget {budget} did not stream (mode {stages['mode']})")
     say(f"[stream] N={N} d={D} budget {budget} B: {stages['row_groups']} "
         f"row groups x {stages['windows']} windows, {stages['tiles_swept']} "
-        f"tile sweeps; streaming wall {t_stream:.2f} s vs resident "
-        f"{t_res:.2f} s; launches {launches}")
-    say(f"[stream] streaming stages {json.dumps(stages)}")
-    say(f"[stream] resident stages {json.dumps(res_stages)}")
+        f"tile sweeps; launches {launches}")
     _same_shards(os.path.join(work, "mat"), os.path.join(work, "mat_stream"),
                  1, "streaming shard vs phase 2's resident shard")
     say("[stream] shard byte-equal to phase 2's resident shard")
     for k in STREAM_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the "
                                "streaming path")
-    mc.clear_device_cache()      # the resident run's planes
     return launches
 
 
@@ -1868,25 +1435,36 @@ def phase_stream(N, work):
 # ---------------------------------------------------------------------------
 
 TWO_PHASE_KERNELS = ("count", "sweep")
-STAGE_PRINT = ("stage_ms", "sweep_ms", "extract_ms", "finalize_ms",
-               "write_ms", "candidates", "emitted", "pairs_written",
-               "hot_tiles", "reruns")
 
 
-def _count_append_timing(L, db_path, norms64, max_abs, errs, timings):
+def _count_state(P, nt, tile, seed):
+    """(planes, thr) of nt x tile rows at d = D on the card: P = 3 (L = 2,
+    |v| <= 600) or P = 6 (L = 3, an int16-like db, |v| <= 30,000), normal
+    random vectors with rows 1-4 copies of row 0."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
+    m = {3: 600, 6: 30000}[P]
+    L = pm.pick_limbs(m)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    V = (torch.randn((nt * tile, D), generator=g, device="cuda") * m / 4) \
+        .round_().clamp_(-m, m).to(torch.int32)
+    V[1:5] = V[0]
+    planes = torch.zeros((P, nt * tile, pw.pad_dim(D)), dtype=torch.int8,
+                         device="cuda")
+    pw.planes_update(planes, pw.decompose_limbs(V, L), 0)
+    thr = ((V.double() ** 2).sum(1) / D + pm.threshold_adjust(L, m, D)) \
+        .float().contiguous()
+    return planes, thr
+
+
+def _check_count_append(L, db_path, norms64, max_abs, errs):
     """Kernels COUNT and APPEND (self-pairs kept: the two-phase
     extraction's call) over the 4 x 4 tiles of 2048^2 of phase 2's first
-    8,192 rows (P = 3) and of an int16-like db of that shape (P = 6,
-    compare_kernels.count_state), one tile list on the card: each against
-    its plain version on the card (exact), APPEND's counts against COUNT's,
-    wrapper, kernel-alone and host ms a call, the bound and the
-    torch._int_mm yardstick of the GEMM core (no single PyTorch call counts
-    or compacts survivors: library_ms is null), and 2 s of calls back to
-    back beside the SM clock sampled meanwhile. The P = 3 COUNT numbers are
-    COUNT's entry of the kernels line."""
+    8,192 rows (P = 3) and of an int16-like db of that shape (P = 6), one
+    tile list on the card: each against its plain version on the card
+    (exact), APPEND's counts against COUNT's."""
     import torch
-    from metagenome_vector_sketches_tpu_torch.compare_kernels import (
-        count_state, host_ms, sustained)
     from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
     from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
     from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp
@@ -1904,26 +1482,18 @@ def _count_append_timing(L, db_path, norms64, max_abs, errs, timings):
     coords = np.array([(r, c) for r in range(nt) for c in range(nt)],
                       dtype=np.int32)
     tiles = pw.TileList(coords, "cuda")
-    shapes = {3: (planes, thr),
-              6: count_state(6, torch.Generator(device="cuda").manual_seed(3),
-                             nt, tile, D)}
-    pairs = len(coords) * tile * tile
-    for P, (planes, thr) in shapes.items():
-        def count():
-            return pp.count_tiles(planes, thr, planes, thr, tiles, tile, D)
-
-        def append():
-            return pw.sweep_extract(planes, thr, planes, thr, tiles, tile,
-                                    cap, False, D)
-
-        got, want = count(), pp.count_tiles_plain(planes, thr, planes, thr,
-                                                  coords, tile, D)
+    for P, (planes, thr) in {3: (planes, thr),
+                             6: _count_state(6, nt, tile, seed=3)}.items():
+        got = pp.count_tiles(planes, thr, planes, thr, tiles, tile, D)
+        want = pp.count_tiles_plain(planes, thr, planes, thr, coords, tile,
+                                    D)
         err = int((got - want).abs().max().item())
         errs["count"] = max(errs["count"], err)
         check(err == 0 and int(want.sum()) > 0,
               f"COUNT differs from its plain version at P={P} (max abs err "
               f"{err})")
-        rc_k, cnt_k, tot_k = append()
+        rc_k, cnt_k, tot_k = pw.sweep_extract(planes, thr, planes, thr,
+                                              tiles, tile, cap, False, D)
         rc_p, cnt_p, tot_p = pw.sweep_extract_plain(
             planes, thr, planes, thr, coords, tile, cap, False, D)
         n = int(tot_p.item())
@@ -1932,51 +1502,18 @@ def _count_append_timing(L, db_path, norms64, max_abs, errs, timings):
               f"APPEND differs from its plain version at P={P}")
         check(torch.equal(cnt_k, got), f"APPEND's counts differ from "
                                        f"COUNT's at P={P}")
-        planes_bytes = planes.numel() + 4 * thr.numel() + 8 * len(coords)
-        yard = cuda_ms(lambda: [torch._int_mm(
-            planes[p, r * tile:(r + 1) * tile],
-            planes[p, c * tile:(c + 1) * tile].t())
-            for p in range(P) for r, c in coords.tolist()])
-        for name, fn, plain, extra in (
-                ("COUNT", count, lambda: pp.count_tiles_plain(
-                    planes, thr, planes, thr, coords, tile, D),
-                 4 * len(coords)),
-                ("APPEND", append, lambda: pw.sweep_extract_plain(
-                    planes, thr, planes, thr, coords, tile, cap, False, D),
-                 4 * len(coords) + 8 * n)):
-            t = timed(cuda_ms(fn), cuda_ms(plain, reps=1),
-                      2 * P * pairs * planes.shape[2], INT8_PEAK,
-                      planes_bytes + extra)
-            alone = kernel_ms(fn, "retention_kernel")
-            host = host_ms(fn)
-            say(f"[two_phase] {name} P={P}: {len(coords)} tiles of {tile}^2 "
-                f"({n} survivors) equal to its plain version; wrapper "
-                f"{t['ms']:.4f} ms, kernel alone (profiler) "
-                f"{alone_str(alone)}, host {host * 1e3:.1f} us a call, plain "
-                f"{t['plain_ms']:.4f} ms")
-            rate_line("two_phase", f"{name} (16 tiles of 2048^2, P={P})", t)
-            if alone:
-                say(f"[two_phase] {name} P={P} kernel alone: "
-                    f"{100 * t['bound_ms'] / alone:.1f}% of its bound")
-            ms, line, reps = sustained(fn, t["ms"])
-            say(f"[two_phase] {name} P={P}: {reps} calls back to back "
-                f"{ms:.4f} ms a call ({100 * t['bound_ms'] / ms:.1f}% of the "
-                f"bound; 10 calls {t['ms']:.4f}); {line}")
-            if P == 3 and name == "COUNT":
-                timings["count"] = t
-        say(f"[two_phase] yardstick of the GEMM core alone, not a kernel of "
-            f"the port: {P} x {len(coords)} torch._int_mm 2048^3 "
-            f"{yard:.4f} ms; APPEND's counts equal COUNT's")
+        say(f"[two_phase] COUNT and APPEND P={P}: {len(coords)} tiles of "
+            f"{tile}^2 ({n} survivors) equal to their plain versions; "
+            "APPEND's counts equal COUNT's")
 
 
-def phase_two_phase(N, work, errs, timings):
+def phase_two_phase(N, work, errs):
     """Phase 2's db through engine="two_phase": resident with finalize
     device (counted) and host, streaming at phase 5's budget and on a mesh
     of two slots of cuda:0; each shard byte-equal to phase 2's fused
-    shard; walls and stages beside a fused shard staged the same way."""
+    shard."""
     import torch
     from metagenome_vector_sketches_tpu_torch import _build
-    from metagenome_vector_sketches_tpu_torch.compare_kernels import Clocks
     from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
     from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
     from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm
@@ -1997,7 +1534,7 @@ def phase_two_phase(N, work, errs, timings):
                                          device_budget_bytes=budget)),
             ("two_phase 2 slots", dict(engine="two_phase",
                                        mesh=Mesh([cuda0, cuda0])))]
-    walls, stages, launches = {}, {}, {}
+    stages, launches = {}, {}
     total = {k: 0 for k in _build.launch_counts()}
     mc.clear_device_cache()
     for name, kw in runs:
@@ -2005,26 +1542,17 @@ def phase_two_phase(N, work, errs, timings):
             mc.clear_device_cache()          # the fused shard stages anew
         out = os.path.join(work, "two_phase_" + name.replace(" ", "_"))
         _build.reset_launch_counts()
-        with contextlib.ExitStack() as sampled:
-            if name == "two_phase device":    # the counted run's clocks
-                clocks = sampled.enter_context(Clocks())
-                windows = sampled.enter_context(SweepWindows())
-            t0 = time.perf_counter()
-            mc.compute_pairwise_shard(db_path, out, device="cuda",
-                                      verbose=False, **kw)
-            walls[name] = time.perf_counter() - t0
+        mc.compute_pairwise_shard(db_path, out, device="cuda", verbose=False,
+                                  **kw)
         launches[name] = _build.launch_counts()
-        if name == "two_phase device":
-            windows.report("two_phase", clocks)
-        stages[name] = {k: (round(v, 1) if isinstance(v, float) else v)
-                        for k, v in mc.LAST_STAGES.items()
-                        if k in STAGE_PRINT + ("mode", "windows")}
+        stages[name] = dict(mc.LAST_STAGES)
         if name != "fused":
             total = {k: total[k] + launches[name][k] for k in total}
         _same_shards(os.path.join(work, "mat"), out, 1,
                      f"{name} shard vs phase 2's fused shard")
-        say(f"[two_phase] {name}: wall {walls[name]:.3f} s, stages "
-            f"{json.dumps(stages[name])}, launches {launches[name]}")
+        say(f"[two_phase] {name}: mode {stages[name]['mode']}, "
+            f"{stages[name]['pairs_written']} pairs, launches "
+            f"{launches[name]}")
     mc.clear_device_cache()
     for name, _ in runs:
         if name == "fused":
@@ -2049,13 +1577,8 @@ def phase_two_phase(N, work, errs, timings):
     say(f"[two_phase] every shard byte-equal to phase 2's fused shard; "
         f"kernel COUNT launches on the counted run {lc['count']}, APPEND "
         f"{lc['sweep']}, X {lc['partials']}; reruns 0")
-    rect = 2 * pm.num_planes(L) * npad * npad * (D + (-D) % 64) / INT8_PEAK
-    say(f"[two_phase] N={N}: COUNT over the full rectangle ({npad // tile}^2 "
-        f"tiles of {tile}^2) bound {rect * 1e3:.1f} ms (operations); "
-        f"sweep_ms {stages['two_phase device']['sweep_ms']} ms; fused "
-        f"sweep_ms {stages['fused']['sweep_ms']} ms over its triangle")
     _, norms64 = db.names_and_norms()
-    _count_append_timing(L, db_path, norms64, max_abs, errs, timings)
+    _check_count_append(L, db_path, norms64, max_abs, errs)
     return total
 
 
@@ -2066,8 +1589,7 @@ def phase_two_phase(N, work, errs, timings):
 MH_N, MH_GROUPS, MH_HEAVY = 8192, 128, 64
 
 
-def phase_minhash(work, errs, timings):
-    import torch
+def phase_minhash(work, errs):
     from metagenome_vector_sketches_tpu_torch import _build
     from metagenome_vector_sketches_tpu_torch.bench_data import (
         GROUP, synth_hashes_file)
@@ -2112,12 +1634,9 @@ def phase_minhash(work, errs, timings):
     synth_hashes_file(path, MH_N, MH_GROUPS, MH_HEAVY)
     out = os.path.join(work, "mh_big")
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
     mc.compute_minhash_shard(path, out, device="cuda", verbose=False)
-    wall = time.perf_counter() - t0
     counted = _build.launch_counts()
-    stages = {k: (round(v, 1) if isinstance(v, float) else v)
-              for k, v in mc.LAST_STAGES.items()}
+    chunks = mc.LAST_STAGES["chunks"]
     for k in MINHASH_KERNELS:
         check(counted[k] > 0, f"kernel {k} was not launched by the MinHash "
                               "path")
@@ -2149,37 +1668,16 @@ def phase_minhash(work, errs, timings):
         check({k: v for k, v in got.items() if k[0] == i} == row,
               f"row {i} of the MinHash shard differs from its exact counts")
     say(f"[minhash] N={MH_N}: {len(named)} sets, universe "
-        f"{int(len(np.unique(flat)))} hashes in {stages['chunks']} chunks; "
+        f"{int(len(np.unique(flat)))} hashes in {chunks} chunks; "
         f"shard equals the sparse oracle ({len(want)} pairs), planted and "
         f"self-pairs present, 64 sampled rows exact; launches {counted}")
-    say(f"[minhash] walls: total {wall:.2f} s; stages {json.dumps(stages)}")
 
     # kernel G against its plain version at the path's chunk shape
-    A = _incidence(MH_N, 1 << 14, 1 / 128, seed=9)
-    err = _gram_err([A])
+    err = _gram_err([_incidence(MH_N, 1 << 14, 1 / 128, seed=9)])
     check(err == 0, f"kernel G differs from plain by {err} at the path's "
                     "chunk shape")
     errs["gram"] = max(errs["gram"], err)
-    C = torch.zeros((MH_N, MH_N), dtype=torch.int32, device="cuda")
-    nb = MH_N // 128
-    n_blocks = nb * (nb + 1) // 2          # the upper block triangle
-    ops = 2 * 128 * 128 * n_blocks * A.shape[1]
-    # the library call does the full square, int8 -> int32 (never called
-    # by the port)
-    library = cuda_ms(lambda: torch._int_mm(A, A.t()))
-    timings["gram"] = timed(
-        cuda_ms(lambda: mh.gram_accumulate(C, A)),
-        cuda_ms(lambda: mh.gram_accumulate_plain(C, A), reps=1),
-        ops, INT8_PEAK, A.numel() + 2 * 4 * 128 * 128 * n_blocks, library)
-    t = timings["gram"]
-    say(f"[minhash] G one chunk {MH_N} x {A.shape[1]}: kernel "
-        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']}); torch._int_mm(A, A.t()) "
-        f"(the full square) {library:.4f} ms; whole run "
-        f"{stages['chunks'] * ops / (stages['gram_ms'] * 1e-3) / 1e12:.1f}"
-        " TOP/s including the scatters")
-    rate_line("minhash", f"G ({MH_N} x {A.shape[1]}, upper block triangle)",
-              t)
+    say(f"[minhash] G on one chunk of {MH_N} x {1 << 14}: exact")
     for k, v in counted.items():
         launches[k] += v
     return launches
@@ -2210,17 +1708,9 @@ def _ann_queries(N, chunks):
                       for r in rows]).cpu().numpy()
 
 
-def _walls(fn, reps=3):
-    """(the result of each call, the wall of each call in ms); every call
-    returns host arrays or synchronises the card."""
-    import torch
-    outs, walls = [], []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        outs.append(fn())
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    return outs, walls
+def _calls(fn, reps=3):
+    """The result of each of ``reps`` calls of fn()."""
+    return [fn() for _ in range(reps)]
 
 
 def _same_up_to_ties(I, If, Df, what):
@@ -2288,7 +1778,7 @@ def _pipeline_topk_plain(vecs, k):
     return d.cpu().numpy(), i.cpu().numpy()
 
 
-def phase_mesh(N, ann_n, work, card):
+def phase_mesh(N, ann_n, work):
     import torch
     import torch.distributed as dist
     from metagenome_vector_sketches_tpu_torch import _build
@@ -2318,11 +1808,10 @@ def phase_mesh(N, ann_n, work, card):
     # set-up and the single-device references (before the counted run):
     # phase 4's vectors again, its engines' results, the int16 db folder of
     # its vectors, the pipeline's batch, a resident shard on the warm card
-    t0 = time.perf_counter()
     chunks = _ann_chunks(ann_n)
     V_q = _ann_queries(ann_n, chunks)
     single = ii.IntExactIndex.from_device_chunks(list(chunks), D)
-    singles, w_single = _walls(lambda: single.search(V_q, ANN_K))
+    singles = _calls(lambda: single.search(V_q, ANN_K))
     Di, Ii = singles[0]
     del single
     U = torch.cat([v.float() for _, v in chunks])
@@ -2341,57 +1830,36 @@ def phase_mesh(N, ann_n, work, card):
                    use_int16=True)
     del V16
     hi, lo, counts, sets = _pipeline_batch(work)
-    t_setup = time.perf_counter() - t0
-    t0 = time.perf_counter()
     mc.compute_pairwise_shard(db_path, os.path.join(work, "mesh_single"),
                               device="cuda", verbose=False)
-    w_single_shard = time.perf_counter() - t0
-    single_stages = {k: (round(v, 1) if isinstance(v, float) else v)
-                     for k, v in mc.LAST_STAGES.items()}
     mc.clear_device_cache()
     torch.cuda.synchronize()
-    say(f"[mesh] set-up {t_setup:.1f} s: phase 4's {ann_n} x {D} vectors, "
-        "their single-device int8 and f32 results, their int16 db folder, "
-        f"the pipeline batch of {PIPE_B} sets")
 
     # the counted run of the mesh paths
     _build.reset_launch_counts()
-    walls = {}
-    t0 = time.perf_counter()
     mc.compute_pairwise_shard(db_path, os.path.join(work, "mesh_mat"),
                               device="cuda", verbose=False, mesh=mesh)
-    walls["shard"] = time.perf_counter() - t0
-    mesh_stages = {k: (round(v, 1) if isinstance(v, float) else v)
-                   for k, v in mc.LAST_STAGES.items()}
-    t0 = time.perf_counter()
     mc.compute_pairwise_shard(db_path, os.path.join(work, "mesh_stream"),
                               device_budget_bytes=budget, device="cuda",
                               verbose=False, mesh=mesh)
-    walls["stream"] = time.perf_counter() - t0
     stream_mode = mc.LAST_STAGES["mode"]
     mc.clear_device_cache()
-    t0 = time.perf_counter()
     dist_idx = DistributedIntExactIndex.from_dbfolder(ann_db, mesh=mesh)
-    torch.cuda.synchronize()
-    walls["int8_build"] = time.perf_counter() - t0
-    dists, w_dist = _walls(lambda: dist_idx.search(V_q, ANN_K))
+    dists = _calls(lambda: dist_idx.search(V_q, ANN_K))
     del dist_idx
     multihost.initialize(coordinator_address=f"127.0.0.1:{_free_port()}",
                          num_processes=1, process_id=0, device="cuda")
     try:
         backend = dist.get_backend()
         gmesh = Mesh([cuda0, cuda0], group=dist.group.WORLD)
-        t0 = time.perf_counter()
         folders = multihost.compute_pairwise_multihost(
             db_path, os.path.join(work, "mesh_multihost"), num_shards=2,
             mesh=gmesh, device="cuda", verbose=False)
-        walls["multihost"] = time.perf_counter() - t0
         mc.clear_device_cache()
         q_dev = torch.from_numpy(Qn).cuda()
-        topks, w_topk = _walls(lambda: distributed_topk(
-            gmesh, q_dev, U, ANN_K))
+        topks = _calls(lambda: distributed_topk(gmesh, q_dev, U, ANN_K))
         step = make_pipeline_step(gmesh, D, L, ANN_K)
-        steps, w_pipe = _walls(lambda: step(hi, lo, counts))
+        steps = _calls(lambda: step(hi, lo, counts))
     finally:
         dist.destroy_process_group()
     launches = _build.launch_counts()
@@ -2458,32 +1926,7 @@ def phase_mesh(N, ann_n, work, card):
         f"scores within {p_err:.2e} of a plain float32 top-k, indices "
         "equal up to ties")
 
-    # what making the launch device current costs each launch (host): the
-    # library's cudaSetDevice and PyTorch's device guard
-    reps = 10000
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        with _build.launch_stream(cuda0):
-            pass
-    guard_us = (time.perf_counter() - t0) / reps * 1e6
-
-    # the timings, on the card named in the first line
-    say(f"[mesh] {card}: shard N={N} d={D}: 2-slot wall "
-        f"{walls['shard']:.2f} s, single-device (warm) "
-        f"{w_single_shard:.2f} s; 2-slot stages {json.dumps(mesh_stages)}; "
-        f"single stages {json.dumps(single_stages)}")
-    say(f"[mesh] {card}: 2-slot streaming wall {walls['stream']:.2f} s "
-        f"(budget {budget} B); NCCL world of one, shards 0 and 1 of 2 "
-        f"{walls['multihost']:.2f} s")
-    say(f"[mesh] {card}: int8 search N={ann_n} B={ANN_B} k={ANN_K} walls "
-        f"(ms, 3 calls): 2 slots {[round(w, 1) for w in w_dist]}, single "
-        f"{[round(w, 1) for w in w_single]}; 2-slot build from the db folder "
-        f"{walls['int8_build']:.1f} s")
-    say(f"[mesh] {card}: f32 top-k (NCCL) walls (ms) "
-        f"{[round(w, 1) for w in w_topk]}; pipeline step walls (ms) "
-        f"{[round(w, 1) for w in w_pipe]}; launches {launches}")
-    say(f"[mesh] {card}: launch_stream (the launch device made current) "
-        f"{guard_us:.2f} us per launch on the host ({reps} entries)")
+    say(f"[mesh] launches {launches}")
     return launches
 
 
@@ -2511,25 +1954,22 @@ def main() -> int:
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
-    say(f"[build] {os.path.relpath(lib_path, ROOT)} built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    say(f"[build] {os.path.relpath(lib_path, ROOT)} built and loaded")
 
     errs = {k: 0 for k in _build.KERNELS}
-    timings: dict = {}
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT)
     try:
         phase_kernels(errs)
-        paths = [phase_main(args.n, work, timings)]
+        paths = [phase_main(args.n, work)]
         paths.append(phase_stream(args.n, work))
-        paths.append(phase_two_phase(args.n, work, errs, timings))
-        paths.append(phase_minhash(work, errs, timings))
+        paths.append(phase_two_phase(args.n, work, errs))
+        paths.append(phase_minhash(work, errs))
         phase_cli(work)
         paths.append(phase_tools(args.n, work))
-        paths.append(phase_ann(args.ann_n, errs, timings))
-        paths.append(phase_mesh(args.n, args.ann_n, work, card))
+        paths.append(phase_ann(args.ann_n, errs))
+        paths.append(phase_mesh(args.n, args.ann_n, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules, "the port imported jax")
@@ -2540,9 +1980,7 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda",
                 "source": f"{PKG}/csrc/{SOURCES[k]}", "replaces": REPLACES[k],
                 "launches": sum(p[k] for p in paths),
-                "max_abs_err": errs[k],
-                **{f: timings[k][f] for f in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}}
+                "max_abs_err": errs[k]}
                for k in _build.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -199,20 +199,19 @@ def check(rc: int, what: str) -> None:
 
 
 @contextlib.contextmanager
-def launch_stream(device, lib=None):
+def launch_stream(device):
     """For the launches inside the block: ``device`` current for PyTorch
     (its previous device comes back after the block) and in the kernel
-    library's own runtime (``lib``, the port's library by default: nvcc
-    links it against a static CUDA runtime whose current device is per
-    thread and separate from PyTorch's). Yields PyTorch's current stream on
-    the device as a c_void_p, the launch's stream argument."""
+    library's own runtime (nvcc links it against a static CUDA runtime
+    whose current device is per thread and separate from PyTorch's).
+    Yields PyTorch's current stream on the device as a c_void_p, the
+    launch's stream argument."""
     import torch
     device = torch.device(device)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    lib = library() if lib is None else lib
     with torch.cuda.device(index):
-        rc = lib.mvs_set_device(index)
+        rc = library().mvs_set_device(index)
         if rc != 0:
             raise RuntimeError(f"cudaSetDevice({index}) failed with error "
                                f"{rc}")

@@ -70,14 +70,11 @@ def skewed_set_sizes(path=TOY_HASHES, seed=5) -> np.ndarray:
 
 
 def csr_hashes(sizes, seed=1):
-    """Random uint64 hashes (full range) for sets of the given sizes ->
-    (flat int64 bit patterns, int64 offsets), numpy."""
-    sizes = np.asarray(sizes, dtype=np.int64)
+    """Random uint64 hashes (full range) for sets of the given sizes, all
+    sets' in one run -> their int64 bit patterns, numpy."""
     flat = np.random.default_rng(seed).integers(
-        0, 2**64, size=int(sizes.sum()), dtype=np.uint64)
-    offsets = np.zeros(len(sizes) + 1, dtype=np.int64)
-    np.cumsum(sizes, out=offsets[1:])
-    return flat.view(np.int64), offsets
+        0, 2**64, size=int(np.sum(sizes)), dtype=np.uint64)
+    return flat.view(np.int64)
 
 
 def spot_check(db_path, matrix_path, N, d, n_rows=3, seed=1) -> bool:

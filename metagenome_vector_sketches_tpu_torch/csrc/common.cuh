@@ -19,8 +19,8 @@ static inline int mvs_launch_status() { return (int)cudaGetLastError(); }
 // current device is per thread and separate from PyTorch's: the Python
 // wrappers call this before every launch (_build.launch_stream), so a
 // kernel runs on the device of its tensors, cuda:N as well as cuda:0.
-// Weak, so that every source compiled alone (compare_kernels.py) exports
-// it and the linked library keeps one copy.
+// Weak: every source that includes this header defines it, and the
+// linked library keeps one copy.
 extern "C" __attribute__((visibility("default"), weak)) int mvs_set_device(
     int device) {
   return (int)cudaSetDevice(device);

@@ -1,8 +1,7 @@
 // Hopper helpers of the port's int8 GEMM kernels (sweep.cu: kernels S and
 // G; count.cu: kernels COUNT and APPEND): mbarriers, cluster barriers, the
 // wgmma fence and commit, the tensor-map encoder and the plane weights.
-// Each source gets its own copies (an anonymous namespace), so a source
-// also builds alone (compare_kernels.py).
+// Each source gets its own copies (an anonymous namespace).
 #pragma once
 
 #include <cuda.h>

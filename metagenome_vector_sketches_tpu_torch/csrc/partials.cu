@@ -34,7 +34,7 @@
 // each accumulator in 4 shuffle levels (5 with one candidate per warp).
 // L is a template parameter so the L^2 accumulators stay in registers.
 // Chosen on an H100 against 8 and 32 lanes, a grid of one candidate per
-// sub-warp and U = 4 (compare_kernels.py; PERF.md): 8 lanes read
+// sub-warp and U = 4 (PERF.md): 8 lanes read
 // each 2 KB row in 128-byte pieces spread over time and lost 8% on the
 // ANN shape's HBM rows; 16 lanes were best at both shapes, and the grid
 // sized to the SMs timed the same as one candidate per sub-warp.

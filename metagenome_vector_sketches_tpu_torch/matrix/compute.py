@@ -39,8 +39,8 @@ When the planes exceed the device budget, the streaming engine
 (:func:`_compute_streaming`) keeps a group of the shard's row tiles on the
 device and streams windows of column tiles past it (the full rectangle,
 two operands, self-pairs masked through kernel APPEND's diagonal
-offset); the next window is read from the vectors memmap on a worker
-thread meanwhile.
+offset). Every engine stages its rows through step 1's reader: the
+streaming engines stage a row range of the file at a time.
 
 The two-phase engine (``engine="two_phase"``, and every tile whose square
 is not a multiple of 32, as in the JAX package; resident:
@@ -105,15 +105,14 @@ from ..ops import pairwise_math as pm
 #   synchronised once at its end. Inside it: stage_h2d_ms (the span
 #   mvs.shard.stage_h2d encloses the enqueue) and stage_decompose_ms
 #   (mvs.shard.decompose), on CUDA the copies' and the limb
-#   decompositions' summed device time (CUDA events, read once when the
+#   decompositions' summed device time (CUDA events, read once when each
 #   staging ends), on the CPU their walls; stage_wait_ms
 #   (mvs.shard.stage_wait): the calling thread's waits for a host buffer's
-#   fill, a buffer's copy, or the streaming engine's prefetched window;
-#   stage_read_ms: the file reads' wall, summed over chunks (the resident
-#   stager's preadv fills on its reader threads, no span; the streaming
-#   engines' memmap reads, mvs.shard.stage_read, a window's on the worker
-#   thread outside the call's span); stage_bytes: the bytes of vectors.bin
-#   read for staging. All five are 0 on a residency hit;
+#   fill or a buffer's copy; stage_read_ms: the file reads' wall, summed
+#   over chunks (the preadv fills on the reader threads, no span);
+#   stage_bytes: the bytes of vectors.bin read for staging. All five are
+#   counted by the one stager (_upload_rows), for every engine, and are 0
+#   on a residency hit;
 # - sweep_ms (mvs.shard.sweep, one span a round): kernel APPEND,
 #   synchronised;
 # - extract_ms (mvs.shard.extract): the fused engines' kernel X with its
@@ -129,8 +128,8 @@ from ..ops import pairwise_math as pm
 # counters). The streaming engine
 # adds row_groups, windows and tiles_swept. The two-phase engine's
 # sweep_ms is its counts sweep (plus, streaming, the row tile's staging),
-# its extract_ms the extraction net of the finalize nested in it, whose
-# exact dots finalize_ms includes; it adds hot_tiles (tiles the counts
+# its extract_ms the extraction's launches and copies, and its finalize_ms
+# the exact filter with its exact dots; it adds hot_tiles (tiles the counts
 # sweep found survivors in, which the extraction sweeps again), reruns
 # (slot blocks whose APPEND total exceeded the capacity their counts gave)
 # and, streaming, windows. compute_minhash_shard replaces them with the
@@ -141,7 +140,7 @@ LAST_STAGES: dict = {}
 STAGE_CHUNK_BYTES = 64 << 20
 # host buffers of a chunk in the staging ring (page-locked on CUDA)
 STAGE_RING = 3
-# threads that fill one host buffer (vectors.bin reads, or a block's copy)
+# threads that fill one host buffer with vectors.bin reads
 STAGE_READERS = min(4, os.cpu_count() or 1)
 # first capacity (pairs) of the survivor buffer; grows to the exact size
 SWEEP_CAP_START = 1 << 22
@@ -376,12 +375,13 @@ class _FileRows:
     """The (total, d) rows of vectors.bin, of its own dtype, behind one
     open file: fill(out, lo, hi) reads rows lo..hi into the host array
     ``out`` with os.preadv at their byte offset, looping on short reads.
-    preadv releases the GIL, so several threads fill one buffer at once."""
+    preadv releases the GIL, so several threads fill one buffer at once.
+    A context manager: the file closes when the block ends."""
 
     def __init__(self, db, total, d):
         self.path = os.path.join(db.path, "vectors.bin")
         self.dtype = _vector_dtype(db)
-        self.shape = (total, d)
+        self.d = d
         self.row_bytes = d * self.dtype.itemsize
         self.fd = os.open(self.path, os.O_RDONLY)
         size = os.fstat(self.fd).st_size
@@ -400,19 +400,11 @@ class _FileRows:
                                  f"before row {hi}")
             done += got
 
-    def close(self):
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
         os.close(self.fd)
-
-
-class _BlockRows:
-    """(n, d) host rows already in memory (the streaming engines' windows),
-    with _FileRows' fill."""
-
-    def __init__(self, block):
-        self.block, self.shape, self.dtype = block, block.shape, block.dtype
-
-    def fill(self, out, lo, hi):
-        np.copyto(out, self.block[lo:hi])
 
 
 def _timed_fill(rows, out, lo, hi):
@@ -421,23 +413,23 @@ def _timed_fill(rows, out, lo, hi):
     return t0, time.perf_counter()
 
 
-def _upload_rows(planes, rows, row0, L, max_abs, db, dev) -> float:
-    """Write the (n, d) host rows ``rows`` (:class:`_FileRows` or
-    :class:`_BlockRows`) into the (P, *, d_pad) int8 planes at row
-    ``row0``, one STAGE_CHUNK_BYTES chunk at a time, through a pipeline:
-    STAGE_READERS threads fill the next of STAGE_RING host buffers
-    (page-locked on CUDA) while the last chunk is copied to one of two
-    device buffers on a copy stream and split into limbs on the current
-    stream. A host buffer is refilled once its copy's event has completed,
-    a device buffer once the decomposition that read it has; the one host
-    sync is the stale-max_component check at the end (each chunk's min and
-    max stay on the device until then). On the CPU the same loop runs
-    without streams. The one stager of every engine. -> the fills' wall
-    (ms), summed over the chunks."""
-    n, d = rows.shape
+def _upload_rows(planes, rows, lo, hi, L, max_abs, db, dev) -> None:
+    """Write rows lo..hi of ``rows`` (:class:`_FileRows`) into the (P, *,
+    d_pad) int8 planes from their row 0, one STAGE_CHUNK_BYTES chunk at a
+    time, through a pipeline: STAGE_READERS threads fill the next of
+    STAGE_RING host buffers (page-locked on CUDA) while the last chunk is
+    copied to one of two device buffers on a copy stream and split into
+    limbs on the current stream. A host buffer is refilled once its copy's
+    event has completed, a device buffer once the decomposition that read
+    it has; the one host sync is the stale-max_component check at the end
+    (each chunk's min and max stay on the device until then). On the CPU
+    the same loop runs without streams. The one stager of every engine:
+    it adds the fills' wall, summed over the chunks, to stage_read_ms and
+    the rows' bytes to stage_bytes."""
+    n, d = hi - lo, rows.d
     if n == 0:
-        return 0.0
-    chunk = min(n, max(1, STAGE_CHUNK_BYTES // (rows.dtype.itemsize * d)))
+        return
+    chunk = min(n, max(1, STAGE_CHUNK_BYTES // rows.row_bytes))
     starts = range(0, n, chunk)
     cuda = dev.type == "cuda"
     dt = torch.int16 if rows.dtype == np.int16 else torch.int32
@@ -464,8 +456,9 @@ def _upload_rows(planes, rows, row0, L, max_abs, db, dev) -> float:
             out = ring[k % len(ring)][:m].numpy()
             cuts = [m * i // min(STAGE_READERS, m)
                     for i in range(min(STAGE_READERS, m) + 1)]
-            return [pool.submit(_timed_fill, rows, out[a:b], starts[k] + a,
-                                starts[k] + b)
+            first = lo + starts[k]
+            return [pool.submit(_timed_fill, rows, out[a:b], first + a,
+                                first + b)
                     for a, b in zip(cuts, cuts[1:])]
 
         pending = read(0)
@@ -496,7 +489,7 @@ def _upload_rows(planes, rows, row0, L, max_abs, db, dev) -> float:
                     dec[k][0].record(compute)
                 v = buf.to(torch.int32)
                 bounds.append(torch.stack(torch.aminmax(v)))
-                pw.planes_update(planes, pw.decompose_limbs(v, L), row0 + s)
+                pw.planes_update(planes, pw.decompose_limbs(v, L), s)
                 del v
                 if cuda:
                     dec[k][1].record(compute)
@@ -512,17 +505,20 @@ def _upload_rows(planes, rows, row0, L, max_abs, db, dev) -> float:
         walls = {"stage_h2d_ms": sum(a.elapsed_time(b) for a, b in h2d),
                  "stage_decompose_ms": sum(a.elapsed_time(b)
                                            for a, b in dec)}
-    for key, ms in walls.items():
-        LAST_STAGES[key] += ms
-    return fill_ms
+    walls.update(stage_read_ms=fill_ms, stage_bytes=n * rows.row_bytes)
+    for key, val in walls.items():
+        LAST_STAGES[key] += val
 
 
 def _vector_dtype(db) -> np.dtype:
     return np.dtype(np.int16 if db.dtype == "int16" else np.int32)
 
 
-def _vectors(db, total, d):
-    """vectors.bin as a read-only (total, d) memmap of its own dtype."""
+def _host_vectors(finalize, db, total, d):
+    """The host finalize's rows: vectors.bin as a read-only (total, d)
+    memmap of its own dtype for ``finalize="host"``, else None."""
+    if finalize != "host":
+        return None
     return np.memmap(os.path.join(db.path, "vectors.bin"),
                      dtype=_vector_dtype(db), mode="r", shape=(total, d))
 
@@ -540,8 +536,7 @@ def _stage_database(db, norms_sq, total, tile, L, d, max_abs, ops, key):
     key holds max_abs and the files' mtimes), else staged on the lead
     device, replicated and kept in the slot (``value``: the lead device's
     (planes, thr); ``replicas``: the slots'). The rows are read from
-    vectors.bin afresh (:class:`_FileRows`, :func:`_upload_rows`); the
-    reads' wall goes to stage_read_ms and their bytes to stage_bytes. Peak
+    vectors.bin afresh (:class:`_FileRows`, :func:`_upload_rows`). Peak
     device memory is the planes plus two chunks on the lead card, the
     planes on the others."""
     if _RESIDENT.get("key") == key:
@@ -550,13 +545,8 @@ def _stage_database(db, norms_sq, total, tile, L, d, max_abs, ops, key):
     npad = (total + tile - 1) // tile * tile
     planes = torch.zeros((pm.num_planes(L), npad, pw.pad_dim(d)),
                          dtype=torch.int8, device=dev)
-    rows = _FileRows(db, total, d)
-    try:
-        LAST_STAGES["stage_read_ms"] += _upload_rows(planes, rows, 0, L,
-                                                     max_abs, db, dev)
-    finally:
-        rows.close()
-    LAST_STAGES["stage_bytes"] += total * rows.row_bytes
+    with _FileRows(db, total, d) as rows:
+        _upload_rows(planes, rows, 0, total, L, max_abs, db, dev)
     thr = np.full(npad, np.float32(1e30), dtype=np.float32)
     thr[:total] = _thresholds(norms_sq, L, max_abs, d)
     value = (planes, torch.from_numpy(thr).to(dev))
@@ -716,36 +706,19 @@ def _compute_streaming(db, norms_sq, total, begin_row, end_row, tile, L, d,
     return _compute_streaming_two_phase(*args, finalize)
 
 
-def _stage_block(block, thr_all, start, n_rows, L, max_abs, db, ops):
-    """(n, d) int32 host rows, global rows start.. -> per-slot replicas of
-    their (P, n_rows, d_pad) int8 planes and (n_rows,) float32 thresholds
-    (1e30 on the pad rows past the block): the streaming engines' staging
-    of a block through :func:`_upload_rows`, on the lead device."""
+def _stage_block(rows, thr_all, start, end, n_rows, L, max_abs, db, ops):
+    """Rows start..end of ``rows`` (:class:`_FileRows`) -> per-slot
+    replicas of their (P, n_rows, d_pad) int8 planes and (n_rows,) float32
+    thresholds (1e30 on the pad rows past the block): the streaming
+    engines' staging of a block through :func:`_upload_rows`, on the lead
+    device."""
     dev = ops.mesh.lead
-    planes = torch.zeros((pm.num_planes(L), n_rows,
-                          pw.pad_dim(block.shape[1])), dtype=torch.int8,
-                         device=dev)
-    _upload_rows(planes, _BlockRows(block), 0, L, max_abs, db, dev)
+    planes = torch.zeros((pm.num_planes(L), n_rows, pw.pad_dim(rows.d)),
+                         dtype=torch.int8, device=dev)
+    _upload_rows(planes, rows, start, end, L, max_abs, db, dev)
     thr = np.full(n_rows, np.float32(1e30), dtype=np.float32)
-    thr[:len(block)] = thr_all[start:start + len(block)]
+    thr[:end - start] = thr_all[start:end]
     return ops.replicate(planes, torch.from_numpy(thr).to(dev))
-
-
-def _read_block(V, start, end):
-    """Rows start..end of the vectors memmap V as int32 -> (the rows, the
-    read's stage record: its wall, stage_read_ms, and its bytes of
-    vectors.bin, stage_bytes); :func:`_add_stages` adds the record on the
-    calling thread (a window is read on a worker thread)."""
-    rec = {"stage_bytes": (end - start) * V.strides[0]}
-    with stage("mvs.shard.stage_read", rec, "stage_read_ms"):
-        block = np.array(V[start:end], dtype=np.int32)
-    return block, rec
-
-
-def _add_stages(block, rec):
-    for key, val in rec.items():
-        LAST_STAGES[key] += val
-    return block
 
 
 def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
@@ -756,15 +729,11 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
     every (row tile x window tile) of the full rectangle with two operands,
     and masks the self-pairs through its diagonal offset (window start -
     row group start). The budget is split in quarters: the row group, the
-    window being swept, the next window and staging temporaries. The
-    flattened (row group, window) schedule lets a worker thread read the
-    next window from the vectors memmap (host work only: the read and the
-    int32 cast) while the current one is swept, across row-group
-    boundaries too; every upload and launch stays on this thread. On a
-    mesh the row group and the window are staged on the lead device and
-    replicated to the slots (JAX ``compute.py:1167-1259``)."""
+    window being swept, the next window and staging temporaries. Every
+    block is read from vectors.bin, opened once a call, by the one stager.
+    On a mesh the row group and the window are staged on the lead device
+    and replicated to the slots (JAX ``compute.py:1167-1259``)."""
     LAST_STAGES["mode"] = "fused-streaming"
-    V = _vectors(db, total, d)
     thr_all = _thresholds(norms_sq, L, max_abs, d)
     P = pm.num_planes(L)
     parts: list = []
@@ -777,46 +746,34 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
     rg_tiles = max(1, min((end_row - begin_row + tile - 1) // tile,
                           share // bytes_per_tile))
     window_tiles = max(1, share // bytes_per_tile)
-    windows = [(ws, min(ws + window_tiles * tile, total))
-               for ws in range(0, total, window_tiles * tile)]
-    schedule = [(rg, w) for rg in range(begin_row, end_row, rg_tiles * tile)
-                for w in windows]
-    LAST_STAGES.update(row_groups=len(schedule) // len(windows),
-                       windows=len(windows), tiles_swept=0)
+    windows = range(0, total, window_tiles * tile)
+    row_groups = range(begin_row, end_row, rg_tiles * tile)
+    LAST_STAGES.update(row_groups=len(row_groups), windows=len(windows),
+                       tiles_swept=0)
 
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(_read_block, V, *schedule[0][1])
-        cur_rg = None
-        for si, (rg, (ws, we)) in enumerate(schedule):
-            if rg != cur_rg:
-                rg_end = min(rg + rg_tiles * tile, end_row)
-                n_r = (rg_end - rg + tile - 1) // tile
-                with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
-                    planes_r = thr_r = None       # free the last group first
-                    block = _add_stages(*_read_block(V, rg, rg_end))
-                    planes_r, thr_r = _stage_block(block, thr_all, rg,
-                                                   n_r * tile, L, max_abs,
-                                                   db, ops)
-                _self_pairs(ops, planes_r, 0, rg_end - rg, rg, L, keeps,
-                            parts)
-                cur_rg = rg
+    with _FileRows(db, total, d) as rows:
+        for rg in row_groups:
+            rg_end = min(rg + rg_tiles * tile, end_row)
+            n_r = (rg_end - rg + tile - 1) // tile
             with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
-                with stage("mvs.shard.stage_wait", LAST_STAGES,
-                           "stage_wait_ms"):
-                    block = _add_stages(*fut.result())
-                fut = pool.submit(_read_block, V, *schedule[si + 1][1]) \
-                    if si + 1 < len(schedule) else None
-                n_w = (we - ws + tile - 1) // tile
-                planes_w = thr_w = None       # free the last window first
-                planes_w, thr_w = _stage_block(block, thr_all, ws,
-                                               n_w * tile, L, max_abs, db,
+                planes_r = thr_r = None           # free the last group first
+                planes_r, thr_r = _stage_block(rows, thr_all, rg, rg_end,
+                                               n_r * tile, L, max_abs, db,
                                                ops)
-                del block
-            coords = np.array([(ri, wj) for ri in range(n_r)
-                               for wj in range(n_w)], dtype=np.int32)
-            LAST_STAGES["tiles_swept"] += len(coords)
-            _sweep(ops, planes_r, thr_r, planes_w, thr_w, tile, L, d, coords,
-                   keeps, parts, row_base=rg, col_base=ws)
+            _self_pairs(ops, planes_r, 0, rg_end - rg, rg, L, keeps, parts)
+            for ws in windows:
+                we = min(ws + window_tiles * tile, total)
+                n_w = (we - ws + tile - 1) // tile
+                with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
+                    planes_w = thr_w = None       # free the last window first
+                    planes_w, thr_w = _stage_block(rows, thr_all, ws, we,
+                                                   n_w * tile, L, max_abs,
+                                                   db, ops)
+                coords = np.array([(ri, wj) for ri in range(n_r)
+                                   for wj in range(n_w)], dtype=np.int32)
+                LAST_STAGES["tiles_swept"] += len(coords)
+                _sweep(ops, planes_r, thr_r, planes_w, thr_w, tile, L, d,
+                       coords, keeps, parts, row_base=rg, col_base=ws)
     return _concat(parts)
 
 
@@ -875,8 +832,7 @@ def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
     residency slot's planes (shared with the fused engine: a fused and a
     two-phase shard of one db stage once), the counts sweep over the FULL
     rectangle of the shard's row tiles x every column tile (kernel COUNT),
-    then :func:`_extract_tiles` with the finalize's exact dots. extract_ms
-    is net of the finalize nested in it."""
+    then :func:`_extract_tiles` with the finalize's exact dots."""
     with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
         planes, thr = _stage_database(db, norms_sq, total, tile, L, d,
                                       max_abs, ops, key)
@@ -891,16 +847,12 @@ def _compute_device_resident_two_phase(db, norms_sq, total, begin_row,
         counts = ops.sweep_counts(planes, thr, ops.tile_lists(coords), tile,
                                   d)
 
-    exact = _exact_dots(finalize, _vectors(db, total, d), max_abs, L,
-                        planes[0])
+    exact = _exact_dots(finalize, _host_vectors(finalize, db, total, d),
+                        max_abs, L, planes[0])
     parts, finalize_globals = _make_finalizer(norms_sq, begin_row, end_row,
                                               total, d, db.dtype)
-    fin0 = LAST_STAGES["finalize_ms"]
-    with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
-        _extract_tiles(ops, planes, thr, planes, thr, tile, L, d, coords,
-                       counts, 0, 0,
-                       lambda r, c: finalize_globals(r, c, exact))
-    LAST_STAGES["extract_ms"] -= LAST_STAGES["finalize_ms"] - fin0
+    _extract_tiles(ops, planes, thr, planes, thr, tile, L, d, coords, counts,
+                   0, 0, lambda r, c: finalize_globals(r, c, exact))
     return _concat(parts)
 
 
@@ -910,7 +862,8 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
     """The two-phase engine beyond the device budget (JAX ``:1214-1273``):
     windows of column tiles on the outer loop, each staged once per shard
     (a third of the budget, JAX's rule), and one row tile of the shard at a
-    time on the inner loop (staged under sweep_ms, as in JAX). Kernels
+    time on the inner loop (staged under sweep_ms, as in JAX), each read
+    from vectors.bin, opened once a call, by the one stager. Kernels
     APPEND and COUNT take the row tile and the window as their two
     operands (the window's tile list goes to the card once), not
     concatenated: the survivors come back operand-local and the row tile's
@@ -919,7 +872,7 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
     resident engine's extraction and finalize ("device": kernel X on the
     two operands)."""
     LAST_STAGES.update(mode="two_phase-streaming", reruns=0, hot_tiles=0)
-    V = _vectors(db, total, d)
+    V = _host_vectors(finalize, db, total, d)
     thr_all = _thresholds(norms_sq, L, max_abs, d)
     P = pm.num_planes(L)
     bytes_per_tile = P * tile * d
@@ -929,32 +882,30 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
                                               total, d, db.dtype)
     windows = range(0, total, window_tiles * tile)
     LAST_STAGES["windows"] = len(windows)
-    for ws in windows:
-        we = min(ws + window_tiles * tile, total)
-        n_w = (we - ws + tile - 1) // tile
-        with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
-            planes_w, thr_w = _stage_block(
-                _add_stages(*_read_block(V, ws, we)), thr_all, ws,
-                n_w * tile, L, max_abs, db, ops)
-        coords = np.array([(0, j) for j in range(n_w)], dtype=np.int32)
-        lists = ops.tile_lists(coords)
-        for bi in range(begin_row, end_row, tile):
-            with stage("mvs.shard.sweep", LAST_STAGES, "sweep_ms"):
-                planes_r = thr_r = None       # free the last row tile first
-                planes_r, thr_r = _stage_block(
-                    _add_stages(*_read_block(V, bi, min(bi + tile, end_row))),
-                    thr_all, bi, tile, L, max_abs, db, ops)
-                counts = ops.sweep_counts(planes_r, thr_r, lists, tile, d,
-                                          planes_w, thr_w)
-            exact = _exact_dots(finalize, V, max_abs, L, planes_r[0], bi,
-                                planes_w[0], ws)
-            fin0 = LAST_STAGES["finalize_ms"]
-            with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
+    with _FileRows(db, total, d) as rows:
+        for ws in windows:
+            we = min(ws + window_tiles * tile, total)
+            n_w = (we - ws + tile - 1) // tile
+            with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
+                planes_w, thr_w = _stage_block(rows, thr_all, ws, we,
+                                               n_w * tile, L, max_abs, db,
+                                               ops)
+            coords = np.array([(0, j) for j in range(n_w)], dtype=np.int32)
+            lists = ops.tile_lists(coords)
+            for bi in range(begin_row, end_row, tile):
+                with stage("mvs.shard.sweep", LAST_STAGES, "sweep_ms"):
+                    planes_r = thr_r = None   # free the last row tile first
+                    planes_r, thr_r = _stage_block(
+                        rows, thr_all, bi, min(bi + tile, end_row), tile, L,
+                        max_abs, db, ops)
+                    counts = ops.sweep_counts(planes_r, thr_r, lists, tile,
+                                              d, planes_w, thr_w)
+                exact = _exact_dots(finalize, V, max_abs, L, planes_r[0], bi,
+                                    planes_w[0], ws)
                 _extract_tiles(ops, planes_r, thr_r, planes_w, thr_w, tile,
                                L, d, coords, counts, bi, ws,
                                lambda r, c: finalize_globals(r, c, exact))
-            LAST_STAGES["extract_ms"] -= LAST_STAGES["finalize_ms"] - fin0
-        planes_w = thr_w = None               # free the last window first
+            planes_w = thr_w = None           # free the last window first
     return _concat(parts)
 
 
@@ -965,10 +916,11 @@ def _extract_tiles(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
     counts fit CANDIDATE_BUDGET_BYTES (checked before any launch; one tile
     at least), each chunk one round of kernel APPEND with the self-pairs
     kept on every slot (the chunk's per-slot tile lists go to the cards
-    once), at the capacity its counts give. The survivors' operand-local
-    (row, column) pairs come to the host and, placed by row_base and
-    col_base (the global rows of planes_i's and planes_j's first rows), go
-    to finalize(rows, cols).
+    once), at the capacity its counts give, timed under extract_ms with
+    the copy of its survivors. The survivors' operand-local (row, column)
+    pairs come to the host and, placed by row_base and col_base (the global
+    rows of planes_i's and planes_j's first rows), go to finalize(rows,
+    cols), outside extract_ms.
 
     The counts are advisory, as in JAX (``:995-1000``): a slot whose
     APPEND total exceeds its capacity is rerun at the exact total
@@ -983,28 +935,29 @@ def _extract_tiles(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
     LAST_STAGES["hot_tiles"] += len(hot)
     s, take = 0, len(hot)
     while s < len(hot):
-        csum = np.cumsum(counts[hot[s:s + take]])
-        e = s + max(1, int(np.searchsorted(csum, limit, side="right")))
-        ks = hot[s:e]
-        want = counts[ks]
-        cap = ops.block_total_max(want)
-        res = ops.sweep_extract_fused(planes_i, thr_i,
-                                      ops.tile_lists(coords[ks]), tile, cap,
-                                      d, limit, planes_j, thr_j,
-                                      mask_self=False)
-        if res is None:
-            take = max(1, (e - s) // 2)
-            continue
-        swept, got = res
-        del res
-        LAST_STAGES["reruns"] += sum(run is not None and run[1] > cap
-                                     for run in swept)
-        if not np.array_equal(got, want):
-            log(f"two-phase extraction: {int((got != want).sum())} of "
-                f"{len(ks)} tiles found {int(got.sum())} survivors where "
-                f"the counts sweep found {int(want.sum())}")
-        hosts = ops.host_pairs(swept)
-        del swept                # the candidate buffers, before the finalize
+        with stage("mvs.shard.extract", LAST_STAGES, "extract_ms"):
+            csum = np.cumsum(counts[hot[s:s + take]])
+            e = s + max(1, int(np.searchsorted(csum, limit, side="right")))
+            ks = hot[s:e]
+            want = counts[ks]
+            cap = ops.block_total_max(want)
+            res = ops.sweep_extract_fused(planes_i, thr_i,
+                                          ops.tile_lists(coords[ks]), tile,
+                                          cap, d, limit, planes_j, thr_j,
+                                          mask_self=False)
+            if res is None:
+                take = max(1, (e - s) // 2)
+                continue
+            swept, got = res
+            del res
+            LAST_STAGES["reruns"] += sum(run is not None and run[1] > cap
+                                         for run in swept)
+            if not np.array_equal(got, want):
+                log(f"two-phase extraction: {int((got != want).sum())} of "
+                    f"{len(ks)} tiles found {int(got.sum())} survivors "
+                    f"where the counts sweep found {int(want.sum())}")
+            hosts = ops.host_pairs(swept)
+            del swept            # the candidate buffers, before the finalize
         for rc in hosts:
             if rc is not None:
                 finalize(rc[:, 0].astype(np.int64) + row_base,

@@ -29,9 +29,9 @@ TILE = 32
 SHARD_SPANS = {
     "resident": {"entry", "norms_parse", "stage", "stage_wait", "stage_h2d",
                  "decompose", "sweep", "extract", "finalize", "write"},
-    "streaming": {"entry", "norms_parse", "stage", "stage_read",
-                  "stage_wait", "stage_h2d", "decompose", "sweep", "extract",
-                  "finalize", "write"},
+    "streaming": {"entry", "norms_parse", "stage", "stage_wait",
+                  "stage_h2d", "decompose", "sweep", "extract", "finalize",
+                  "write"},
     "two_phase": {"entry", "norms_parse", "stage", "stage_wait", "stage_h2d",
                   "decompose", "sweep", "extract", "finalize", "write"},
 }
@@ -124,6 +124,28 @@ def test_shard_stages_are_spans_of_their_call(tmp_path, engine):
     # a resident shard of the same db re-uses the staged planes
     assert second == (first - {"stage_wait", "stage_h2d", "decompose"}
                       if engine != "streaming" else first)
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["resident",
+                                                   "streaming"])
+def test_two_phase_finalize_is_not_inside_extract(tmp_path, budget):
+    """A two-phase shard's extract_ms times the extraction's launches and
+    copies only: no mvs.shard.finalize span lies inside an
+    mvs.shard.extract span, and the finalize still runs."""
+    db = _db(tmp_path / "db")
+    tmc.clear_device_cache()
+    spans = _profiled(lambda: tmc.compute_pairwise_shard(
+        db.path, str(tmp_path / "m"), num_shards=2, shard_idx=0,
+        tile_rows=TILE, device_budget_bytes=budget, verbose=False,
+        device="cpu", engine="two_phase"), tmp_path)
+    assert tmc.LAST_STAGES["mode"].startswith("two_phase")
+    extract = [(b, e) for n, b, e, _ in spans if n == "mvs.shard.extract"]
+    final = [(b, e) for n, b, e, _ in spans if n == "mvs.shard.finalize"]
+    assert extract and final
+    assert not [f for f in final for x in extract
+                if x[0] <= f[0] and f[1] <= x[1]]
+    assert tmc.LAST_STAGES["extract_ms"] > 0
+    assert tmc.LAST_STAGES["finalize_ms"] > 0
 
 
 def test_search_stages_are_spans_of_their_call(tmp_path, toy_search):

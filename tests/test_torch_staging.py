@@ -1,13 +1,15 @@
-"""The resident engines' stager (matrix.compute._upload_rows over
-_FileRows) on the CPU: vectors.bin read with preadv into a ring of host
-buffers, chunk by chunk, copied and split into limb planes. The staged
-planes equal decompose_limbs + planes_update over the whole block, bit for
-bit, for int32 and int16 dbs at L = 1, 2, 3, with chunks that do not divide
-N, chunks of one row, a db of one row and reads that come back short; every
-such shard equals the JAX engine's. A stale max_component.txt found in a
-later chunk raises and leaves the residency slot empty; stage_bytes counts
-the file on a staging and 0 on a hit. Then the benchmark's readers of the
-two new stage records."""
+"""The one stager of every engine (matrix.compute._upload_rows over
+_FileRows) on the CPU: a row range of vectors.bin read with preadv into a
+ring of host buffers, chunk by chunk, in the file's own dtype, copied and
+split into limb planes. The staged planes equal decompose_limbs +
+planes_update over the whole block, bit for bit, for int32 and int16 dbs
+at L = 1, 2, 3, with chunks that do not divide N, chunks of one row, a db
+of one row and reads that come back short; every such shard equals the
+JAX engine's. A stale max_component.txt found in a later chunk raises and
+leaves the residency slot empty; stage_bytes counts the file on a staging
+and 0 on a hit; the streaming engines read the file only through the same
+stager, and stage_bytes counts the rows they read. Then the benchmark's
+readers of the two stage records."""
 
 import filecmp
 import os
@@ -205,6 +207,47 @@ def test_streaming_counts_its_windows_bytes(tmp_path):
     assert st["stage_bytes"] >= os.path.getsize(
         os.path.join(db.path, "vectors.bin"))
     assert st["stage_read_ms"] > 0 and st["stage_h2d_ms"] > 0
+
+
+@pytest.mark.parametrize("engine", ["fused", "two_phase"])
+@pytest.mark.parametrize("dtype", ["int32", "int16"])
+def test_streaming_engines_read_only_through_the_stager(tmp_path,
+                                                        monkeypatch, dtype,
+                                                        engine):
+    """Both streaming engines read vectors.bin only through _FileRows.fill,
+    into host buffers of the file's own dtype (no memmap and no
+    load_vectors of the file; the two-phase finalize on the planes), and
+    stage_bytes is the rows read x d x the file's itemsize: 2 B a
+    component for an int16 db."""
+    db, _ = _db(tmp_path / "db", dtype, 2)
+    monkeypatch.setattr(tmc, "STAGE_CHUNK_BYTES", CHUNKS["uneven"])
+    rows_read = []
+    real = tmc._FileRows.fill
+
+    def spy(self, out, lo, hi):
+        assert out.dtype == np.dtype(dtype) and out.shape == (hi - lo, D)
+        rows_read.append(hi - lo)
+        return real(self, out, lo, hi)
+
+    def other_read(*args, **kwargs):
+        raise AssertionError("vectors.bin read outside the stager")
+    monkeypatch.setattr(tmc._FileRows, "fill", spy)
+    monkeypatch.setattr(np, "memmap", other_read)
+    monkeypatch.setattr(DbFolder, "load_vectors", other_read)
+    tmc.compute_pairwise_shard(db.path, str(tmp_path / "m"), num_shards=2,
+                               shard_idx=1, tile_rows=TILE,
+                               device_budget_bytes=0, verbose=False,
+                               device="cpu", engine=engine,
+                               finalize="device")
+    monkeypatch.undo()
+    st = tmc.LAST_STAGES
+    assert st["mode"] == f"{engine}-streaming"
+    itemsize = 2 if dtype == "int16" else 4
+    # every window of the file, and the shard's 35 rows once a window
+    # (two-phase, a row tile at a time) or once (fused, one row group)
+    assert sum(rows_read) >= N + 35
+    assert st["stage_bytes"] == sum(rows_read) * D * itemsize
+    assert st["stage_read_ms"] > 0
 
 
 @pytest.mark.parametrize("metric, key", [("shard.stage_read_ms",

@@ -86,7 +86,7 @@ def test_streaming_shards_equal_jax_and_resident(tmp_path, dtype, L,
 
 def test_streaming_prefetch_crosses_row_groups(tmp_path, ref_toy_dir):
     """toy_db_256 at tile 16 and budget 0: several row groups x several
-    windows, the one-deep prefetch crossing every row-group boundary
+    windows, every window read again for each row group
     (tests/test_pairwise.py's streaming case)."""
     db = DbFolder(str(ref_toy_dir / "toy_db_256"))
     stages = _run(db, tmp_path, 1, tile=16)
