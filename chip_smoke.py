@@ -175,9 +175,20 @@ def _sweep_state(N, d, max_abs, seed):
     pw.planes_update(planes, pw.decompose_limbs(
         torch.from_numpy(V).cuda(), L), 0)
     ns = np.einsum("ij,ij->i", V.astype(np.float64), V.astype(np.float64)) / d
-    thr = torch.from_numpy(
-        (ns + pm.threshold_adjust(L, max_abs, d)).astype(np.float32)).cuda()
-    return V, L, planes, thr
+    return V, L, planes, _row_thresholds(planes, ns, L, d)
+
+
+def _row_thresholds(planes, norms_sq, L, d):
+    """The main path's float32 sweep thresholds of the planes' rows on the
+    card: matrix.compute._thresholds from their squared norms and their
+    plane energies, so the kernel checks run at the main path's survivor
+    density."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
+    energies = pw.plane_energies(planes).cpu().numpy()
+    return torch.from_numpy(mc._thresholds(
+        np.asarray(norms_sq, dtype=np.float64), energies, L, d)[0]).cuda()
 
 
 def _incidence(n, u, density, seed):
@@ -665,8 +676,7 @@ def phase_main(N, work):
     pw.planes_update(planes, pw.decompose_limbs(torch.from_numpy(V).cuda(),
                                                 L), 0)
     _, norms64 = db.names_and_norms()
-    thr = torch.from_numpy((norms64[:4 * tile] ** 2 + pm.threshold_adjust(
-        L, db.max_component(), D)).astype(np.float32)).cuda()
+    thr = _row_thresholds(planes, norms64[:4 * tile] ** 2, L, D)
     coords = np.array([(r, c) for r in range(4) for c in range(r, 4)],
                       dtype=np.int32)
     tiles = pw.TileList(coords, "cuda")       # the engine's list on the card
@@ -1453,12 +1463,11 @@ def _count_state(P, nt, tile, seed):
     planes = torch.zeros((P, nt * tile, pw.pad_dim(D)), dtype=torch.int8,
                          device="cuda")
     pw.planes_update(planes, pw.decompose_limbs(V, L), 0)
-    thr = ((V.double() ** 2).sum(1) / D + pm.threshold_adjust(L, m, D)) \
-        .float().contiguous()
-    return planes, thr
+    ns = ((V.double() ** 2).sum(1) / D).cpu().numpy()
+    return planes, _row_thresholds(planes, ns, L, D)
 
 
-def _check_count_append(L, db_path, norms64, max_abs, errs):
+def _check_count_append(L, db_path, norms64, errs):
     """Kernels COUNT and APPEND (self-pairs kept: the two-phase
     extraction's call) over the 4 x 4 tiles of 2048^2 of phase 2's first
     8,192 rows (P = 3) and of an int16-like db of that shape (P = 6), one
@@ -1477,8 +1486,7 @@ def _check_count_append(L, db_path, norms64, max_abs, errs):
                          device="cuda")
     pw.planes_update(planes, pw.decompose_limbs(torch.from_numpy(V).cuda(),
                                                 L), 0)
-    thr = torch.from_numpy((norms64[:nt * tile] ** 2 + pm.threshold_adjust(
-        L, max_abs, D)).astype(np.float32)).cuda()
+    thr = _row_thresholds(planes, norms64[:nt * tile] ** 2, L, D)
     coords = np.array([(r, c) for r in range(nt) for c in range(nt)],
                       dtype=np.int32)
     tiles = pw.TileList(coords, "cuda")
@@ -1521,8 +1529,7 @@ def phase_two_phase(N, work, errs):
 
     db_path = os.path.join(work, "db")
     db = DbFolder(db_path)
-    max_abs = db.max_component()
-    L = pm.pick_limbs(max(1, max_abs))
+    L = pm.pick_limbs(max(1, db.max_component()))
     tile = 2048
     npad = (N + tile - 1) // tile * tile
     budget = pm.num_planes(L) * npad * D // 2
@@ -1578,7 +1585,7 @@ def phase_two_phase(N, work, errs):
         f"kernel COUNT launches on the counted run {lc['count']}, APPEND "
         f"{lc['sweep']}, X {lc['partials']}; reruns 0")
     _, norms64 = db.names_and_norms()
-    _check_count_append(L, db_path, norms64, max_abs, errs)
+    _check_count_append(L, db_path, norms64, errs)
     return total
 
 

@@ -10,8 +10,10 @@ The fused engine:
    threads into a ring of page-locked host buffers, each chunk is copied
    to the device on a copy stream and split into (P, Npad, d_pad) int8
    Karatsuba planes there, the reads, copies and splits overlapped
-   (:func:`_upload_rows`); thresholds are the text-parsed squared norms
-   (+ the certified slack adjustment), 1e30 on pad rows.
+   (:func:`_upload_rows`), which also sums each row's squares plane by
+   plane; thresholds are the text-parsed squared norms less the float32
+   combine error that those energies certify for the row
+   (:func:`_thresholds`), 1e30 on pad rows.
 2. Sweep: kernel APPEND over the shard's TRIANGLE tile grid (only column
    tiles c >= r inside the shard's own row-tile range; mirrors are
    re-emitted by kernel X) with self-pairs masked, over a tile list on the
@@ -73,6 +75,7 @@ nothing for a tile without survivors.
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -112,7 +115,10 @@ from ..ops import pairwise_math as pm
 #   over chunks (the preadv fills on the reader threads, no span);
 #   stage_bytes: the bytes of vectors.bin read for staging. All five are
 #   counted by the one stager (_upload_rows), for every engine, and are 0
-#   on a residency hit;
+#   on a residency hit; slack_max (no span): the largest per-row slack
+#   sigma_i of the rows staged for the call, on the dot/d scale (a pair's
+#   slack is SLACK_INFLATE * (sigma_i + sigma_j); _thresholds), the
+#   residency slot's on a hit;
 # - sweep_ms (mvs.shard.sweep, one span a round): kernel APPEND,
 #   synchronised;
 # - extract_ms (mvs.shard.extract): the fused engines' kernel X with its
@@ -142,6 +148,10 @@ STAGE_CHUNK_BYTES = 64 << 20
 STAGE_RING = 3
 # threads that fill one host buffer with vectors.bin reads
 STAGE_READERS = min(4, os.cpu_count() or 1)
+# the per-row slack's inflation: lam of _thresholds' t_i, which covers the
+# float32 threshold arithmetic's roundings and SLACK_REL's shrinking of
+# the slack it takes away
+SLACK_INFLATE = 1.0 + 2.0 ** -16
 # first capacity (pairs) of the survivor buffer; grows to the exact size
 SWEEP_CAP_START = 1 << 22
 # first capacity (pairs) of kernel X's kept-pair buffer, which also holds
@@ -220,7 +230,8 @@ def _reset_stages():
                        candidates=0, emitted=0, pairs_written=0,
                        stage_decompose_ms=0.0, stage_h2d_ms=0.0,
                        stage_read_ms=0.0, stage_wait_ms=0.0,
-                       stage_bytes=0, entry_ms=0.0, norms_parse_ms=0.0,
+                       stage_bytes=0, slack_max=0.0, entry_ms=0.0,
+                       norms_parse_ms=0.0,
                        combine_ms=0.0, mirror_ms=0.0, readback_bytes=0)
 
 
@@ -413,22 +424,26 @@ def _timed_fill(rows, out, lo, hi):
     return t0, time.perf_counter()
 
 
-def _upload_rows(planes, rows, lo, hi, L, max_abs, db, dev) -> None:
+def _upload_rows(planes, rows, lo, hi, L, max_abs, db, dev) -> np.ndarray:
     """Write rows lo..hi of ``rows`` (:class:`_FileRows`) into the (P, *,
     d_pad) int8 planes from their row 0, one STAGE_CHUNK_BYTES chunk at a
     time, through a pipeline: STAGE_READERS threads fill the next of
     STAGE_RING host buffers (page-locked on CUDA) while the last chunk is
     copied to one of two device buffers on a copy stream and split into
-    limbs on the current stream. A host buffer is refilled once its copy's
-    event has completed, a device buffer once the decomposition that read
-    it has; the one host sync is the stale-max_component check at the end
-    (each chunk's min and max stay on the device until then). On the CPU
-    the same loop runs without streams. The one stager of every engine:
-    it adds the fills' wall, summed over the chunks, to stage_read_ms and
-    the rows' bytes to stage_bytes."""
+    limbs on the current stream, which then sums each written row's
+    squares plane by plane (:func:`~..ops.pairwise.plane_energies`). A
+    host buffer is refilled once its copy's event has completed, a device
+    buffer once the decomposition that read it has; the one host sync is
+    the stale-max_component check at the end (each chunk's min and max,
+    and the energies, stay on the device until then). On the CPU the same
+    loop runs without streams. The one stager of every engine: it adds the
+    fills' wall, summed over the chunks, to stage_read_ms and the rows'
+    bytes to stage_bytes. -> the rows' (P, hi - lo) int64 plane energies,
+    on the host (:func:`_thresholds` reads them)."""
     n, d = hi - lo, rows.d
+    P = planes.shape[0]
     if n == 0:
-        return
+        return np.zeros((P, 0), dtype=np.int64)
     chunk = min(n, max(1, STAGE_CHUNK_BYTES // rows.row_bytes))
     starts = range(0, n, chunk)
     cuda = dev.type == "cuda"
@@ -449,6 +464,7 @@ def _upload_rows(planes, rows, lo, hi, L, max_abs, db, dev) -> None:
     walls: dict = {}
     fill_ms = 0.0
     bounds = []
+    energies = torch.empty((P, n), dtype=torch.int64, device=dev)
     with ThreadPoolExecutor(STAGE_READERS) as pool:
         def read(k):
             """Fill host buffer k % STAGE_RING with chunk k, in parts."""
@@ -491,8 +507,11 @@ def _upload_rows(planes, rows, lo, hi, L, max_abs, db, dev) -> None:
                 bounds.append(torch.stack(torch.aminmax(v)))
                 pw.planes_update(planes, pw.decompose_limbs(v, L), s)
                 del v
+                energies[:, s:s + m] = pw.plane_energies(planes[:, s:s + m])
                 if cuda:
                     dec[k][1].record(compute)
+    host = torch.empty((P, n), dtype=torch.int64, pin_memory=cuda)
+    host.copy_(energies, non_blocking=cuda)
     mins, maxs = torch.stack(bounds).T.tolist()
     worst = max(max(maxs), -min(mins))
     if worst > max_abs:
@@ -508,6 +527,7 @@ def _upload_rows(planes, rows, lo, hi, L, max_abs, db, dev) -> None:
     walls.update(stage_read_ms=fill_ms, stage_bytes=n * rows.row_bytes)
     for key, val in walls.items():
         LAST_STAGES[key] += val
+    return host.numpy()
 
 
 def _vector_dtype(db) -> np.dtype:
@@ -523,10 +543,90 @@ def _host_vectors(finalize, db, total, d):
                      dtype=_vector_dtype(db), mode="r", shape=(total, d))
 
 
-def _thresholds(norms_sq, L, max_abs, d):
-    """float32 sweep thresholds of every row: the squared norms plus the
-    certified slack adjustment."""
-    return (norms_sq + pm.threshold_adjust(L, max_abs, d)).astype(np.float32)
+def _plane_error_weights(L: int) -> np.ndarray:
+    """(P,) float64 kappa_p: the float32 plane combine of kernels COUNT and
+    APPEND errs by at most sum_p kappa_p |S_p| (:func:`_thresholds`), with
+    kappa_p = gamma(r_p) |w_p| + |w_p - W_p|: r_p the roundings plane p's
+    term goes through (its int32 -> float32 conversion, its product with
+    w_p unless |w_p| is a power of two, and its P - 1 (p = 0) or P - p
+    additions), gamma(r) = r u / (1 - r u), u = 2^-24, and |w_p - W_p| the
+    float32 weight's distance from the exact one (nonzero from L = 5)."""
+    w, exact = pm.plane_weights(L), pm.plane_weights_int(L)
+    P, u = len(w), 2.0 ** -24
+    kappa = np.empty(P)
+    for p in range(P):
+        aw = abs(float(w[p]))
+        rounds = (1 + (math.frexp(aw)[0] != 0.5)
+                  + (P - 1 if p == 0 else P - p))
+        kappa[p] = (rounds * u / (1 - rounds * u) * aw
+                    + abs(int(w[p]) - int(exact[p])))
+    return kappa
+
+
+def _thresholds(norms_sq, energies, L, d):
+    """-> (the rows' float32 sweep thresholds, their largest slack sigma_i)
+    from their squared norms n_i and their (P, rows) plane energies E_p(i)
+    (:func:`_upload_rows`):
+
+        t_i = f32(n_i + 10 A - 20 lam sigma_i),
+        sigma_i = sum_p kappa_p E_p(i) / (2 d)     (in float64),
+
+    A = SLACK_ABS, R = SLACK_REL, lam = SLACK_INFLATE, kappa_p of
+    :func:`_plane_error_weights`. Kernels COUNT and APPEND (and the plain
+    version) keep (i, j) when q > th, rounding every step to float32 (u =
+    2^-24, c = f32(0.05), c20 = 20 c = 1 + 1.5e-8, R = 1 - 1.0014e-5):
+
+        approx = f32(S_0) w_0 (+ f32(S_p) w_p, p = 1..P-1),
+        q = fl(approx / d)   (kPow2: fl(approx * (1/d)), the same number),
+        th = fl(fl(fl(c fl(t_i + t_j)) R) - A).
+
+    Claim: every pair the exact retention keeps passes. Write N = n_i +
+    n_j >= 0, D the exact dot, s = sigma_i + sigma_j.
+
+    1. Exact side. int32: Q = trunc(D / d) with f64(Q) > T64 = f64(0.05
+       f64(N)) >= 0, so Q > T64 (rounding is monotone and T64 a double),
+       Q >= 1, D > 0 and D/d >= Q. int16: f64(f64(D) / d) > T64, so
+       f64(D) > d T64 and D > d T64 / (1 + 2^-53). As T64 >= 0.05 N (1 -
+       2^-53)^3, both give D/d > B0 = 0.05 N (1 - 2^-51).
+    2. Combine. S_p, the plane's exact int32 dot, obeys |S_p| <= |a_p| |b_p|
+       <= (E_p(i) + E_p(j)) / 2 (Cauchy-Schwarz, AM-GM), and the weights
+       W_p of :func:`~..ops.pairwise_math.plane_weights_int` give D = sum_p
+       W_p S_p; r_p roundings of relative size <= u each leave |approx -
+       sum_p w_p S_p| <= sum_p gamma(r_p) |w_p| |S_p|. So |approx - D| <=
+       sum_p kappa_p |S_p| <= d s.
+    3. Quotient. approx is a sum of integers, so X = approx / d is 0 or at
+       least 1/d away from it (no underflow) and q >= X - u|X|, which rises
+       with X. X > B = B0 - s, so q > B - u|B| >= 0.05 N (1 - 2^-51 - u) -
+       s (1 + u).
+    4. Threshold. x_i = n_i + 10 A - 20 lam sigma_i is evaluated in float64
+       within 2^-50 (n_i + 10 A + 20 lam sigma_i) and rounded once, so with
+       u' = u (1 + 2^-25), Y = N + 20 A + 20 lam s and E = (1 + u)^4 (1 +
+       u') - 1 < 5.0001 u, bounding t_i + t_j, its sum, the product by c,
+       by R and the difference with A one rounding at a time (an
+       underflow errs by 2^-150 at most, inside the A margin below) gives
+         th <= R c (N + 20 A - 20 lam s) - A + u A + R c Y E
+            = R c N (1 + E) - A (1 - R c20 (1 + E) - u)
+              - R c20 lam s (1 - E).
+    5. Compare term by term with step 3's bound:
+       N: R c (1 + E) = 0.05 (1 - 9.7e-6) <= 0.05 (1 - 2^-51 - u);
+       A: 1 - R c20 (1 + E) - u = 9.6e-6 > 0, a margin of 1.5e-4 on th;
+       s: R c20 lam (1 - E) (1 - 2^-40) = 1 + 4.9e-6 >= 1 + u, where
+          1 - 2^-40 bounds the float64 rounding of kappa_p and sigma_i.
+       So th < q.  QED
+
+    The absolute floor this needs is 0, in place of threshold_adjust's
+    1.0: the 10 A a row carries, taken back by the kernels' - A after the
+    product by R, leaves the margin A (1 - R c20) ~ 1.6e-4 that covers the
+    absolute roundings, and SLACK_REL's 1e-5 of 0.05 N the relative ones.
+    The rounding counts give lam sum_p kappa_p m_p^2 <= (P + 1) u sum_p
+    |w_p| m_p^2 + sum_p |w_p - W_p| m_p^2 for every plane bound m_p a db
+    can have (its largest component's: E_p(i) <= d m_p^2), so 2 lam
+    sigma_i <= required_slack_abs(L, max_abs, d) <= the slack the JAX
+    engine's threshold_adjust leaves: its t_i is never above ours, and its
+    candidates hold ours."""
+    sigma = _plane_error_weights(L) @ energies.astype(np.float64) / (2.0 * d)
+    x = norms_sq + (10.0 * float(pm.SLACK_ABS) - 20.0 * SLACK_INFLATE * sigma)
+    return x.astype(np.float32), float(sigma.max(initial=0.0))
 
 
 def _stage_database(db, norms_sq, total, tile, L, d, max_abs, ops, key):
@@ -535,23 +635,27 @@ def _stage_database(db, norms_sq, total, tile, L, d, max_abs, ops, key):
     it holds ``key`` (the stale-max check ran when it was filled, and the
     key holds max_abs and the files' mtimes), else staged on the lead
     device, replicated and kept in the slot (``value``: the lead device's
-    (planes, thr); ``replicas``: the slots'). The rows are read from
-    vectors.bin afresh (:class:`_FileRows`, :func:`_upload_rows`). Peak
-    device memory is the planes plus two chunks on the lead card, the
-    planes on the others."""
+    (planes, thr); ``replicas``: the slots'; ``slack_max``). The rows are
+    read from vectors.bin afresh (:class:`_FileRows`, :func:`_upload_rows`)
+    and their thresholds built from their plane energies
+    (:func:`_thresholds`). Peak device memory is the planes plus two
+    chunks on the lead card, the planes on the others."""
     if _RESIDENT.get("key") == key:
+        LAST_STAGES["slack_max"] = _RESIDENT["slack_max"]
         return _RESIDENT["replicas"]
     dev = ops.mesh.lead
     npad = (total + tile - 1) // tile * tile
     planes = torch.zeros((pm.num_planes(L), npad, pw.pad_dim(d)),
                          dtype=torch.int8, device=dev)
     with _FileRows(db, total, d) as rows:
-        _upload_rows(planes, rows, 0, total, L, max_abs, db, dev)
+        energies = _upload_rows(planes, rows, 0, total, L, max_abs, db, dev)
     thr = np.full(npad, np.float32(1e30), dtype=np.float32)
-    thr[:total] = _thresholds(norms_sq, L, max_abs, d)
+    thr[:total], slack = _thresholds(norms_sq, energies, L, d)
+    LAST_STAGES["slack_max"] = slack
     value = (planes, torch.from_numpy(thr).to(dev))
     _RESIDENT.clear()
-    _RESIDENT.update(key=key, value=value, replicas=ops.replicate(*value))
+    _RESIDENT.update(key=key, value=value, replicas=ops.replicate(*value),
+                     slack_max=slack)
     return _RESIDENT["replicas"]
 
 
@@ -706,18 +810,22 @@ def _compute_streaming(db, norms_sq, total, begin_row, end_row, tile, L, d,
     return _compute_streaming_two_phase(*args, finalize)
 
 
-def _stage_block(rows, thr_all, start, end, n_rows, L, max_abs, db, ops):
+def _stage_block(rows, norms_sq, start, end, n_rows, L, max_abs, db, ops):
     """Rows start..end of ``rows`` (:class:`_FileRows`) -> per-slot
     replicas of their (P, n_rows, d_pad) int8 planes and (n_rows,) float32
     thresholds (1e30 on the pad rows past the block): the streaming
     engines' staging of a block through :func:`_upload_rows`, on the lead
-    device."""
+    device, the thresholds from the block's own plane energies
+    (:func:`_thresholds`; slack_max keeps the largest of the call's
+    blocks)."""
     dev = ops.mesh.lead
     planes = torch.zeros((pm.num_planes(L), n_rows, pw.pad_dim(rows.d)),
                          dtype=torch.int8, device=dev)
-    _upload_rows(planes, rows, start, end, L, max_abs, db, dev)
+    energies = _upload_rows(planes, rows, start, end, L, max_abs, db, dev)
     thr = np.full(n_rows, np.float32(1e30), dtype=np.float32)
-    thr[:end - start] = thr_all[start:end]
+    thr[:end - start], slack = _thresholds(norms_sq[start:end], energies, L,
+                                           rows.d)
+    LAST_STAGES["slack_max"] = max(LAST_STAGES["slack_max"], slack)
     return ops.replicate(planes, torch.from_numpy(thr).to(dev))
 
 
@@ -734,7 +842,6 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
     On a mesh the row group and the window are staged on the lead device
     and replicated to the slots (JAX ``compute.py:1167-1259``)."""
     LAST_STAGES["mode"] = "fused-streaming"
-    thr_all = _thresholds(norms_sq, L, max_abs, d)
     P = pm.num_planes(L)
     parts: list = []
     with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
@@ -757,7 +864,7 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
             n_r = (rg_end - rg + tile - 1) // tile
             with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
                 planes_r = thr_r = None           # free the last group first
-                planes_r, thr_r = _stage_block(rows, thr_all, rg, rg_end,
+                planes_r, thr_r = _stage_block(rows, norms_sq, rg, rg_end,
                                                n_r * tile, L, max_abs, db,
                                                ops)
             _self_pairs(ops, planes_r, 0, rg_end - rg, rg, L, keeps, parts)
@@ -766,7 +873,7 @@ def _compute_streaming_fused(db, norms_sq, total, begin_row, end_row, tile,
                 n_w = (we - ws + tile - 1) // tile
                 with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
                     planes_w = thr_w = None       # free the last window first
-                    planes_w, thr_w = _stage_block(rows, thr_all, ws, we,
+                    planes_w, thr_w = _stage_block(rows, norms_sq, ws, we,
                                                    n_w * tile, L, max_abs,
                                                    db, ops)
                 coords = np.array([(ri, wj) for ri in range(n_r)
@@ -873,7 +980,6 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
     two operands)."""
     LAST_STAGES.update(mode="two_phase-streaming", reruns=0, hot_tiles=0)
     V = _host_vectors(finalize, db, total, d)
-    thr_all = _thresholds(norms_sq, L, max_abs, d)
     P = pm.num_planes(L)
     bytes_per_tile = P * tile * d
     window_tiles = max(1, int(max(budget // 3, 2 * bytes_per_tile)
@@ -887,7 +993,7 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
             we = min(ws + window_tiles * tile, total)
             n_w = (we - ws + tile - 1) // tile
             with stage("mvs.shard.stage", LAST_STAGES, "stage_ms"):
-                planes_w, thr_w = _stage_block(rows, thr_all, ws, we,
+                planes_w, thr_w = _stage_block(rows, norms_sq, ws, we,
                                                n_w * tile, L, max_abs, db,
                                                ops)
             coords = np.array([(0, j) for j in range(n_w)], dtype=np.int32)
@@ -896,7 +1002,7 @@ def _compute_streaming_two_phase(db, norms_sq, total, begin_row, end_row,
                 with stage("mvs.shard.sweep", LAST_STAGES, "sweep_ms"):
                     planes_r = thr_r = None   # free the last row tile first
                     planes_r, thr_r = _stage_block(
-                        rows, thr_all, bi, min(bi + tile, end_row), tile, L,
+                        rows, norms_sq, bi, min(bi + tile, end_row), tile, L,
                         max_abs, db, ops)
                     counts = ops.sweep_counts(planes_r, thr_r, lists, tile,
                                               d, planes_w, thr_w)

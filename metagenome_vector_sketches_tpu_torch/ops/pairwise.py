@@ -83,6 +83,18 @@ def planes_update(buf: torch.Tensor, limbs: torch.Tensor, start: int) -> None:
     buf[:, start:start + n, :d] = karatsuba_planes(limbs)
 
 
+def plane_energies(planes: torch.Tensor) -> torch.Tensor:
+    """(P, n, d_pad) int8 planes -> (P, n) int64 energies E_p(i) = sum_k
+    planes[p, i, k]^2, exact: each square (|value| <= 128) fits int16, a
+    plane at a time."""
+    out = torch.empty(planes.shape[:2], dtype=torch.int64,
+                      device=planes.device)
+    for p in range(planes.shape[0]):
+        sq = planes[p].to(torch.int16)
+        out[p] = sq.mul_(sq).sum(1, dtype=torch.int64)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The float32 sweep math, written once
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from metagenome_vector_sketches_tpu_torch.io.hashes import (
     parse_hashes_file, write_hashes_file)
 from metagenome_vector_sketches_tpu_torch.matrix import compute as tmc
 from metagenome_vector_sketches_tpu_torch.ops import minhash as tmh
+from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
 from metagenome_vector_sketches_tpu_torch.utils import profiling
 
 TILE = 32
@@ -193,16 +194,24 @@ def test_no_record_function_without_a_profiler(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("engine", ["resident", "streaming"])
-def test_new_stage_keys_time_only_untimed_work(tmp_path, engine):
-    """The fused engines read back kernel X's kept pairs and counters, not
-    every candidate's partials (20 B a candidate at L = 2), and the host
-    neither combines nor mirrors: combine_ms and mirror_ms stay 0.0; the
-    norms parse is part of the entry, before total_ms."""
+def test_new_stage_keys_time_only_untimed_work(tmp_path, engine,
+                                               monkeypatch):
+    """The fused engines read back kernel X's kept pairs and counters
+    alone, not every candidate's partials (20 B a candidate at L = 2), and
+    the host neither combines nor mirrors: combine_ms and mirror_ms stay
+    0.0; the norms parse is part of the entry, before total_ms."""
+    reads = []
+    read_kept = pw.read_kept
+    monkeypatch.setattr(pw, "read_kept",
+                        lambda *a: reads.append(1) or read_kept(*a))
     db = _db(tmp_path / "db")
     tmc.clear_device_cache()
     st = _shard(db, tmp_path / "m", engine)
     assert "dispatch_walls_ms" not in st
     assert st["combine_ms"] == 0.0 and st["mirror_ms"] == 0.0
-    assert 0 < st["readback_bytes"] < 20 * st["candidates"]
+    # kernel X's kept pairs (written, self-pairs and twins included) and
+    # one counter record for each of its readbacks, and nothing more
+    extra = st["readback_bytes"] - pw.KEPT_BYTES * st["pairs_written"]
+    assert reads and extra == pw.COUNTER_BYTES * len(reads)
     assert sum(st[k] for k in WALLS) <= st["total_ms"]
     assert 0 < st["norms_parse_ms"] <= st["entry_ms"]

@@ -4,12 +4,14 @@ byte-identical to the JAX engine's and to the port's fused engine, for
 int32 (P = 3) and int16 (P = 6) dbs, finalize host and device, resident
 and streaming, one and three shards, tiles 8, 12 (tile^2 % 32 != 0, where
 both packages route the fused engine to the two-phase one), 16 and 32;
-meshes of 2 and 8 CPU slots; LAST_STAGES candidates / emitted /
-pairs_written equal to JAX's; the exact-dot helpers and the engine's
+meshes of 2 and 8 CPU slots; LAST_STAGES pairs_written equal to JAX's,
+candidates and emitted equal to the JAX engine's under the port's per-row
+thresholds and no more than its own; the exact-dot helpers and the engine's
 counts sweep against the JAX functions (the Pallas kernel in interpret
 mode); the residency slot shared with the fused engine; the advisory
 counts. Tolerance: exact everywhere (bytes and integers)."""
 
+import contextlib
 import filecmp
 
 import numpy as np
@@ -30,6 +32,7 @@ from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw  # noqa: E40
 from metagenome_vector_sketches_tpu_torch.ops import pairwise_math as pm  # noqa: E402
 from metagenome_vector_sketches_tpu_torch.ops import pallas_pairwise as pp  # noqa: E402
 from metagenome_vector_sketches_tpu_torch.parallel.mesh import Mesh  # noqa: E402
+from torch_thresholds import assert_port_counts, jax_under_port_thresholds  # noqa: E402
 
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
 # max |component| of each db: int32 at L = 2 (P = 3), int16 at L = 3 (P = 6)
@@ -53,25 +56,36 @@ def _write_db(path, dtype, n=N, d=D, seed=0):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The dbs, and shard folders made once a module: JAX two-phase runs
-    (the JAX engine's output and counts do not depend on finalize) and the
-    port's fused shards."""
+    (the JAX engine's output and counts do not depend on finalize), under
+    its own thresholds and under the port's, and the port's fused
+    shards."""
     root = tmp_path_factory.mktemp("two_phase")
     dbs = {t: _write_db(root / f"db_{t}", t) for t in DBS}
     made: dict = {}
 
-    def jax_run(dtype, stream, num_shards, tile):
-        key = ("jax", dtype, stream, num_shards, tile)
+    def jax_stages(dtype, stream, num_shards, tile, port_thr):
+        key = ("jax", dtype, stream, num_shards, tile, port_thr)
         if key not in made:
             out = root / "_".join(map(str, key))
             stages = []
-            for s in range(num_shards):
-                jmc.compute_pairwise_shard(
-                    dbs[dtype].path, str(out), num_shards, s,
-                    tile_rows=tile, verbose=False, engine="two_phase",
-                    device_budget_bytes=0 if stream else 8 << 30)
-                stages.append({k: jmc.LAST_STAGES[k] for k in STAGE_KEYS})
+            with (jax_under_port_thresholds(dbs[dtype].path) if port_thr
+                  else contextlib.nullcontext()):
+                for s in range(num_shards):
+                    jmc.compute_pairwise_shard(
+                        dbs[dtype].path, str(out), num_shards, s,
+                        tile_rows=tile, verbose=False, engine="two_phase",
+                        device_budget_bytes=0 if stream else 8 << 30)
+                    stages.append({k: jmc.LAST_STAGES[k]
+                                   for k in STAGE_KEYS})
             made[key] = (out, stages)
         return made[key]
+
+    def jax_run(dtype, stream, num_shards, tile):
+        """-> (the JAX engine's shard folder, per shard its counters under
+        its own thresholds and under the port's)."""
+        want, stages = jax_stages(dtype, stream, num_shards, tile, False)
+        return want, list(zip(stages, jax_stages(dtype, stream, num_shards,
+                                                 tile, True)[1]))
 
     def fused_run(dtype, num_shards):
         key = ("fused", dtype, num_shards)
@@ -123,11 +137,11 @@ def test_two_phase_shards_equal_jax_and_fused(tmp_path, runs, dtype,
                    finalize=finalize)
     _same_shards(tmp_path / "port", want, num_shards)
     _same_shards(tmp_path / "port", fused_run(dtype, num_shards), num_shards)
-    for got, j in zip(stages, jax_stages):
+    for got, (j, jp) in zip(stages, jax_stages):
         assert got["mode"] == ("two_phase-streaming" if stream
                                else "two_phase")
         assert got["reruns"] == 0
-        assert {k: got[k] for k in STAGE_KEYS} == j
+        assert_port_counts(got, j, jp)
 
 
 @pytest.mark.parametrize("stream", [False, True],
@@ -142,7 +156,7 @@ def test_fused_engine_takes_two_phase_below_32_bit_tiles(tmp_path, runs,
                                tile_rows=12, verbose=False, device="cpu",
                                device_budget_bytes=0 if stream else None)
     assert tmc.LAST_STAGES["mode"].startswith("two_phase")
-    assert {k: tmc.LAST_STAGES[k] for k in STAGE_KEYS} == jax_stages[0]
+    assert_port_counts(tmc.LAST_STAGES, *jax_stages[0])
     _same_shards(tmp_path / "m", want, 1)
 
 
@@ -162,7 +176,7 @@ def test_two_phase_mesh_equals_single_slot(tmp_path, runs, slots, stream,
     tmc.clear_device_cache()
     _same_shards(tmp_path / "mesh", want, 3)
     for got, j in zip(stages, jax_stages):
-        assert {k: got[k] for k in STAGE_KEYS} == j
+        assert_port_counts(got, *j)
 
 
 @pytest.mark.parametrize("max_abs,d", [(3000, 100), (30000, 64),
@@ -321,6 +335,6 @@ def test_advisory_counts(tmp_path, runs, monkeypatch, case):
                                mesh=Mesh([torch.device("cpu")] * 2))
     tmc.clear_device_cache()
     _same_shards(tmp_path / "m", want, 1)
-    assert {k: tmc.LAST_STAGES[k] for k in STAGE_KEYS} == jax_stages[0]
+    assert_port_counts(tmc.LAST_STAGES, *jax_stages[0])
     assert tmc.LAST_STAGES["reruns"] > 0
     assert any(refused) == (case == "budget")
