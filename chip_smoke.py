@@ -55,11 +55,15 @@ port.
 5. stream: the beyond-memory streaming engine on phase 2's db with the
    device budget at half its planes' bytes (8 row groups x 8 windows at
    N = 65,536): its shard must be byte-equal to phase 2's resident shard;
-6. minhash: --strategy 1 (kernel G) on the toy fixture (every pair's
-   intersection against np.intersect1d) and on N = 8,192 synthetic sets
-   (a universe of ~2.1M hashes): the shard equal to an exact sparse
-   oracle, every planted pair and self-pair present, kernel G against its
-   plain version at the path's chunk shape;
+6. minhash: --strategy 1 (kernel G over the heavy hashes, C over the
+   light postings, M's retention) on the toy fixture (every pair's
+   intersection against np.intersect1d) and on N = 8,192 synthetic sets (a
+   universe of ~2.1M hashes, all light): the shard equal to an exact
+   sparse oracle, every planted pair and self-pair present, the same bytes
+   with the groups' hashes heavy; then one shard of the benchmark's
+   MinHash collection (3,072 rows x 24,576 Zipf-shared sets) staged on the
+   card, its counted run launching G, C and M, each against its plain
+   version there;
 7. tools (after phase 3, on its int32 db and shards): read_pc_mat
    --query_file and the port's read_pc_mat_module (query, query_sliced)
    against the exact oracle and query_pc_mat's top-5 files; the decoded
@@ -128,16 +132,19 @@ REPLACES = {
     "select": "metagenome_vector_sketches_tpu/ann/int_index.py:155",
     "count": "metagenome_vector_sketches_tpu/ops/pallas_pairwise.py:55",
     "keep": "metagenome_vector_sketches_tpu/matrix/compute.py:881",
+    "cooc": "metagenome_vector_sketches_tpu/ops/minhash.py:55",
+    "mhkeep": "metagenome_vector_sketches_tpu/ops/minhash.py:90",
 }
 SOURCES = {"projection": "projection.cu", "sweep": "count.cu",
            "partials": "partials.cu", "scan": "sweep.cu", "gram": "sweep.cu",
-           "select": "select.cu", "count": "count.cu", "keep": "partials.cu"}
+           "select": "select.cu", "count": "count.cu", "keep": "partials.cu",
+           "cooc": "minhash.cu", "mhkeep": "minhash.cu"}
 SHARD_FILES = ("matrix.bin", "row_index.bin", "neighbor_start.bin")
 # the kernels each counted path must launch
 MAIN_KERNELS = ("projection", "sweep", "keep")
 ANN_KERNELS = ("scan", "partials", "select")
 STREAM_KERNELS = ("sweep", "keep")
-MINHASH_KERNELS = ("gram",)
+MINHASH_KERNELS = ("gram", "cooc", "mhkeep")
 
 
 def say(msg: str) -> None:
@@ -204,22 +211,13 @@ def _incidence(n, u, density, seed):
     return A
 
 
-def _gram_err(chunks):
-    """Max |kernel G - plain| over the square after accumulating chunks
-    (the kernel's upper block triangle mirrored); checks that the kernel
-    left the blocks below the block diagonal untouched."""
-    import torch
+def _gram_rows_err(A, b, e):
+    """Max |kernel G - plain| over rows b..e-1 of the incidence A's Gram;
+    checks that the kernel's pad rows are 0."""
     from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
-    npad = chunks[0].shape[0]
-    got = torch.zeros((npad, npad), dtype=torch.int32, device="cuda")
-    want = torch.zeros_like(got)
-    for A in chunks:
-        mh.gram_accumulate(got, A)
-        mh.gram_accumulate_plain(want, A)
-    blk = torch.arange(npad, device="cuda") // 128
-    check(not bool(got[blk[:, None] > blk[None, :]].any()),
-          "kernel G wrote below the block diagonal")
-    return int((mh.mirror_upper(got) - want).abs().max())
+    got = mh.gram_rows(A, b, e)
+    check(not bool(got[e - b:].any()), "kernel G wrote its pad rows")
+    return int((got[:e - b] - mh.gram_rows_plain(A, b, e)).abs().max())
 
 
 def _core_cases(errs):
@@ -537,15 +535,17 @@ def phase_kernels(errs):
     _core_cases(errs)
     _select_cases(errs)
 
-    # G: ragged n and u (zero padded), two chunks accumulated
-    for n, u in ((1, 1), (130, 100), (1000, 5000), (2000, 16384), (128, 64),
-                 (384, 64)):
-        err = _gram_err([_incidence(n, u, 0.05, seed) for seed in (1, 2)])
+    # G: ragged n, u and row ranges (zero padded)
+    for n, u, b, e in ((1, 1, 0, 1), (130, 100, 0, 130),
+                       (1000, 5000, 128, 300), (2000, 16384, 5, 1999),
+                       (128, 64, 0, 128), (384, 64, 200, 384)):
+        err = _gram_rows_err(_incidence(n, u, 0.05, n), b, e)
         check(err == 0, f"kernel G differs from plain by {err} (n={n}, "
-                        f"u={u})")
+                        f"u={u}, rows {b}..{e})")
         errs["gram"] = max(errs["gram"], err)
-    say("[kernels] G: n x u = 1x1, 130x100, 1000x5000, 2000x16384, 128x64, "
-        "384x64 (two chunks each): exact")
+    say("[kernels] G: n x u (rows) = 1x1 (0..1), 130x100 (0..130), 1000x5000 "
+        "(128..300), 2000x16384 (5..1999), 128x64 (0..128), 384x64 "
+        "(200..384): exact")
 
 
 # ---------------------------------------------------------------------------
@@ -1590,7 +1590,7 @@ def phase_two_phase(N, work, errs):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the MinHash strategy (kernel G)
+# phase 6: the MinHash strategy (kernels G, C and M)
 # ---------------------------------------------------------------------------
 
 MH_N, MH_GROUPS, MH_HEAVY = 8192, 128, 64
@@ -1643,10 +1643,30 @@ def phase_minhash(work, errs):
     _build.reset_launch_counts()
     mc.compute_minhash_shard(path, out, device="cuda", verbose=False)
     counted = _build.launch_counts()
-    chunks = mc.LAST_STAGES["chunks"]
-    for k in MINHASH_KERNELS:
-        check(counted[k] > 0, f"kernel {k} was not launched by the MinHash "
-                              "path")
+    split = {k: mc.LAST_STAGES[k] for k in ("heavy_min", "heavy_hashes",
+                                            "light_postings",
+                                            "light_cooccurrences")}
+    # the groups' hashes are held by 4 sets, under N / 96: all light
+    check(split["heavy_hashes"] == 0 and counted["gram"] == 0
+          and counted["cooc"] > 0 and counted["mhkeep"] > 0,
+          f"the N={MH_N} shard's split {split}, launches {counted}")
+    # the planted groups' shared hashes as the heavy class: kernel G in
+    # place of kernel C, the same bytes
+    mc.clear_device_cache()
+    threshold = mh.heavy_threshold
+    mh.heavy_threshold = lambda p, n: 4
+    _build.reset_launch_counts()
+    try:
+        mc.compute_minhash_shard(path, os.path.join(work, "mh_big_heavy"),
+                                 device="cuda", verbose=False)
+    finally:
+        mh.heavy_threshold = threshold
+        mc.clear_device_cache()
+    heavy = _build.launch_counts()
+    check(heavy["gram"] > 0 and mc.LAST_STAGES["heavy_hashes"] > 0,
+          f"the shard with the groups' hashes heavy launched {heavy}")
+    _same_shards(out, os.path.join(work, "mh_big_heavy"), 1,
+                 "the MinHash shard with the groups' hashes heavy")
     named = parse_hashes_file(path)
     sets = [h for _, h in named]
     got = _triples(out, MH_N)
@@ -1675,19 +1695,92 @@ def phase_minhash(work, errs):
         check({k: v for k, v in got.items() if k[0] == i} == row,
               f"row {i} of the MinHash shard differs from its exact counts")
     say(f"[minhash] N={MH_N}: {len(named)} sets, universe "
-        f"{int(len(np.unique(flat)))} hashes in {chunks} chunks; "
+        f"{int(len(np.unique(flat)))} hashes ({split}); "
         f"shard equals the sparse oracle ({len(want)} pairs), planted and "
-        f"self-pairs present, 64 sampled rows exact; launches {counted}")
+        f"self-pairs present, 64 sampled rows exact, the same with the "
+        f"groups' hashes heavy; launches {counted}, heavy {heavy}")
 
-    # kernel G against its plain version at the path's chunk shape
-    err = _gram_err([_incidence(MH_N, 1 << 14, 1 / 128, seed=9)])
-    check(err == 0, f"kernel G differs from plain by {err} at the path's "
-                    "chunk shape")
-    errs["gram"] = max(errs["gram"], err)
-    say(f"[minhash] G on one chunk of {MH_N} x {1 << 14}: exact")
-    for k, v in counted.items():
-        launches[k] += v
+    main = _minhash_kernels(errs)
+    for lc in (counted, heavy, main):
+        for k, v in lc.items():
+            launches[k] += v
     return launches
+
+
+def _minhash_kernels(errs):
+    """Kernels G, C and M against their plain versions at the main path's
+    shapes: one shard (3,072 rows x 24,576 sets) of the benchmark's MinHash
+    collection (portbench/configs/sra_minhash_exact.json, its hashes shared
+    by Zipf popularity), staged on the card at the derived threshold. The
+    shard's run through ops.minhash.shard_triples is counted alone and must
+    launch all three; its kept triples equal the plain kernels'. -> its
+    launch counts."""
+    import torch
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    from portbench import gen_hashes
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "sra_minhash_exact.json")) as f:
+        cfg = json.load(f)
+    n = int(cfg["num_sets"])
+    b, e = 3 * n // 8, 4 * n // 8
+    sets = gen_hashes.make_sets(cfg, 2**31 + 5, "cuda")
+    flat = sets["hashes"].cpu().numpy().view(np.uint64)
+    off = sets["offsets"].cpu().numpy()
+    del sets
+    st = mh.stage_sets(np.split(flat, off[1:-1]), device="cuda")
+    del flat
+    check(st.n_heavy > 0 and st.n_post > 0,
+          f"the collection's split: {st.n_heavy} heavy, {st.n_post} light")
+    _build.reset_launch_counts()
+    record = {}
+    r, c, inter = mh.shard_triples(st, b, e, record)
+    counted = _build.launch_counts()
+    for k in MINHASH_KERNELS:
+        check(counted[k] > 0, f"kernel {k} was not launched by the MinHash "
+                              f"shard ({counted})")
+
+    G = mh.gram_rows(st.heavy, b, e)
+    err = _gram_rows_err(st.heavy, b, e)
+    check(err == 0, f"kernel G differs from plain by {err} on the shard")
+    errs["gram"] = max(errs["gram"], err)
+    want = G.clone()
+    cg = torch.zeros(1, dtype=torch.int64, device="cuda")
+    cw = torch.zeros_like(cg)
+    mh.cooc_accumulate(G, st.post_sets, st.post_off, b, e, cg)
+    mh.cooc_accumulate_plain(want, st.post_sets, st.post_off, b, e, cw)
+    err = int((G - want).abs().max())
+    del want
+    check(err == 0, f"kernel C differs from plain by {err} on the shard")
+    check(int(cg) == int(cw) == record["light_cooccurrences"],
+          f"kernel C's increments {int(cg)}, plain {int(cw)}, the shard's "
+          f"{record['light_cooccurrences']}")
+    errs["cooc"] = max(errs["cooc"], err)
+
+    kept = record["kept"]
+    got, gk = mh.keep_shard(G, st.sizes, b, e, kept)
+    plain, pk = mh.keep_shard_plain(G, st.sizes, b, e, kept)
+    check(int(gk) == int(pk) == kept == len(r),
+          f"kernel M kept {int(gk)}, plain {int(pk)}, the shard {kept}")
+    got = got[:kept].cpu().numpy()
+    plain = plain[:kept].cpu().numpy()
+    got = got[np.lexsort((got[:, 0] >> 32, got[:, 0] & 0xFFFFFFFF))]
+    check(np.array_equal(got[:, 0], plain[:, 0]),
+          "kernel M kept other pairs than its plain version")
+    err = int(np.abs(got[:, 1] - plain[:, 1]).max()) if kept else 0
+    check(err == 0, f"kernel M's counts differ from plain by {err}")
+    errs["mhkeep"] = max(errs["mhkeep"], err)
+    check(np.array_equal(r, plain[:, 0] & 0xFFFFFFFF)
+          and np.array_equal(c, plain[:, 0] >> 32)
+          and np.array_equal(inter, plain[:, 1]),
+          "the shard's triples differ from the plain kernels'")
+    say(f"[minhash] main shapes: {n} sets, {int(off[-1])} hashes, heavy from "
+        f"{st.heavy_min} sets ({st.n_heavy} heavy, {st.n_post} light "
+        f"postings); rows {b}..{e}: G, C ({int(cg)} increments) and M "
+        f"({kept} kept) equal their plain versions; launches {counted}")
+    del G, st
+    torch.cuda.empty_cache()
+    return counted
 
 
 # ---------------------------------------------------------------------------

@@ -42,10 +42,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # both csrc/count.cu), "partials" kernel X's partials, "keep" kernel X with
 # its retention epilogue (the fused engine's exact test; both
 # csrc/partials.cu), "scan" kernel S (its SCORE epilogue: the int8 ANN
-# engine), "gram" kernel G (the MinHash incidence Gram), "select" kernel K
-# (the ANN top-k selection)
+# engine), "gram" kernel G (a shard's rows of the MinHash
+# incidence Gram), "select" kernel K (the ANN top-k selection), "cooc" kernel C (the
+# MinHash shard's light co-occurrences) and "mhkeep" kernel M (its
+# retention epilogue; both csrc/minhash.cu)
 KERNELS = ("projection", "sweep", "partials", "scan", "gram", "select",
-           "count", "keep")
+           "count", "keep", "cooc", "mhkeep")
 _launches = {k: 0 for k in KERNELS}
 
 _lib = None
@@ -83,7 +85,12 @@ _SIGNATURES = {
     "mvs_keep": [_P, _LL, _P, _LL, _I, _I, _LL, _LL, _P, _LL, _P, _LL, _LL,
                  _LL, _LL, _LL, _LL, _I, _LL, _LL, _LL, _P, _LL, _P, _P],
     # a, n, ld, c, ldc, stream
-    "mvs_gram": [_P, _I, _I, _P, _LL, _P],
+    # a, n, ld, row0, rows, c, ldc, stream
+    "mvs_gram_rows": [_P, _I, _I, _I, _I, _P, _LL, _P],
+    # sets, off, n_post, b, e, c, ldc, count, stream
+    "mvs_cooc": [_P, _P, _LL, _I, _I, _P, _LL, _P, _P],
+    # c, ldc, rows, n, b, sizes, out, cap, kept, stream
+    "mvs_minhash_keep": [_P, _LL, _I, _I, _I, _P, _P, _LL, _P, _P],
     # scores, keys, ld, rows, width, base, valid, none, kc, regime, work,
     # out_key, out_lane, best, w0, wm, m_key, m_pos, stream
     "mvs_select": [_P, _P, _LL, _I, _I, _LL, _LL, _LL, _I, _I, _P, _P, _P,

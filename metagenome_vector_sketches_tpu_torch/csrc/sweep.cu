@@ -3,9 +3,10 @@
 //
 // Kernel S (entry mvs_scan) replaces the plane GEMMs + combine + x 1/|v| of
 // the XLA program metagenome_vector_sketches_tpu/ann/int_index.py:124
-// _int_scan_pool (its SCORE epilogue). Kernel G (entry mvs_gram) replaces
-// the XLA program metagenome_vector_sketches_tpu/ops/minhash.py:47
-// _chunk_gram. The thresholded sweeps (the survivor counts of the repo's
+// _int_scan_pool (its SCORE epilogue). Kernel G (entry mvs_gram_rows)
+// replaces the XLA program metagenome_vector_sketches_tpu/ops/minhash.py:47
+// _chunk_gram: it computes one shard's rows of the heavy-hash Gram
+// (ops/minhash.py). The thresholded sweeps (the survivor counts of the repo's
 // one Pallas kernel, ops/pallas_pairwise.py:55 pallas_sweep_counts, and
 // the survivor compaction of ops/pairwise.py:635 sweep_extract_fused_ij)
 // are kernels COUNT and APPEND, count.cu.
@@ -19,8 +20,9 @@
 // nvcc cannot contract to FMA and the result is bit-equal to the plain
 // PyTorch version, which runs the same eager float32 ops in the same
 // order. Integer MMAs are exact in any order. Never build this file with
-// --use_fast_math. G: c[i, j] += sum_k a[i, k] a[j, k] for an (n, u) 0/1
-// int8 incidence chunk, int32 (a count is at most u).
+// --use_fast_math. G: c[i, j] = sum_k a[row0 + i, k] a[j, k] for the rows
+// of one shard of an (n, u) 0/1 int8 incidence, int32 (a count is at most
+// u).
 //
 // What bounds them on the H100: the int8 tensor cores (1,979 TOP/s dense)
 // and, next, the L2 that feeds them. At d = 2048 the operands come from L2;
@@ -58,13 +60,10 @@
 //   takes a ring of 8 stages (192 KB).
 // - Epilogue inputs: S's consumers copy the block's 256 inv_n values into
 //   shared memory before the main loop, so the epilogue reads no global
-//   memory; G loads its block of c 32 accumulators at a time, every load
-//   of a chunk ahead of its stores.
+//   memory; G stores its counts without reading c.
 // - Column blocks of S past the scan's width mask their columns; row
 //   blocks with an odd number of 128-row blocks leave the last pair's
-//   second CTA without rows of its own (it only feeds its peer); G's
-//   clusters that straddle the block diagonal mask the 128 x 128 block
-//   below it.
+//   second CTA without rows of its own (it only feeds its peer).
 // - ptxas (CUDA 12.8, sm_90a, -Xptxas -v): every instance 168 registers at
 //   launch (384 threads; 40 / 232 after setmaxnreg), no spills, a 64-byte
 //   stack frame for S's plane weights. Dynamic shared memory: S 231,488 B
@@ -79,8 +78,10 @@
 //            stack; every pair's combined dot times inv_n[c] (one more
 //            __fmul_rn) is written to a row-major float32 (rows, ld) score
 //            matrix, -inf on columns c >= valid.
-//   GRAM   — c[r, col] += the int32 count, on the 128 x 128 blocks on and
-//            above the block diagonal only (the caller mirrors once).
+//   ROWS   — (G) rows are one shard's rows of the incidence, columns every
+//            row of it; c[r, col] = the int32 count (stored, not added:
+//            the shard's accumulator starts here), columns past the
+//            width masked as SCORE masks them. SCORE's rectangular grid.
 #include <cuda.h>
 #include <limits.h>
 #include <math.h>
@@ -101,15 +102,19 @@ constexpr int kATile = kBM * kBK;           // 8 KB
 constexpr int kBTile = kBN * kBK;           // 16 KB
 constexpr int kStageBytes = kATile + kBTile;
 
-enum Epilogue { kScore = 2, kGram = 3 };
+// the values name the instances in a trace: gemm_kernel<4> is kernel G
+enum Epilogue { kScore = 2, kRows = 4 };
+
+// G keeps only the int32 accumulators
+constexpr bool int_only(int mode) { return mode != kScore; }
 
 template <int kMode>
 struct Layout {
-  static constexpr int kStages = kMode == kGram ? 8 : 4;
+  static constexpr int kStages = int_only(kMode) ? 8 : 4;
   static constexpr int kApproxBytes =
-      kMode == kGram ? 0 : kAcc * kConsumers * 4;
+      int_only(kMode) ? 0 : kAcc * kConsumers * 4;
   // S: the block's inv_n values
-  static constexpr int kTableBytes = kMode == kGram ? 0 : kBN * 4;
+  static constexpr int kTableBytes = int_only(kMode) ? 0 : kBN * 4;
   static constexpr int kBarOffset =
       kStages * kStageBytes + kApproxBytes + kTableBytes;
   // + the full and empty barriers, + slack to align the base to 1024 bytes
@@ -117,7 +122,8 @@ struct Layout {
 };
 
 // The operands of one launch: SCORE reads inv_n, valid, scores, ld (its
-// grid covers one tile_r x tile_c block); GRAM reads c, ldc, n_blocks.
+// grid covers one tile_r x tile_c block); ROWS (G) reads c, ldc on the
+// same grid.
 struct Args {
   int P;
   int nk;  // K steps of kBK bytes
@@ -128,7 +134,6 @@ struct Args {
   long long ld;
   int32_t* c;
   long long ldc;
-  int n_blocks;
 };
 
 // one 64-byte x 128-row box of plane `plane` at (k bytes, row) -> smem dst
@@ -259,7 +264,7 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
   // loads overlap the main loop: one column per thread (kBN == kConsumers)
   static_assert(kBN == kConsumers, "one table column per consumer thread");
   float* table = approx + kAcc * kConsumers;
-  if (kMode != kGram && live) {
+  if (kMode == kScore && live) {
     const int gc = col0 + ct;
     table[ct] = gc < args.valid ? args.inv_n[gc] : 0.f;
   }
@@ -292,7 +297,7 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
       }
     }
     fence_acc(acc);
-    if (kMode != kGram) {
+    if (kMode == kScore) {
       // fold plane p into the float32 combine, in plane order; the last
       // plane's sum stays in acc (as float bits) for the epilogue
       const float w = wts.w[p];
@@ -316,33 +321,14 @@ __device__ __forceinline__ void consume(const Args& args, const Weights& wts,
   }
 
   if (!live) return;
-  // accumulators in chunks of 32 (8 column groups of 8): G issues a
-  // chunk's loads of c together, ahead of its stores, so their latencies
-  // overlap
-  constexpr int kChunk = 32;
-  static_assert(kAcc == 4 * kChunk, "four chunks of accumulators");
-  if (kMode == kGram) {
-    const int bi = row0 / kBM;
+  if (kMode == kRows) {
 #pragma unroll
-    for (int c0 = 0; c0 < kAcc; c0 += kChunk) {
-      int2 old[kChunk / 2];
-#pragma unroll
-      for (int u = 0; u < kChunk / 2; ++u) {
-        const int j = (c0 + 2 * u) / 4, h = u & 1;
-        const int gc = col0 + 8 * j + 2 * t, cb = gc / kBM;
-        const long long gr = row0 + rbase + 8 * h;
-        if (cb >= bi && cb < args.n_blocks)
-          old[u] = *reinterpret_cast<const int2*>(&args.c[gr * args.ldc + gc]);
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk / 2; ++u) {
-        const int j = (c0 + 2 * u) / 4, h = u & 1;
-        const int gc = col0 + 8 * j + 2 * t, cb = gc / kBM;
-        const long long gr = row0 + rbase + 8 * h;
-        if (cb >= bi && cb < args.n_blocks)
-          *reinterpret_cast<int2*>(&args.c[gr * args.ldc + gc]) = make_int2(
-              old[u].x + acc[c0 + 2 * u], old[u].y + acc[c0 + 2 * u + 1]);
-      }
+    for (int u = 0; u < kAcc / 2; ++u) {
+      const int cl = 8 * (u >> 1) + 2 * t;
+      if (cl >= col_lim) continue;
+      const long long gr = row0 + rbase + 8 * (u & 1);
+      *reinterpret_cast<int2*>(&args.c[gr * args.ldc + col0 + cl]) =
+          make_int2(acc[2 * u], acc[2 * u + 1]);
     }
     return;
   }
@@ -387,26 +373,11 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   uint32_t rank;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
   const int pair = blockIdx.x >> 1;
-  int row0, col0, col_lim = kBN;
-  bool live;
-  if (kMode == kGram) {
-    // the 256 x 256 blocks on and above the diagonal, row by row
-    const int nb2 = (args.n_blocks + 1) / 2;
-    int bp = 0, k = pair;
-    while (k >= nb2 - bp) {
-      k -= nb2 - bp;
-      ++bp;
-    }
-    row0 = (2 * bp + rank) * kBM;
-    col0 = (bp + k) * kBN;
-    live = 2 * bp + (int)rank < args.n_blocks;
-  } else {
-    const int sub_c = (args.tile_c + kBN - 1) / kBN;
-    row0 = (pair / sub_c) * 2 * kBM + rank * kBM;
-    col0 = (pair % sub_c) * kBN;
-    col_lim = min(kBN, args.tile_c - col0);
-    live = row0 < args.tile_r;
-  }
+  const int sub_c = (args.tile_c + kBN - 1) / kBN;
+  const int row0 = (pair / sub_c) * 2 * kBM + rank * kBM;
+  const int col0 = (pair % sub_c) * kBN;
+  const int col_lim = min(kBN, args.tile_c - col0);
+  const bool live = row0 < args.tile_r;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
@@ -519,27 +490,35 @@ MVS_EXPORT int mvs_scan(const void* q_planes, const void* db_planes, int P,
   return launch<kScore>(mq, mdb, a, w, grid, (cudaStream_t)stream);
 }
 
-// Kernel G. a: (n, ld) int8, row-major, n a multiple of 128 and ld of 64
-// (zero rows and columns change no count); c: (n, ldc) int32, ldc even.
-// Adds a . a^T into the blocks of c on and above the block diagonal.
-MVS_EXPORT int mvs_gram(const void* a, int n, int ld, void* c, long long ldc,
-                        void* stream) {
-  if (n <= 0 || ld <= 0 || n % kBM || ld % kBK || ldc < n || ldc % 2)
+// Kernel G: one shard's rows of the Gram. a: (n, ld)
+// int8, row-major, n a multiple of 128 and ld of 64; rows row0 ..
+// row0 + rows - 1 of it (row0 + rows <= n) against all n. c: (rows_pad, ldc)
+// int32, rows_pad = rows rounded up to 128, ldc >= n and even. Stores
+// c[i, j] = a[row0 + i] . a[j] for i < rows_pad (rows past `rows` read as
+// zeros, so they store 0) and j < n.
+MVS_EXPORT int mvs_gram_rows(const void* a, int n, int ld, int row0,
+                             int rows, void* c, long long ldc, void* stream) {
+  if (n <= 0 || ld <= 0 || n % kBM || ld % kBK || row0 < 0 || rows <= 0 ||
+      row0 + rows > n || ldc < n || ldc % 2)
     return (int)cudaErrorInvalidValue;
-  const long long nb = n / kBM, nb2 = (nb + 1) / 2;
-  const long long grid = nb2 * (nb2 + 1);  // 2 CTAs per 256 x 256 block
+  const long long rows_pad = (rows + kBM - 1) / kBM * kBM;
+  const long long grid =
+      2LL * ((rows_pad + 2 * kBM - 1) / (2 * kBM)) * ((n + kBN - 1) / kBN);
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  CUtensorMap m;
-  const int err = plane_map(&m, a, 1, n, ld, (long long)n * ld);
+  CUtensorMap mi, mj;
+  int err = plane_map(&mi, (const int8_t*)a + (long long)row0 * ld, 1, rows,
+                      ld, (long long)rows * ld);
+  if (!err) err = plane_map(&mj, a, 1, n, ld, (long long)n * ld);
   if (err) return err;
   Args args{};
   args.P = 1;
   args.nk = ld / kBK;
+  args.tile_r = (int)rows_pad;
+  args.tile_c = n;
   args.c = (int32_t*)c;
   args.ldc = ldc;
-  args.n_blocks = (int)nb;
   const Weights w = load_weights(nullptr, 0);
-  return launch<kGram>(m, m, args, w, grid, (cudaStream_t)stream);
+  return launch<kRows>(mi, mj, args, w, grid, (cudaStream_t)stream);
 }
 
 MVS_EXPORT const char* mvs_error_string(int code) {

@@ -139,7 +139,10 @@ from ..ops import pairwise_math as pm
 # sweep found survivors in, which the extraction sweeps again), reruns
 # (slot blocks whose APPEND total exceeded the capacity their counts gave)
 # and, streaming, windows. compute_minhash_shard replaces them with the
-# MinHash stages (ops.minhash.LAST_STAGES, write_ms, pairs_written).
+# MinHash stages: stage_ms (mvs.minhash.stage: the parse, sort and split,
+# 0 on a slot hit), heavy_ms, light_ms, keep_ms (ops.minhash.shard_triples'
+# walls and counters), write_ms (mvs.minhash.write), stage_bytes (the
+# hashes file's bytes parsed, 0 on a hit) and pairs_written.
 LAST_STAGES: dict = {}
 
 # bytes of vectors (of the rows' own dtype) per host->device staging chunk
@@ -173,8 +176,15 @@ _ROUNDED_TILES: set = set()
 _RESIDENT: dict = {}
 
 
+# one-slot residency cache of the MinHash path: the staged sets of one
+# hashes file (compute_minhash_shard, stage_minhash_sets), so that the
+# shards of one collection parse, sort and split it once a process
+_SETS: dict = {}
+
+
 def clear_device_cache() -> None:
     _RESIDENT.clear()
+    _SETS.clear()
     textparse.clear_norms()
 
 
@@ -1071,44 +1081,97 @@ def _extract_tiles(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords,
         s, take = e, len(hot)
 
 
-def compute_minhash_shard(hashes_file: str, output_folder: str,
-                          num_shards: int = 1, shard_idx: int = 0,
-                          db_folder: str | None = None,
-                          verbose: bool = True, *, device) -> str:
-    """MinHash-strategy pairwise shard (the reference's historical
-    --strategy 1): EXACT set Jaccard from the raw hash sets via incidence
-    Grams on ``device`` (ops.minhash, kernel G), written in the active
-    matrix format. Byte-identical to the JAX package's shard.
+def _sets_key(hashes_file: str, db_folder, dev) -> tuple:
+    """The MinHash slot's key: the hashes file's path, mtime and size (and
+    the db folder's norms file's, whose order it takes) and the device."""
+    key = (os.path.abspath(hashes_file), os.path.getmtime(hashes_file),
+           os.path.getsize(hashes_file))
+    if db_folder:
+        norms = os.path.join(db_folder, "vector_norms.txt")
+        key += (os.path.abspath(norms), os.path.getmtime(norms),
+                os.path.getsize(norms))
+    return key + (str(dev),)
 
-    If db_folder is given, its vector_norms.txt order defines the indices;
-    otherwise a minimal db folder 'minhash_db' is written next to the matrix
-    (norm = sqrt(|set|), so norm^2 is the exact |A|), so the query stack
-    works unchanged. LAST_STAGES gets the MinHash stage walls.
-    """
+
+def stage_minhash_sets(hashes_file: str, db_folder: str | None = None, *,
+                       device) -> dict:
+    """The collection of ``hashes_file`` staged on ``device``
+    (ops.minhash.stage_sets), in the one-slot MinHash residency cache: the
+    file parsed (io.hashes.parse_hashes_file), its sets ordered as
+    ``db_folder``'s vector_norms.txt when given, sorted and split on the
+    device. A slot of the same file returns at once; another file's slot is
+    evicted first. -> the slot: {"key", "names", "sizes" (host int64),
+    "staged" (ops.minhash.Staged), "norms_text" (the minhash_db's
+    vector_norms.txt; None with a db folder), "file_bytes"}."""
     dev = resolve_device(device)
-    LAST_STAGES.clear()
-    LAST_STAGES["mode"] = "minhash"
+    key = _sets_key(hashes_file, db_folder, dev)
+    if _SETS.get("key") == key:
+        return _SETS
+    on_cuda = bool(_SETS) and _SETS["staged"].sizes.is_cuda
+    _SETS.clear()
+    if on_cuda:
+        torch.cuda.empty_cache()
     named = parse_hashes_file(hashes_file)
     names = [n for n, _ in named]
     sets_ = [h for _, h in named]
+    del named
     if db_folder:
         order = DbFolder(db_folder).names_and_norms()[0]
         index = {n: i for i, n in enumerate(names)}
         sets_ = [sets_[index[n]] for n in order]
         names = order
+    staged = minhash.stage_sets(sets_, device=dev)
+    _sync(dev)
+    sizes = staged.sizes.cpu().numpy()
+    # the minhash_db's norms (norm = sqrt(|set|)), formatted once
+    norms_text = None if db_folder else "".join(
+        f"{n} {np.sqrt(float(s)):.6g}\n" for n, s in zip(names, sizes))
+    _SETS.update(key=key, names=names, staged=staged, sizes=sizes,
+                 norms_text=norms_text,
+                 file_bytes=os.path.getsize(hashes_file))
+    return _SETS
 
+
+@entry_span("minhash")
+def compute_minhash_shard(hashes_file: str, output_folder: str,
+                          num_shards: int = 1, shard_idx: int = 0,
+                          db_folder: str | None = None,
+                          verbose: bool = True, *, device) -> str:
+    """MinHash-strategy pairwise shard (the reference's historical
+    --strategy 1): EXACT set Jaccard from the raw hash sets, the shard's
+    rows only, on ``device`` (ops.minhash: kernel G's rows over the heavy
+    hashes, kernel C over the light postings, kernel M's retention test and
+    compaction), written in the active matrix format. Byte-identical to the
+    JAX package's shard. The sets are staged once a process
+    (:func:`stage_minhash_sets`); only the kept triples leave the card.
+
+    If db_folder is given, its vector_norms.txt order defines the indices;
+    otherwise a minimal db folder 'minhash_db' is written next to the matrix
+    (norm = sqrt(|set|), so norm^2 is the exact |A|), so the query stack
+    works unchanged. LAST_STAGES gets the MinHash stage walls and counters
+    (ops.minhash.LAST_STAGES' keys; stage_ms and stage_bytes, the file's
+    bytes, are 0 on a slot hit)."""
+    dev = resolve_device(device)
+    LAST_STAGES.clear()
+    LAST_STAGES.update(mode="minhash", stage_ms=0.0, heavy_ms=0.0,
+                       light_ms=0.0, keep_ms=0.0, write_ms=0.0,
+                       stage_bytes=0, pairs_written=0)
+    before = _SETS.get("key")
+    with stage("mvs.minhash.stage", LAST_STAGES, "stage_ms"):
+        slot = stage_minhash_sets(hashes_file, db_folder, device=dev)
+    if slot["key"] != before:
+        LAST_STAGES["stage_bytes"] = slot["file_bytes"]
+    names, sizes = slot["names"], slot["sizes"]
     total = len(names)
     rows_per_shard = (total + num_shards - 1) // num_shards
-    begin_row = shard_idx * rows_per_shard
+    begin_row = min(shard_idx * rows_per_shard, total)
     end_row = min(begin_row + rows_per_shard, total)
     if verbose:
         log(f"MinHash shard {shard_idx}: rows {begin_row} to {end_row} of {total}")
 
     t0 = time.perf_counter()
-    r, c, inter, sizes = minhash.minhash_triples(sets_, device=dev)
-    LAST_STAGES.update(minhash.LAST_STAGES)
-    keep = (r >= begin_row) & (r < end_row)
-    r, c, inter = r[keep], c[keep], inter[keep]
+    r, c, inter = minhash.shard_triples(slot["staged"], begin_row, end_row,
+                                        LAST_STAGES)
     if verbose:
         log(f"Total computation time: {(time.perf_counter()-t0)*1000:.0f} ms "
             f"({len(r)} surviving pairs)")
@@ -1119,16 +1182,15 @@ def compute_minhash_shard(hashes_file: str, output_folder: str,
             mdb = os.path.join(output_folder, "minhash_db")
             os.makedirs(mdb, exist_ok=True)
             with open(os.path.join(mdb, "vector_norms.txt"), "w") as f:
-                for n, s in zip(names, sizes):
-                    f.write(f"{n} {np.sqrt(float(s)):.6g}\n")
+                f.write(slot["norms_text"])
             with open(os.path.join(mdb, "dimension.txt"), "w") as f:
                 f.write("1\n")
             with open(os.path.join(mdb, "dtype.txt"), "w") as f:
                 f.write("minhash\n")
         # dimension=1 and norms_sq=|A| make the writer's
         # J = inter/(|A|+|B|-inter) the exact set Jaccard
-        write_shard(shard_folder, r, c, inter.astype(np.int64),
-                    sizes.astype(np.float64), dimension=1)
+        write_shard(shard_folder, r, c, inter, sizes.astype(np.float64),
+                    dimension=1)
     LAST_STAGES["pairs_written"] = len(r)
     return shard_folder
 

@@ -656,35 +656,124 @@ def _padded_incidence(dev, n, u, density, seed):
     return torch.from_numpy(A).to(dev)
 
 
-@pytest.mark.parametrize("n,u", [(1, 1), (130, 100), (300, 1000),
-                                 (1000, 16384), (128, 64), (384, 64)])
-def test_gram_kernel_matches_plain(cuda, n, u):
-    """Kernel G over two chunks (ragged n and u, zero padded) against the
-    plain float64 Gram: equal on the upper block triangle, the blocks below
-    it untouched."""
-    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
-    chunks = [_padded_incidence(cuda, n, u, 0.05, seed) for seed in (1, 2)]
-    npad = chunks[0].shape[0]
-    got = torch.zeros((npad, npad), dtype=torch.int32, device=cuda)
-    want = torch.zeros_like(got)
-    for A in chunks:
-        mh.gram_accumulate(got, A)
-        mh.gram_accumulate_plain(want, A)
-    assert torch.equal(mh.mirror_upper(got), want)
-    blk = torch.arange(npad, device=cuda) // 128
-    below = blk[:, None] > blk[None, :]
-    assert not bool(got[below].any())
-
-
 def test_minhash_intersections_cuda_equal_cpu(cuda):
     from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
     rng = np.random.default_rng(61)
     sets_ = [rng.choice(20000, size=rng.integers(0, 900), replace=False)
              .astype(np.uint64) for _ in range(37)]
-    for chunk in (512, 1 << 14):
+    for rows in (7, 1 << 14):
         assert np.array_equal(
-            mh.pairwise_intersections(sets_, chunk=chunk, device=cuda),
-            mh.pairwise_intersections(sets_, chunk=chunk, device="cpu"))
+            mh.pairwise_intersections(sets_, rows_per_block=rows, device=cuda),
+            mh.pairwise_intersections(sets_, rows_per_block=rows,
+                                      device="cpu"))
+
+
+@pytest.mark.parametrize("n,u,b,e", [
+    (1, 1, 0, 1), (130, 100, 0, 130), (1000, 16384, 128, 300),
+    (700, 64, 500, 700), (384, 1000, 5, 6), (384, 64, 0, 384)])
+def test_gram_rows_kernel_matches_plain(cuda, n, u, b, e):
+    """Kernel G (rows b..e-1 against every row, ragged
+    n, u and row ranges, zero padded) against the plain float64 rows; the
+    pad rows of its output are 0."""
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    A = _padded_incidence(cuda, n, u, 0.05, 4)
+    got = mh.gram_rows(A, b, e)
+    assert got.shape == ((e - b + 127) // 128 * 128, A.shape[0])
+    assert torch.equal(got[:e - b], mh.gram_rows_plain(A, b, e))
+    assert not bool(got[e - b:].any())
+
+
+def _postings(dev, n, n_post, most, seed):
+    """Random light postings: n_post ascending runs of 2..most distinct set
+    ids below n."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(2, most + 1, size=n_post)
+    sets = np.concatenate([np.sort(rng.choice(n, size=k, replace=False))
+                           for k in lens]).astype(np.int32)
+    off = np.zeros(n_post + 1, dtype=np.int64)
+    off[1:] = np.cumsum(lens)
+    return torch.from_numpy(sets).to(dev), torch.from_numpy(off).to(dev)
+
+
+@pytest.mark.parametrize("n,n_post,most,b,e", [
+    (300, 2000, 40, 0, 300), (5000, 20000, 255, 1000, 1700),
+    (1000, 5000, 2, 990, 1000), (2048, 3000, 127, 128, 1152)])
+def test_cooc_kernel_matches_plain(cuda, n, n_post, most, b, e):
+    """Kernel C over random light postings (on top of a nonzero
+    accumulator) against the plain version: the same counts and the same
+    number of increments."""
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    sets, off = _postings(cuda, n, n_post, most, seed=n)
+    base = torch.randint(0, 5, (e - b + 3, n + 8), dtype=torch.int32,
+                         device=cuda)
+    got, want = base.clone(), base.clone()
+    cg = torch.zeros(1, dtype=torch.int64, device=cuda)
+    cw = torch.zeros_like(cg)
+    mh.cooc_accumulate(got, sets, off, b, e, cg)
+    mh.cooc_accumulate_plain(want, sets, off, b, e, cw)
+    assert torch.equal(got, want) and torch.equal(cg, cw)
+    assert int(cg) > 0
+
+
+@pytest.mark.parametrize("cap", [0, 7, 1 << 16])
+def test_minhash_keep_kernel_matches_plain(cuda, cap):
+    """Kernel M against the plain version on counts around the threshold:
+    the same kept pairs and count (exact past the capacity)."""
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    rng = np.random.default_rng(9)
+    n, b, e = 600, 200, 350
+    sizes = torch.from_numpy(rng.integers(0, 400, size=n)).to(cuda)
+    thr = 0.05 * (sizes[b:e, None] + sizes[None, :]).double()
+    C = (thr.floor() + torch.from_numpy(rng.integers(-1, 3, size=(e - b, n)))
+         .to(cuda)).clamp(min=0).to(torch.int32)
+    C = torch.cat([C, torch.zeros((2, n), dtype=torch.int32, device=cuda)])
+    got, gk = mh.keep_shard(C, sizes, b, e, cap)
+    want, wk = mh.keep_shard_plain(C, sizes, b, e, max(cap, 1 << 16))
+    assert torch.equal(gk, wk) and int(wk) > 100
+    m = min(cap, int(wk))
+    assert set(map(tuple, got[:m].cpu().tolist())) <= \
+        set(map(tuple, want[:int(wk)].cpu().tolist()))
+    if cap >= int(wk):
+        assert sorted(map(tuple, got[:m].cpu().tolist())) == \
+            sorted(map(tuple, want[:m].cpu().tolist()))
+
+
+@pytest.mark.parametrize("heavy_min", [2, 5, 1 << 20])
+def test_minhash_shard_cuda_equals_cpu(cuda, tmp_path, heavy_min,
+                                      monkeypatch):
+    """A MinHash shard of shared-hash sets on the card, with every hash
+    heavy, a mix, and every hash light, byte-equal to the CPU's."""
+    import filecmp
+    from metagenome_vector_sketches_tpu_torch import _build
+    from metagenome_vector_sketches_tpu_torch.io.hashes import (
+        write_hashes_file)
+    from metagenome_vector_sketches_tpu_torch.matrix import compute as mc
+    from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
+    rng = np.random.default_rng(12)
+    pool = rng.choice(1 << 40, size=3000, replace=False)
+    named = [(f"S{i}", np.unique(np.concatenate([
+        rng.choice(pool[:50 + 60 * (i % 7)], size=rng.integers(0, 40)),
+        rng.integers(1 << 41, 1 << 50, size=rng.integers(0, 200))])))
+        for i in range(300)]
+    path = str(tmp_path / "h.txt")
+    write_hashes_file(path, named)
+    monkeypatch.setattr(mh, "heavy_threshold", lambda p, n: heavy_min)
+    mc.clear_device_cache()
+    _build.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        for k in range(3):
+            mc.compute_minhash_shard(path, str(tmp_path / dev), 3, k,
+                                     verbose=False, device=dev)
+    mc.clear_device_cache()
+    launches = _build.launch_counts()
+    assert launches["mhkeep"] == 3
+    assert (launches["gram"] > 0) == (heavy_min < 1 << 20)
+    assert (launches["cooc"] > 0) == (heavy_min > 2)
+    for k in range(3):
+        for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
+            assert filecmp.cmp(tmp_path / "cpu" / f"shard_{k}" / f,
+                               tmp_path / "cuda" / f"shard_{k}" / f,
+                               shallow=False)
 
 
 @pytest.mark.parametrize("offset", [128, -256, 256, -128])
@@ -1081,7 +1170,7 @@ def test_minhash_cli_cuda_equals_cpu(cuda, tmp_path):
              "--num_shards", "1", "--shard_idx", "0", "--strategy", "1",
              "--hashes", str(toy / "all_hashes_toy.txt"),
              "--device", dev]) == 0
-    assert _build.launch_counts()["gram"] > 0
+    assert _build.launch_counts()["mhkeep"] > 0
     for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
         assert filecmp.cmp(tmp_path / "cpu" / "shard_0" / f,
                            tmp_path / "cuda" / "shard_0" / f, shallow=False)
@@ -1410,10 +1499,10 @@ def test_slot_results_are_handed_off_before_a_gather(cuda, monkeypatch):
 
 
 def test_each_kernel_launches_on_the_second_card(cuda1, tmp_path):
-    """Kernels P, COUNT, S (APPEND, SCORE), X, G and K launched on cuda:1
-    with cuda:0 current for PyTorch: every output lies on cuda:1 and equals
-    the plain version; the current device is left as it was. Then a mesh
-    over cuda:0 and cuda:1 writes the single-device shards."""
+    """Kernels P, COUNT, S (APPEND, SCORE), X, G, C, M and K launched on
+    cuda:1 with cuda:0 current for PyTorch: every output lies on cuda:1 and
+    equals the plain version; the current device is left as it was. Then a
+    mesh over cuda:0 and cuda:1 writes the single-device shards."""
     from metagenome_vector_sketches_tpu_torch import _build
     from metagenome_vector_sketches_tpu_torch.ann import select as sel
     from metagenome_vector_sketches_tpu_torch.ops import minhash as mh
@@ -1454,11 +1543,22 @@ def test_each_kernel_launches_on_the_second_card(cuda1, tmp_path):
     assert torch.equal(pw.scan_scores(qp, db, inv, 1000),
                        pw.scan_scores_plain(qp, db, inv, 1000))
     A = _padded_incidence(cuda1, 300, 1000, 0.05, 3)
-    C = torch.zeros((A.shape[0],) * 2, dtype=torch.int32, device=cuda1)
-    W = torch.zeros_like(C)
-    mh.gram_accumulate(C, A)
-    mh.gram_accumulate_plain(W, A)
-    assert torch.equal(mh.mirror_upper(C), W)
+    C = mh.gram_rows(A, 100, 300)
+    assert C.device == cuda1
+    assert torch.equal(C[:200], mh.gram_rows_plain(A, 100, 300))
+    sets, off = _postings(cuda1, 300, 500, 20, seed=3)
+    want = C.clone()
+    cg = torch.zeros(1, dtype=torch.int64, device=cuda1)
+    cw = torch.zeros_like(cg)
+    mh.cooc_accumulate(C, sets, off, 100, 300, cg)
+    mh.cooc_accumulate_plain(want, sets, off, 100, 300, cw)
+    assert torch.equal(C, want) and torch.equal(cg, cw)
+    sizes = torch.full((300,), 40, dtype=torch.int64, device=cuda1)
+    got, gk = mh.keep_shard(C, sizes, 100, 300, 1 << 16)
+    want, wk = mh.keep_shard_plain(C, sizes, 100, 300, 1 << 16)
+    assert got.device == cuda1 and torch.equal(gk, wk)
+    assert sorted(map(tuple, got[:int(wk)].tolist())) == \
+        sorted(map(tuple, want[:int(wk)].tolist()))
     scores = _select_scores(cuda1, 37, 2048, 2000, seed=6)
     best = _select_pool(cuda1, 37, 16, seed=7)
     got = sel.select_chunk(scores, 0, 2000, 2048, 16, best, 16)

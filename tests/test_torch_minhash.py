@@ -1,6 +1,6 @@
 """The MinHash strategy (--strategy 1) of the port against the JAX package
-on the CPU: exact intersections and triples (plain version of kernel G),
-shard and minhash_db bytes through the library and the CLI."""
+on the CPU: exact intersections and triples (the shard engine's plain
+kernels), shard and minhash_db bytes through the library and the CLI."""
 
 import filecmp
 
@@ -35,17 +35,19 @@ def _same(a, b):
     assert filecmp.cmp(a, b, shallow=False), (a, b)
 
 
-@pytest.mark.parametrize("chunk", [512, 1 << 14])
-def test_intersections_equal_jax(chunk):
+@pytest.mark.parametrize("rows", [7, 1 << 14])
+def test_intersections_equal_jax(rows):
+    """The shard engine's accumulator, ``rows`` rows a block, against the
+    JAX package's dense universe Grams."""
     sets_ = _random_sets()
-    got = tmh.pairwise_intersections(sets_, chunk=chunk, device="cpu")
-    want = jmh.pairwise_intersections(sets_, chunk=chunk)
+    got = tmh.pairwise_intersections(sets_, rows_per_block=rows,
+                                     device="cpu")
+    want = jmh.pairwise_intersections(sets_, chunk=512)
     assert got.dtype == np.int64 and np.array_equal(got, want)
     py = [set(int(x) for x in s) for s in sets_]
     assert all(got[i, j] == len(py[i] & py[j])
                for i in range(20) for j in range(20))
-    if chunk == 512:
-        assert tmh.LAST_STAGES["chunks"] > 1
+    assert tmh.LAST_STAGES["blocks"] == (3 if rows == 7 else 1)
     assert _build.launch_counts()["gram"] == 0     # CPU: the plain version
 
 
@@ -57,7 +59,7 @@ def test_intersections_with_empty_sets_equal_jax(case):
         sets_[5] = set()
     else:
         sets_ = [np.empty(0, dtype=np.uint64), set(), []]
-    got = tmh.pairwise_intersections(sets_, chunk=512, device="cpu")
+    got = tmh.pairwise_intersections(sets_, rows_per_block=3, device="cpu")
     assert np.array_equal(got, jmh.pairwise_intersections(sets_, chunk=512))
     assert got.shape == (len(sets_), len(sets_))
 
@@ -81,19 +83,6 @@ def test_jaccard_equals_jax(ref_toy_dir):
     jac, sizes = tmh.pairwise_jaccard_minhash(sets_, device="cpu")
     want_jac, want_sizes = jmh.pairwise_jaccard_minhash(sets_)
     assert np.array_equal(jac, want_jac) and np.array_equal(sizes, want_sizes)
-
-
-def test_gram_plain_and_mirror():
-    """The plain Gram adds the exact full square; mirror_upper rebuilds a
-    symmetric matrix from its upper triangle."""
-    rng = np.random.default_rng(3)
-    A = (rng.random((37, 100)) < 0.1).astype(np.int8)
-    C = torch.full((37, 37), 5, dtype=torch.int32)
-    tmh.gram_accumulate(C, torch.from_numpy(A))
-    want = A.astype(np.int64) @ A.T.astype(np.int64) + 5
-    assert np.array_equal(C.numpy(), want)
-    upper = torch.triu(C)
-    assert torch.equal(tmh.mirror_upper(upper), C)
 
 
 @pytest.mark.parametrize("num_shards", [1, 3])

@@ -21,7 +21,6 @@ from metagenome_vector_sketches_tpu_torch.io.dbfolder import DbFolder
 from metagenome_vector_sketches_tpu_torch.io.hashes import (
     parse_hashes_file, write_hashes_file)
 from metagenome_vector_sketches_tpu_torch.matrix import compute as tmc
-from metagenome_vector_sketches_tpu_torch.ops import minhash as tmh
 from metagenome_vector_sketches_tpu_torch.ops import pairwise as pw
 from metagenome_vector_sketches_tpu_torch.utils import profiling
 
@@ -163,14 +162,34 @@ def test_search_stages_are_spans_of_their_call(tmp_path, toy_search):
     assert tsearch.LAST_ADAPTIVE_STAGES["rounds"] >= 1
 
 
-def test_minhash_stages_are_spans(tmp_path):
+def test_minhash_stages_are_spans(tmp_path, monkeypatch):
+    """A MinHash shard's stages are spans of its call: the staging (only
+    while the slot is empty), kernel G, kernel C, kernel M with the
+    copies, and the writer; its counters say what each did."""
     sets = [np.arange(i, i + 50, dtype=np.uint64) for i in range(0, 200, 10)]
-    spans = _profiled(lambda: tmh.pairwise_intersections(sets, device="cpu"),
-                      tmp_path)
-    assert {s[0] for s in spans} == {"mvs.minhash.universe",
-                                     "mvs.minhash.gram", "mvs.minhash.copy"}
-    assert set(tmh.LAST_STAGES) == {"universe_ms", "gram_ms", "copy_ms",
-                                    "chunks"}
+    path = str(tmp_path / "h.txt")
+    write_hashes_file(path, [(f"S{i}", s) for i, s in enumerate(sets)])
+    # hashes of 3 sets or more heavy: both kinds of work run
+    monkeypatch.setattr(tmc.minhash, "heavy_threshold", lambda p, n: 3)
+    tmc.clear_device_cache()
+
+    def run():
+        for k in range(2):
+            tmc.compute_minhash_shard(path, str(tmp_path / "m"), 2, k,
+                                      verbose=False, device="cpu")
+    (n1, first), (n2, second) = _by_call(_profiled(run, tmp_path), "minhash")
+    assert n2 == n1 + 1
+    assert first == {"stage", "heavy", "light", "keep", "write"}
+    assert second == first          # the slot hit is an empty stage span
+    st = tmc.LAST_STAGES
+    assert {"stage_ms", "heavy_ms", "light_ms", "keep_ms", "write_ms",
+            "heavy_hashes", "light_cooccurrences", "emitted",
+            "pairs_written", "stage_bytes"} <= set(st)
+    assert st["heavy_hashes"] > 0 and st["light_cooccurrences"] > 0
+    assert st["emitted"] == 10 * 20 and st["stage_bytes"] == 0
+    assert 0 < st["pairs_written"] <= st["emitted"]
+    assert not {"universe_ms", "gram_ms", "copy_ms"} & set(st)
+    tmc.clear_device_cache()
 
 
 def test_no_record_function_without_a_profiler(tmp_path, monkeypatch,
