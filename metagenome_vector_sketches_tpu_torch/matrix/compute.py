@@ -128,7 +128,9 @@ from ..ops import pairwise_math as pm
 #   (they read 0.0);
 # - finalize_ms (mvs.shard.finalize): the fused engines' append of the kept
 #   pairs; the two-phase engine's exact filter on the host;
-# - write_ms (mvs.shard.write): the writer.
+# - write_ms (mvs.shard.write): the writer; inside it write_order_ms
+#   (mvs.write.order), the ordering of the triples, and the counter
+#   write_presorted (1 when they came in order and nothing was sorted).
 # Counters: candidates, emitted, pairs_written, mode, readback_bytes (the
 # bytes the fused engines copy device->host from kernel X: kept pairs and
 # counters). The streaming engine
@@ -141,7 +143,8 @@ from ..ops import pairwise_math as pm
 # and, streaming, windows. compute_minhash_shard replaces them with the
 # MinHash stages: stage_ms (mvs.minhash.stage: the parse, sort and split,
 # 0 on a slot hit), heavy_ms, light_ms, keep_ms (ops.minhash.shard_triples'
-# walls and counters), write_ms (mvs.minhash.write), stage_bytes (the
+# walls and counters), write_ms (mvs.minhash.write; with write_order_ms
+# and write_presorted inside it, as above), stage_bytes (the
 # hashes file's bytes parsed, 0 on a hit) and pairs_written.
 LAST_STAGES: dict = {}
 
@@ -218,7 +221,8 @@ def _keep_only(key) -> int:
 def sweep_tile(tile_rows: int, device) -> int:
     """The sweep's tile edge on ``device``: tile_rows itself on the CPU; on
     CUDA rounded UP to a multiple of the kernels' block (128), logged
-    once. The shard does not depend on the tile (the writer lexsorts)."""
+    once. The shard does not depend on the tile (the writer orders the
+    pairs)."""
     if torch.device(device).type != "cuda" or tile_rows % pw.SWEEP_BLOCK == 0:
         return tile_rows
     tile = pw.pad_rows(tile_rows, device)
@@ -359,7 +363,7 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
     if begin_row >= end_row:
         # shard beyond the row space (num_shards > N): empty-but-valid folder
         e = np.empty(0, dtype=np.int64)
-        write_shard(shard_folder, e, e, e, norms_sq, d)
+        write_shard(shard_folder, e, e, e, norms_sq, d, record=LAST_STAGES)
         return shard_folder
 
     with stage(None, LAST_STAGES, "total_ms") as t0:
@@ -387,7 +391,8 @@ def compute_pairwise_shard(db_folder: str, output_folder: str,
                 "surviving pairs)")
 
         with stage("mvs.shard.write", LAST_STAGES, "write_ms"):
-            write_shard(shard_folder, rows, cols, vals, norms_sq, d)
+            write_shard(shard_folder, rows, cols, vals, norms_sq, d,
+                        record=LAST_STAGES)
         LAST_STAGES["pairs_written"] = len(rows)
     return shard_folder
 
@@ -1190,7 +1195,7 @@ def compute_minhash_shard(hashes_file: str, output_folder: str,
         # dimension=1 and norms_sq=|A| make the writer's
         # J = inter/(|A|+|B|-inter) the exact set Jaccard
         write_shard(shard_folder, r, c, inter, sizes.astype(np.float64),
-                    dimension=1)
+                    dimension=1, record=LAST_STAGES)
     LAST_STAGES["pairs_written"] = len(r)
     return shard_folder
 

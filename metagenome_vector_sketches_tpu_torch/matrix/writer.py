@@ -7,6 +7,10 @@ clamped to 1, quantized q = round(J*255) half-away-from-zero; self-pairs
 included. Layout documented in FORMATS.md (rows written in ascending order —
 a deliberate, documented divergence from the reference's unordered_map order,
 whose own reader treats the index as authoritative).
+
+The port's own writer: its files are byte-identical to the JAX package's
+writer's for the same triples (tests/test_torch_standalone.py); only how it
+reaches the (row asc, col asc) order differs (:func:`_row_major_order`).
 """
 
 from __future__ import annotations
@@ -16,8 +20,12 @@ import os
 import numpy as np
 
 from .. import codecs
+from ..utils.profiling import stage
 
 MULT_CONST = 255.0  # (1 << 8) - 1, pairwise_comp_optimized.cpp:654
+# ids below these pack into one non-negative int64 key row * 2**32 + col
+KEY_ROWS = 1 << 31
+KEY_COLS = 1 << 32
 
 
 def quantize_jaccard(values: np.ndarray, rows: np.ndarray, cols: np.ndarray,
@@ -36,9 +44,30 @@ def quantize_jaccard(values: np.ndarray, rows: np.ndarray, cols: np.ndarray,
     return np.floor(jac * MULT_CONST + 0.5).astype(np.uint16)
 
 
+def _row_major_order(rows: np.ndarray, cols: np.ndarray):
+    """The permutation ``np.lexsort((cols, rows))`` gives the int64 ids
+    (row asc, col asc, stable), or None where they are already in that
+    order (then the permutation is the identity).
+
+    Ids in the packed range are one int64 key each: one O(n) pass finds
+    the keys non-decreasing (>=, so equal pairs keep their order, as the
+    stable lexsort keeps it), else a stable argsort of the keys gives the
+    same permutation at a fraction of lexsort's cost. Other ids take
+    lexsort."""
+    if len(rows) == 0:
+        return None
+    if rows.min() < 0 or rows.max() >= KEY_ROWS or cols.min() < 0 \
+            or cols.max() >= KEY_COLS:
+        return np.lexsort((cols, rows))
+    key = (rows << 32) | cols
+    if np.all(key[1:] >= key[:-1]):
+        return None
+    return np.argsort(key, kind="stable")
+
+
 def write_shard(folder: str, rows: np.ndarray, cols: np.ndarray,
                 values: np.ndarray, norms_sq: np.ndarray, dimension: int,
-                layout: str = "native") -> None:
+                layout: str = "native", *, record: dict | None = None) -> None:
     """Write one shard folder from surviving (row, col, raw int64 dot) triples.
 
     norms_sq: float64 squared norms for ALL vectors (text-parsed then squared,
@@ -47,6 +76,10 @@ def write_shard(folder: str, rows: np.ndarray, cols: np.ndarray,
     layout: 'native' (FORMATS.md serialization) or 'bits' (the reconstructed
     jermp/bits layout, codecs.bitscompat — what real reference-built readers
     and server artifacts use). The shard reader autodetects either.
+
+    record: where given, gets ``write_order_ms`` (the ordering's wall, span
+    ``mvs.write.order``) and ``write_presorted`` (1 when the triples came
+    in order and nothing was sorted, else 0).
     """
     if layout == "bits":
         from ..codecs import bitscompat as cdc
@@ -57,12 +90,22 @@ def write_shard(folder: str, rows: np.ndarray, cols: np.ndarray,
     cols = np.asarray(cols, dtype=np.int64)
     values = np.asarray(values, dtype=np.int64)
 
+    record = {} if record is None else record
+
     # deterministic (row asc, col asc) ordering
-    order = np.lexsort((cols, rows))
-    rows, cols, values = rows[order], cols[order], values[order]
+    with stage("mvs.write.order", record, "write_order_ms"):
+        order = _row_major_order(rows, cols)
+        if order is not None:
+            rows, cols, values = rows[order], cols[order], values[order]
+    record["write_presorted"] = int(order is None)
     q = quantize_jaccard(values, rows, cols, norms_sq, dimension)
 
-    unique_rows, start_idx = np.unique(rows, return_index=True)
+    # each row's first triple: np.unique(rows, return_index=True) on the
+    # sorted rows, without its sort
+    first = np.ones(len(rows), dtype=bool)
+    np.not_equal(rows[1:], rows[:-1], out=first[1:])
+    start_idx = np.flatnonzero(first)
+    unique_rows = rows[start_idx]
     boundaries = np.append(start_idx, len(rows))
 
     body = None

@@ -361,8 +361,8 @@ def shard_counts(st: Staged, b: int, e: int, record: dict) -> tuple:
 def shard_triples(st: Staged, b: int, e: int, record: dict) -> tuple:
     """Rows [b, e) of the collection: (rows, cols, inter) int64 arrays of
     the kept pairs, in row-major order (sorted on the device, so the
-    writer's lexsort walks its keys in order). ``record`` gets the stage
-    walls and the counters (module LAST_STAGES)."""
+    writer finds them in order and sorts nothing). ``record`` gets the
+    stage walls and the counters (module LAST_STAGES)."""
     for k in ("heavy_ms", "light_ms", "keep_ms"):
         record.setdefault(k, 0.0)
     record.update(heavy_min=st.heavy_min, heavy_hashes=st.n_heavy,

@@ -5,7 +5,8 @@ mvs.search#<n>, with n one more each call; without a profiler no
 record_function is entered; the shard's stage keys of its own (entry,
 norms parse) time only work that no other key timed, and the fused
 engines, whose kernel X combines, tests and mirrors on the device, enter
-neither the host's combine nor its mirror."""
+neither the host's combine nor its mirror. The writer's ordering is a
+span of its own, mvs.write.order, inside the caller's write span."""
 
 import json
 import os
@@ -28,12 +29,14 @@ TILE = 32
 # the stage spans each engine's first shard of a fresh db opens
 SHARD_SPANS = {
     "resident": {"entry", "norms_parse", "stage", "stage_wait", "stage_h2d",
-                 "decompose", "sweep", "extract", "finalize", "write"},
+                 "decompose", "sweep", "extract", "finalize", "write",
+                 "write.order"},
     "streaming": {"entry", "norms_parse", "stage", "stage_wait",
                   "stage_h2d", "decompose", "sweep", "extract", "finalize",
-                  "write"},
+                  "write", "write.order"},
     "two_phase": {"entry", "norms_parse", "stage", "stage_wait", "stage_h2d",
-                  "decompose", "sweep", "extract", "finalize", "write"},
+                  "decompose", "sweep", "extract", "finalize", "write",
+                  "write.order"},
 }
 SEARCH_SPANS = {"db_norms", "parse_queries", "project", "index", "adaptive",
                 "prep", "enqueue", "wait", "frontier", "collect", "rescore"}
@@ -95,19 +98,32 @@ def _profiled(run, tmp_path):
 
 def _by_call(spans, kind):
     """-> [(call number, {stage names})], the calls in order: every stage
-    span lies inside exactly one call span of its thread."""
+    span lies inside exactly one call span of its thread. The writer's
+    spans (mvs.write.<stage>) are named "write.<stage>"."""
     calls = sorted((s for s in spans if "#" in s[0]), key=lambda s: s[1])
     assert calls and all(c[0].startswith(f"mvs.{kind}#") for c in calls)
     inside = [set() for _ in calls]
     for name, b, e, tid in spans:
         if "#" in name:
             continue
-        assert name.startswith(f"mvs.{kind}."), name
+        assert name.startswith((f"mvs.{kind}.", "mvs.write.")), name
         home = [i for i, c in enumerate(calls)
                 if c[3] == tid and c[1] <= b + 1 and e <= c[2] + 1]
         assert len(home) == 1, (name, b, e)
-        inside[home[0]].add(name[len(f"mvs.{kind}."):])
+        inside[home[0]].add(name.removeprefix(f"mvs.{kind}.")
+                            .removeprefix("mvs."))
     return [(int(c[0].split("#")[1]), st) for c, st in zip(calls, inside)]
+
+
+def _nested(spans, inner, outer):
+    """Every span named inner lies inside a span named outer of its
+    thread, and there is one."""
+    outs = [s for s in spans if s[0] == outer]
+    ins = [s for s in spans if s[0] == inner]
+    assert ins
+    for _, b, e, tid in ins:
+        assert any(o[3] == tid and o[1] <= b + 1 and e <= o[2] + 1
+                   for o in outs), (inner, b, e)
 
 
 @pytest.mark.parametrize("engine", sorted(SHARD_SPANS))
@@ -118,7 +134,9 @@ def test_shard_stages_are_spans_of_their_call(tmp_path, engine):
     def run():
         _shard(db, tmp_path / "a", engine)
         _shard(db, tmp_path / "b", engine)
-    (n1, first), (n2, second) = _by_call(_profiled(run, tmp_path), "shard")
+    spans = _profiled(run, tmp_path)
+    (n1, first), (n2, second) = _by_call(spans, "shard")
+    _nested(spans, "mvs.write.order", "mvs.shard.write")
     assert n2 == n1 + 1
     assert first == SHARD_SPANS[engine]
     # a resident shard of the same db re-uses the staged planes
@@ -177,14 +195,18 @@ def test_minhash_stages_are_spans(tmp_path, monkeypatch):
         for k in range(2):
             tmc.compute_minhash_shard(path, str(tmp_path / "m"), 2, k,
                                       verbose=False, device="cpu")
-    (n1, first), (n2, second) = _by_call(_profiled(run, tmp_path), "minhash")
+    spans = _profiled(run, tmp_path)
+    (n1, first), (n2, second) = _by_call(spans, "minhash")
+    _nested(spans, "mvs.write.order", "mvs.minhash.write")
     assert n2 == n1 + 1
-    assert first == {"stage", "heavy", "light", "keep", "write"}
+    assert first == {"stage", "heavy", "light", "keep", "write",
+                     "write.order"}
     assert second == first          # the slot hit is an empty stage span
     st = tmc.LAST_STAGES
     assert {"stage_ms", "heavy_ms", "light_ms", "keep_ms", "write_ms",
             "heavy_hashes", "light_cooccurrences", "emitted",
-            "pairs_written", "stage_bytes"} <= set(st)
+            "pairs_written", "stage_bytes", "write_order_ms",
+            "write_presorted"} <= set(st)
     assert st["heavy_hashes"] > 0 and st["light_cooccurrences"] > 0
     assert st["emitted"] == 10 * 20 and st["stage_bytes"] == 0
     assert 0 < st["pairs_written"] <= st["emitted"]

@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of the JAX package, and its
 own copies of the JAX package's host layers (codecs, db folders, hashes
-files, the shard writer and reader, the FAISS index file, the query engine)
-behave exactly like the originals on seeded inputs."""
+files, the shard reader, the FAISS index file, the query engine) behave
+exactly like the originals on seeded inputs; its own shard writer writes
+the same files as the JAX package's."""
 
 import filecmp
 import importlib.util
@@ -232,8 +233,41 @@ def _triples(n, seed):
     return r, c, vals, ns
 
 
-def _case_write_shard(layout, tmp_path, ref_toy_dir):
+UPSTREAM_N = 697_508  # accessions of the upstream server matrix
+
+
+def _write_input(kind):
+    """(rows, cols, raw dots, norms_sq) of one writer input: the distinct
+    pairs of _triples in (row, col) order ("presorted"), shuffled,
+    reversed, a single row, none, or ids next to the upstream's last,
+    697,507, in a shuffled order."""
     r, c, v, ns = _triples(120, 5)
+    if kind == "one_row":
+        sel = r == r[len(r) // 2]
+        r, c, v = r[sel], c[sel], v[sel]
+    elif kind == "empty":
+        r, c, v = r[:0], c[:0], v[:0]
+    elif kind == "upstream_ids":
+        r = r + (UPSTREAM_N - 120)
+        c = c + (UPSTREAM_N - 120)
+        ns = np.random.default_rng(6).uniform(2000.0, 9000.0,
+                                              size=UPSTREAM_N)
+    if kind in ("shuffled", "upstream_ids"):
+        p = np.random.default_rng(8).permutation(len(r))
+        r, c, v = r[p], c[p], v[p]
+    elif kind == "reversed":
+        r, c, v = r[::-1], c[::-1], v[::-1]
+    return r, c, v, ns
+
+
+WRITE_INPUTS = ("presorted", "shuffled", "reversed", "one_row", "empty",
+                "upstream_ids")
+
+
+def _case_write_shard(layout, kind, tmp_path, ref_toy_dir):
+    """The port's writer, which orders its triples its own way, writes the
+    JAX writer's three files byte for byte."""
+    r, c, v, ns = _write_input(kind)
     j_writer.write_shard(str(tmp_path / "j"), r, c, v, ns, 64, layout=layout)
     t_writer.write_shard(str(tmp_path / "t"), r, c, v, ns, 64, layout=layout)
     for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
@@ -313,7 +347,7 @@ COPIES = (
     "cli/query_ava_matrix.py", "cli/read_pc_mat.py", "codecs/__init__.py",
     "codecs/bitscompat.py", "codecs/native.py", "codecs/pyref.py",
     "io/dbfolder.py", "io/hashes.py", "io/sigzip.py", "matrix/legacy.py",
-    "matrix/reader.py", "matrix/writer.py", "query/__init__.py",
+    "matrix/reader.py", "query/__init__.py",
     "query/engine.py", "query/outputs.py", "utils/__init__.py",
     "utils/log.py", "utils/npyio.py", "utils/zstdio.py")
 
@@ -333,8 +367,9 @@ CASES = {
     "dbfolder-int16": (_case_dbfolder, (True,)),
     "hashes-parse": (_case_hashes, ("parse",)),
     "hashes-query": (_case_hashes, ("query",)),
-    "write_shard-native": (_case_write_shard, ("native",)),
-    "write_shard-bits": (_case_write_shard, ("bits",)),
+    **{f"write_shard-{layout}" + ("" if kind == "presorted" else f"-{kind}"):
+       (_case_write_shard, (layout, kind))
+       for layout in ("native", "bits") for kind in WRITE_INPUTS},
     "reader-native": (_case_reader, ("native",)),
     "reader-bits": (_case_reader, ("bits",)),
     "faissio-ip": (_case_faissio, ("METRIC_INNER_PRODUCT",)),
