@@ -129,11 +129,16 @@ from ..ops import pairwise_math as pm
 # - finalize_ms (mvs.shard.finalize): the fused engines' append of the kept
 #   pairs; the two-phase engine's exact filter on the host;
 # - write_ms (mvs.shard.write): the writer; inside it write_order_ms
-#   (mvs.write.order), the ordering of the triples, and the counter
+#   (mvs.write.order), the ordering of the triples, write_quantize_ms
+#   (mvs.write.quantize), their quantisation, write_codec_ms
+#   (mvs.write.codec), the codecs and the files, and the counter
 #   write_presorted (1 when they came in order and nothing was sorted).
 # Counters: candidates, emitted, pairs_written, mode, readback_bytes (the
 # bytes the fused engines copy device->host from kernel X: kept pairs and
-# counters). The streaming engine
+# counters), sweep_reruns and keep_reruns (the fused engines' slot ranges
+# whose kernel APPEND survivors, or whose kernel X kept pairs, overflowed
+# their buffer, so that the kernel ran again at the exact count; summed
+# over the rounds). The streaming engine
 # adds row_groups, windows and tiles_swept. The two-phase engine's
 # sweep_ms is its counts sweep (plus, streaming, the row tile's staging),
 # its extract_ms the extraction's launches and copies, and its finalize_ms
@@ -143,9 +148,10 @@ from ..ops import pairwise_math as pm
 # and, streaming, windows. compute_minhash_shard replaces them with the
 # MinHash stages: stage_ms (mvs.minhash.stage: the parse, sort and split,
 # 0 on a slot hit), heavy_ms, light_ms, keep_ms (ops.minhash.shard_triples'
-# walls and counters), write_ms (mvs.minhash.write; with write_order_ms
-# and write_presorted inside it, as above), stage_bytes (the
-# hashes file's bytes parsed, 0 on a hit) and pairs_written.
+# walls and counters), write_ms (mvs.minhash.write; with write_order_ms,
+# write_quantize_ms, write_codec_ms and write_presorted inside it, as
+# above), stage_bytes (the hashes file's bytes parsed, 0 on a hit) and
+# pairs_written.
 LAST_STAGES: dict = {}
 
 # bytes of vectors (of the rows' own dtype) per host->device staging chunk
@@ -246,7 +252,8 @@ def _reset_stages():
                        stage_read_ms=0.0, stage_wait_ms=0.0,
                        stage_bytes=0, slack_max=0.0, entry_ms=0.0,
                        norms_parse_ms=0.0,
-                       combine_ms=0.0, mirror_ms=0.0, readback_bytes=0)
+                       combine_ms=0.0, mirror_ms=0.0, readback_bytes=0,
+                       sweep_reruns=0, keep_reruns=0)
 
 
 def _sync(dev: torch.device) -> None:
@@ -756,6 +763,9 @@ def _keep(ops, planes_i, swept, L, keeps, cap, parts, planes_j=None,
                                          if run is not None)
         LAST_STAGES["emitted"] += emitted
         LAST_STAGES["readback_bytes"] += nbytes
+        # a slot that kept more than cap ran kernel X again at its count
+        LAST_STAGES["keep_reruns"] += sum(k is not None and len(k[0]) > cap
+                                          for k in kept)
         parts.extend(k for k in kept if k is not None and len(k[0]))
     return max((len(k[0]) for k in kept if k is not None), default=0)
 
@@ -930,8 +940,10 @@ def _sweep(ops, planes_i, thr_i, planes_j, thr_j, tile, L, d, coords, keeps,
                                           planes_j, thr_j, diag, first=s,
                                           count=e - s)
             if res is not None:
-                # the next round's capacity: this round's largest slot
-                # total
+                # a slot past cap swept its range again at its total; the
+                # next round's capacity: this round's largest slot total
+                LAST_STAGES["sweep_reruns"] += sum(
+                    run is not None and run[1] > cap for run in res[0])
                 cap = max([cap] + [run[1] for run in res[0]
                                    if run is not None])
         if res is None:

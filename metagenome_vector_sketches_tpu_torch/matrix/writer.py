@@ -77,9 +77,13 @@ def write_shard(folder: str, rows: np.ndarray, cols: np.ndarray,
     jermp/bits layout, codecs.bitscompat — what real reference-built readers
     and server artifacts use). The shard reader autodetects either.
 
-    record: where given, gets ``write_order_ms`` (the ordering's wall, span
-    ``mvs.write.order``) and ``write_presorted`` (1 when the triples came
-    in order and nothing was sorted, else 0).
+    record: where given, gets the walls of the write's three stages, each
+    a span of its own: ``write_order_ms`` (the ordering, span
+    ``mvs.write.order``), ``write_quantize_ms`` (the quantisation, span
+    ``mvs.write.quantize``) and ``write_codec_ms`` (the row boundaries, the
+    codecs and the three files, span ``mvs.write.codec``); and
+    ``write_presorted`` (1 when the triples came in order and nothing was
+    sorted, else 0).
     """
     if layout == "bits":
         from ..codecs import bitscompat as cdc
@@ -98,8 +102,16 @@ def write_shard(folder: str, rows: np.ndarray, cols: np.ndarray,
         if order is not None:
             rows, cols, values = rows[order], cols[order], values[order]
     record["write_presorted"] = int(order is None)
-    q = quantize_jaccard(values, rows, cols, norms_sq, dimension)
+    with stage("mvs.write.quantize", record, "write_quantize_ms"):
+        q = quantize_jaccard(values, rows, cols, norms_sq, dimension)
+    with stage("mvs.write.codec", record, "write_codec_ms"):
+        _write_files(folder, rows, cols, q, cdc, layout)
 
+
+def _write_files(folder: str, rows: np.ndarray, cols: np.ndarray,
+                 q: np.ndarray, cdc, layout: str) -> None:
+    """The shard's three files from its ordered triples' rows, columns and
+    quantised values (``cdc``: the layout's codec module)."""
     # each row's first triple: np.unique(rows, return_index=True) on the
     # sorted rows, without its sort
     first = np.ones(len(rows), dtype=bool)

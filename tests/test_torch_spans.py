@@ -5,8 +5,10 @@ mvs.search#<n>, with n one more each call; without a profiler no
 record_function is entered; the shard's stage keys of its own (entry,
 norms parse) time only work that no other key timed, and the fused
 engines, whose kernel X combines, tests and mirrors on the device, enter
-neither the host's combine nor its mirror. The writer's ordering is a
-span of its own, mvs.write.order, inside the caller's write span."""
+neither the host's combine nor its mirror. The writer's stages (its
+ordering, quantisation and codec) are spans of their own, mvs.write.order,
+mvs.write.quantize and mvs.write.codec, inside the caller's write span,
+and their walls sum to no more than the write's."""
 
 import json
 import os
@@ -30,17 +32,19 @@ TILE = 32
 SHARD_SPANS = {
     "resident": {"entry", "norms_parse", "stage", "stage_wait", "stage_h2d",
                  "decompose", "sweep", "extract", "finalize", "write",
-                 "write.order"},
+                 "write.order", "write.quantize", "write.codec"},
     "streaming": {"entry", "norms_parse", "stage", "stage_wait",
                   "stage_h2d", "decompose", "sweep", "extract", "finalize",
-                  "write", "write.order"},
+                  "write", "write.order", "write.quantize", "write.codec"},
     "two_phase": {"entry", "norms_parse", "stage", "stage_wait", "stage_h2d",
                   "decompose", "sweep", "extract", "finalize", "write",
-                  "write.order"},
+                  "write.order", "write.quantize", "write.codec"},
 }
 SEARCH_SPANS = {"db_norms", "parse_queries", "project", "index", "adaptive",
                 "prep", "enqueue", "wait", "frontier", "collect", "rescore"}
 WALLS = ("stage_ms", "sweep_ms", "extract_ms", "finalize_ms", "write_ms")
+WRITE_SPANS = ("mvs.write.order", "mvs.write.quantize", "mvs.write.codec")
+WRITE_WALLS = ("write_order_ms", "write_quantize_ms", "write_codec_ms")
 
 
 def _db(path, n=160, d=64, seed=3):
@@ -136,7 +140,8 @@ def test_shard_stages_are_spans_of_their_call(tmp_path, engine):
         _shard(db, tmp_path / "b", engine)
     spans = _profiled(run, tmp_path)
     (n1, first), (n2, second) = _by_call(spans, "shard")
-    _nested(spans, "mvs.write.order", "mvs.shard.write")
+    for inner in WRITE_SPANS:
+        _nested(spans, inner, "mvs.shard.write")
     assert n2 == n1 + 1
     assert first == SHARD_SPANS[engine]
     # a resident shard of the same db re-uses the staged planes
@@ -197,10 +202,11 @@ def test_minhash_stages_are_spans(tmp_path, monkeypatch):
                                       verbose=False, device="cpu")
     spans = _profiled(run, tmp_path)
     (n1, first), (n2, second) = _by_call(spans, "minhash")
-    _nested(spans, "mvs.write.order", "mvs.minhash.write")
+    for inner in WRITE_SPANS:
+        _nested(spans, inner, "mvs.minhash.write")
     assert n2 == n1 + 1
     assert first == {"stage", "heavy", "light", "keep", "write",
-                     "write.order"}
+                     "write.order", "write.quantize", "write.codec"}
     assert second == first          # the slot hit is an empty stage span
     st = tmc.LAST_STAGES
     assert {"stage_ms", "heavy_ms", "light_ms", "keep_ms", "write_ms",
@@ -256,3 +262,22 @@ def test_new_stage_keys_time_only_untimed_work(tmp_path, engine,
     assert reads and extra == pw.COUNTER_BYTES * len(reads)
     assert sum(st[k] for k in WALLS) <= st["total_ms"]
     assert 0 < st["norms_parse_ms"] <= st["entry_ms"]
+
+
+@pytest.mark.parametrize("engine", sorted(SHARD_SPANS))
+def test_write_stages_split_the_write(tmp_path, engine):
+    """Each engine's write is split into its ordering, quantisation and
+    codec: one span each under a profiler, inside the write span, and walls
+    that sum to no more than write_ms, untraced and traced."""
+    db = _db(tmp_path / "db")
+    tmc.clear_device_cache()
+    st = _shard(db, tmp_path / "a", engine)
+    assert st["pairs_written"] > 0
+    assert all(st[k] >= 0.0 for k in WRITE_WALLS)
+    assert sum(st[k] for k in WRITE_WALLS) <= st["write_ms"]
+    spans = _profiled(lambda: st.update(_shard(db, tmp_path / "b", engine)),
+                      tmp_path)
+    for inner in WRITE_SPANS:
+        assert sum(n == inner for n, *_ in spans) == 1, inner
+        _nested(spans, inner, "mvs.shard.write")
+    assert sum(st[k] for k in WRITE_WALLS) <= st["write_ms"]

@@ -1,8 +1,12 @@
 """The port's shard writer orders its triples without re-sorting what is
 already in order: matrix.writer._row_major_order gives np.lexsort's stable
 (row, col) permutation, or None for triples already in that order, and
-write_shard records which it was (write_presorted) and the ordering's wall
-(write_order_ms, span mvs.write.order)."""
+write_shard records which it was (write_presorted) and the walls of its
+three stages (write_order_ms, write_quantize_ms, write_codec_ms; spans
+mvs.write.order, mvs.write.quantize, mvs.write.codec), each of which times
+its own work."""
+
+import time
 
 import numpy as np
 import pytest
@@ -87,6 +91,28 @@ def test_write_shard_records_whether_it_sorted(tmp_path, order):
     for f in ("matrix.bin", "row_index.bin", "neighbor_start.bin"):
         assert (tmp_path / "s" / f).read_bytes() \
             == (tmp_path / "t" / f).read_bytes()
+
+
+@pytest.mark.parametrize("step, key", [
+    ("_row_major_order", "write_order_ms"),
+    ("quantize_jaccard", "write_quantize_ms"),
+    ("_write_files", "write_codec_ms")])
+def test_each_write_stage_times_its_own_work(tmp_path, monkeypatch, step,
+                                             key):
+    """A step of the writer made 200 ms slower shows in its own stage's wall
+    and in no other's."""
+    r, c, v, ns = _triples()
+    real = getattr(writer, step)
+
+    def slow(*a, **kw):
+        time.sleep(0.2)
+        return real(*a, **kw)
+    monkeypatch.setattr(writer, step, slow)
+    record = {}
+    writer.write_shard(str(tmp_path / "s"), r, c, v, ns, 16, record=record)
+    walls = ("write_order_ms", "write_quantize_ms", "write_codec_ms")
+    assert record[key] >= 200.0
+    assert all(record[k] < 200.0 for k in walls if k != key), record
 
 
 def test_minhash_shard_hands_the_writer_sorted_pairs(tmp_path, monkeypatch):
